@@ -1,0 +1,87 @@
+"""The CUDA Dslash kernel against its plain PyTorch version on the card
+(phase 3 of chip_smoke.py).  Marked ``gpu``; skips without CUDA.
+
+It imports neither jax nor tpuqcd, so it runs on a machine that has only
+the port's dependencies:
+
+    python -m pytest tests/test_torch_kernels_gpu.py --noconftest -q
+
+Tolerances, on max|kernel - plain| / max|plain|: float64 1e-13, float32
+1e-5, bfloat16 storage 1e-2 (about 2 bf16 ulp: both round a float32
+result whose summation order differs)."""
+import pytest
+import torch
+
+from tpuqcd_torch import su3
+from tpuqcd_torch.cli.run_invert import invert
+from tpuqcd_torch.lattice import Lattice
+from tpuqcd_torch.ops import dslash_cuda
+from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+from tpuqcd_torch.utils.config import config_from_dict
+from tpuqcd_torch.utils.convert import gauge_from_full
+
+pytestmark = pytest.mark.gpu
+
+KAPPA, MU = 0.115, 0.08
+STORAGE = {"f64": (torch.float64, 3, 1e-13), "f32": (torch.float32, 2, 1e-5),
+           "bf16": (torch.bfloat16, 2, 1e-2)}
+MODES = {"none": ("none", None), "twist_inv": ("twist_inv", None), "xpay": ("xpay", None),
+         "xpay_full": ("xpay", KAPPA)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _problem(dims, dev):
+    lat = Lattice(dims)
+    gen = torch.Generator().manual_seed(0)
+    u = gauge_from_full(su3.random_gauge(lat, gen, dev, torch.complex128), lat, True,
+                        torch.float64, dev)
+    shape = (2, 4, 3, *lat.site_shape)
+    psi = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
+    psi0 = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
+    return lat, u, psi, psi0
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("dims", [(8, 8, 8, 16), (32, 32, 32, 64)], ids=["8c16", "32c64"])
+def test_kernel_matches_plain(cuda, dims, storage, mode):
+    dt, rows, tol = STORAGE[storage]
+    epi, scale = MODES[mode]
+    lat, u64, psi, psi0 = _problem(dims, cuda)
+    u = (u64 if rows == 3 else u64[:, :, :2]).to(dt).contiguous()
+    psi, psi0 = psi.to(dt), psi0.to(dt)
+    for parity in (0, 1):
+        for dagger in (False, True):
+            kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale,
+                      psi0=psi0 if epi == "xpay" else None)
+            before = dslash_cuda.counts[str(dt).removeprefix("torch.")]
+            k = dslash_eo(u, psi, parity, lat, **kw).double()
+            assert dslash_cuda.counts[str(dt).removeprefix("torch.")] == before + 1
+            p = dslash_eo_plain(u, psi, parity, lat, **kw).double()
+            torch.cuda.synchronize()
+            assert torch.isfinite(k).all()
+            rel = ((k - p).abs().max() / p.abs().max()).item()
+            assert rel <= tol, (parity, dagger, rel)
+
+
+def test_wrapper_refuses_a_view(cuda):
+    lat, u, psi, _ = _problem((4, 4, 4, 4), cuda)
+    with pytest.raises(ValueError, match="not contiguous"):
+        dslash_eo(u.float()[:, :, :2], psi.float(), 0, lat)
+
+
+def test_run_invert_goes_through_the_kernel(cuda):
+    cfg = config_from_dict({"gauge": {"dims": [8, 8, 8, 16], "random_seed": 1},
+                            "action": {"kappa": KAPPA, "mu": MU}})
+    dslash_cuda.reset_counts()
+    res = invert(cfg, cuda)
+    assert res.relres <= 1e-10
+    assert dslash_cuda.counts["float32"] > 0 and dslash_cuda.counts["float64"] > 0
+    assert dslash_cuda.counts["plain"] == 0

@@ -1,0 +1,15 @@
+"""tpuqcd_torch — the PyTorch and CUDA port of tpuqcd.
+
+The certified twisted-mass solve (``cli/run_invert``) on PyTorch tensors,
+with the even-odd Wilson hop as a hand-written CUDA kernel for Hopper
+(``csrc/dslash_eo.cu``, bound in ``ops/dslash_cuda.py``).  Module names
+mirror ``tpuqcd`` so that each counterpart is easy to find; the field
+layouts at every public function are the same as there:
+
+    spinor (one parity)  [2(ri), 4, 3, T, Z, S]            S = Y * X/2
+    full-system spinor   [2(par), 2(ri), 4, 3, T, Z, S]
+    gauge                [4, 2(par), 3, 3, 2(ri), T, Z, S]
+    gauge, reconstruct-12 [4, 2(par), 2, 3, 2(ri), T, Z, S]
+
+The package imports torch and never jax; the device is always explicit.
+"""

@@ -1,0 +1,69 @@
+"""One certified twisted-mass solve against a random source, with the
+iteration count, the certified full-system residual and GFLOP/s.
+
+    python -m tpuqcd_torch.cli.run_invert --config examples/invert.yaml
+    python -m tpuqcd_torch.cli.run_invert --config examples/invert.yaml --device cpu
+
+Counterpart of ``tpuqcd/cli/run_invert.py`` (the direct packed path).
+Prints the same ``RESULT solve_seconds=... relres=... gflops=...`` line.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..solve import full_system_relres, solve_tm
+from ..utils.config import RunConfig
+from ..utils.profile import Profile, solve_flops
+from .common import check_in_slice, log, parse_args, random_source, setup_gauge
+
+
+@dataclasses.dataclass(frozen=True)
+class InvertResult:
+    seconds: float         # solve wallclock, host clock, device synchronised
+    relres: float          # certified full-system |b - M x| / |b|, float64
+    solver_relres: float   # certified |bhat - Mhat x_e| / |bhat|
+    iters: int             # sloppy matvec count
+    refinements: int
+    gflops: float
+    x: torch.Tensor        # solution [2(par), 2(ri), 4, 3, T, Z, S] float64
+
+
+def main(argv=None):
+    cfg, device = parse_args(__doc__, argv)
+    invert(cfg, device)
+
+
+def invert(cfg: RunConfig, device: torch.device) -> InvertResult:
+    check_in_slice(cfg)
+    log.info("solver.backend=%s selects nothing in the port: the tensors' device "
+             "(%s) runs the CUDA kernel or, on the CPU, its plain version",
+             cfg.solver.backend, device)
+    lat, u_pk = setup_gauge(cfg, device)
+    b_pk = random_source(lat, device)
+    kappa, mu = cfg.action.kappa, cfg.action.mu
+    sloppy = torch.bfloat16 if cfg.solver.sloppy_dtype == "bfloat16" else torch.float32
+    prof = Profile()
+    with prof.phase("solve"):
+        res = solve_tm(u_pk, b_pk, lat, kappa=kappa, mu=mu, tol=cfg.solver.tol,
+                       maxiter=cfg.solver.maxiter, inner_tol=cfg.solver.inner_tol,
+                       solver=cfg.solver.solver, sloppy_dtype=sloppy,
+                       t_boundary=-1 if cfg.gauge.antiperiodic_t else 1)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    t = prof.times["solve"]
+    log.info("solver: relres=%.2e iters=%d refinements=%d", res.relres, res.iters,
+             res.refinements)
+    prof.add_flops("solve", solve_flops(lat, res.iters))
+    rel = full_system_relres(u_pk, b_pk, res.x, lat, kappa=kappa, mu=mu)
+    gf = prof.flops["solve"] / t / 1e9
+    log.info("wallclock %.3f s (%.1f GFLOP/s), certified |r|/|b| = %.3e", t, gf, rel)
+    print(f"RESULT solve_seconds={t:.3f} relres={rel:.3e} gflops={gf:.1f} "
+          f"dims={lat.dims} tol={cfg.solver.tol}")
+    return InvertResult(seconds=t, relres=rel, solver_relres=res.relres, iters=res.iters,
+                        refinements=res.refinements, gflops=gf, x=res.x)
+
+
+if __name__ == "__main__":
+    main()

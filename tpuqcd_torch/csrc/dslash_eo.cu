@@ -1,0 +1,285 @@
+// Even-odd Wilson hop D_{q<-p} psi with the twisted-mass site-term
+// epilogues, for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel tpuqcd/ops/dslash_pallas.py::_kernel (launched
+// by dslash_eo_pallas through the pl.pallas_call at :733), and in its
+// double instantiation the XLA certification operator
+// tpuqcd/ops/dslash_xla.py::dslash_eo_dev_ri.  Plain PyTorch version and
+// binding: tpuqcd_torch/ops/dslash_cuda.py.
+//
+// What bounds it on the card: device-memory bandwidth.  The hop does 1320
+// flop per output site; the naive traffic for float storage with
+// reconstruct-12 links is about 1344 B per site (8 neighbour spinors of
+// 96 B, 8 links of 48 B, the 96 B store, and the 96 B site-term read of
+// the xpay epilogue), about 1 flop per byte, far below the H100's
+// ~20 flop/byte ridge for fp32 outside the tensor cores.  Each spinor is a
+// neighbour of 8 output sites, and the L1/L2 caches serve most of those
+// re-reads, so the compulsory traffic is about 672 B per site (each
+// spinor and link read once).  The design does what bandwidth asks and
+// no more, as a first, simple version:
+//   - one thread per output site of parity q = 1 - p; the layouts keep
+//     the site index minor ([2(ri), 4, 3, T, Z, S] spinors,
+//     [4, 2, R, 3, 2(ri), T, Z, S] links), so every component load of a
+//     warp is one coalesced 128-byte line;
+//   - reconstruct-12 rebuilds row 2 = phase * conj(row0 x row1) in
+//     registers (phase = t_boundary on t-links at global t = T-1), which
+//     cuts link traffic by a third;
+//   - the 24 output reals accumulate in registers; the epilogue
+//     (none | twist_inv | xpay) is fused before the single store, so one
+//     Schur-operator apply is exactly two launches;
+//   - storage is templated (float, __nv_bfloat16 with float arithmetic,
+//     double); the spin tables are compile-time constants.
+// Reuse of neighbour spinors through shared memory, TMA and wider loads
+// are later work; a Dslash has no product of tensor-core size.
+//
+// Spin-projection tables (DeGrand-Rossi; tpuqcd/gammas.py).  For
+// (1 - gamma_mu):  h_a = psi_a + P(mu,a) psi_{partner(mu,a)},  a = 0, 1
+//                  out_a = h_a,  out_b = Q(mu,b) h_{src(mu,b)},  b = 2, 3
+// and (1 + gamma_mu) negates every P and Q.  P and Q are 0, +-1 or +-i.
+// The daggered hop swaps the two projectors.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+template <typename S> struct ComputeOf { using type = float; };
+template <> struct ComputeOf<double> { using type = double; };
+
+__device__ __forceinline__ float to_compute(float v) { return v; }
+__device__ __forceinline__ double to_compute(double v) { return v; }
+__device__ __forceinline__ float to_compute(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(double* p, double v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename R> struct cpx { R re, im; };
+
+template <typename R>
+__device__ __forceinline__ cpx<R> cadd(cpx<R> a, cpx<R> b) { return {a.re + b.re, a.im + b.im}; }
+template <typename R>
+__device__ __forceinline__ cpx<R> cmul(cpx<R> a, cpx<R> b) {
+  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
+}
+template <typename R>  // conj(a) * b
+__device__ __forceinline__ cpx<R> cmulc(cpx<R> a, cpx<R> b) {
+  return {a.re * b.re + a.im * b.im, a.re * b.im - a.im * b.re};
+}
+
+// (cr + i ci) * z for a table coefficient: exactly one of cr, ci is
+// nonzero and it is +-1, known at compile time after unrolling
+template <typename R>
+__device__ __forceinline__ cpx<R> coef_mul(int cr, int ci, cpx<R> z) {
+  if (cr != 0) return {cr > 0 ? z.re : -z.re, cr > 0 ? z.im : -z.im};
+  return {ci > 0 ? -z.im : z.im, ci > 0 ? z.re : -z.re};
+}
+
+__host__ __device__ constexpr int partner(int mu, int a) { return mu < 2 ? 3 - a : 2 + a; }
+__host__ __device__ constexpr int proj_re(int mu, int a) {
+  return mu == 1 ? (a == 0 ? 1 : -1) : (mu == 3 ? -1 : 0);
+}
+__host__ __device__ constexpr int proj_im(int mu, int a) {
+  return mu == 0 ? -1 : (mu == 2 ? (a == 0 ? -1 : 1) : 0);
+}
+__host__ __device__ constexpr int recon_src(int mu, int b) { return mu < 2 ? 3 - b : b - 2; }
+__host__ __device__ constexpr int recon_re(int mu, int b) {
+  return mu == 1 ? (b == 2 ? -1 : 1) : (mu == 3 ? -1 : 0);
+}
+__host__ __device__ constexpr int recon_im(int mu, int b) {
+  return mu == 0 ? 1 : (mu == 2 ? (b == 2 ? 1 : -1) : 0);
+}
+
+// One hop leg: acc += (1 -+ gamma_mu) U psi(nb), with U = link or its
+// adjoint.  sgn = +1 takes the (1 - gamma) tables, -1 the (1 + gamma).
+template <int MU, int NROW, bool ADJ, typename S, typename R>
+__device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict__ psi,
+                                        const S* __restrict__ u, int64_t n_sites,
+                                        int64_t psi_site, int64_t link_site, int link_par,
+                                        int sgn, R phase) {
+  // half-spinor projection at the neighbour
+  cpx<R> h[2][3];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int b = partner(MU, a);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      cpx<R> pa = {to_compute(psi[(0 * 12 + a * 3 + c) * n_sites + psi_site]),
+                   to_compute(psi[(1 * 12 + a * 3 + c) * n_sites + psi_site])};
+      cpx<R> pb = {to_compute(psi[(0 * 12 + b * 3 + c) * n_sites + psi_site]),
+                   to_compute(psi[(1 * 12 + b * 3 + c) * n_sites + psi_site])};
+      cpx<R> t = coef_mul(proj_re(MU, a), proj_im(MU, a), pb);
+      h[a][c] = sgn > 0 ? cadd(pa, t) : cpx<R>{pa.re - t.re, pa.im - t.im};
+    }
+  }
+  // the link, rebuilt to 3x3 from reconstruct-12 if needed
+  cpx<R> U[3][3];
+  const S* ul = u + (int64_t)(MU * 2 + link_par) * NROW * 3 * 2 * n_sites + link_site;
+#pragma unroll
+  for (int i = 0; i < NROW; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      U[i][j] = {to_compute(ul[((i * 3 + j) * 2 + 0) * n_sites]),
+                 to_compute(ul[((i * 3 + j) * 2 + 1) * n_sites])};
+  if (NROW == 2) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
+      cpx<R> a = cmul(U[0][j1], U[1][j2]);
+      cpx<R> b = cmul(U[0][j2], U[1][j1]);
+      U[2][j] = {phase * (a.re - b.re), -phase * (a.im - b.im)};
+    }
+  }
+  // SU(3) mat-vec on both half spinors, then reconstruct and accumulate
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    cpx<R> w[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      cpx<R> s = {R(0), R(0)};
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        s = cadd(s, ADJ ? cmulc(U[j][i], h[a][j]) : cmul(U[i][j], h[a][j]));
+      w[i] = s;
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) acc[a][i] = cadd(acc[a][i], w[i]);
+#pragma unroll
+    for (int b = 2; b < 4; ++b) {
+      if (recon_src(MU, b) != a) continue;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        cpx<R> t = coef_mul(recon_re(MU, b), recon_im(MU, b), w[i]);
+        acc[b][i] = sgn > 0 ? cadd(acc[b][i], t)
+                            : cpx<R>{acc[b][i].re - t.re, acc[b][i].im - t.im};
+      }
+    }
+  }
+}
+
+template <typename S, int NROW, bool DAGGER>
+__global__ void __launch_bounds__(128)
+dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
+                 const S* __restrict__ psi0, S* __restrict__ out, int T, int Z, int Y,
+                 int Xh, int p, int epilogue, double tw_d, double k2_d, int t_boundary) {
+  using R = typename ComputeOf<S>::type;
+  const int64_t n_sites = (int64_t)T * Z * Y * Xh;
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= n_sites) return;
+  const int xh = (int)(n % Xh);
+  const int y = (int)((n / Xh) % Y);
+  const int z = (int)((n / ((int64_t)Xh * Y)) % Z);
+  const int t = (int)(n / ((int64_t)Xh * Y * Z));
+  const int q = 1 - p;
+  // x offset of the source-parity rows (tpuqcd/ops/dslash_pallas.py:106)
+  const bool o_p = ((t + z + y + p) & 1) == 1;
+  auto site = [=](int t_, int z_, int y_, int xh_) -> int64_t {
+    return (((int64_t)t_ * Z + z_) * Y + y_) * Xh + xh_;
+  };
+  const int xf = o_p ? xh : (xh + 1 == Xh ? 0 : xh + 1);
+  const int xb = o_p ? (xh == 0 ? Xh - 1 : xh - 1) : xh;
+  const int yf = y + 1 == Y ? 0 : y + 1, yb = y == 0 ? Y - 1 : y - 1;
+  const int zf = z + 1 == Z ? 0 : z + 1, zb = z == 0 ? Z - 1 : z - 1;
+  const int tf = t + 1 == T ? 0 : t + 1, tb = t == 0 ? T - 1 : t - 1;
+  // reconstruct-12 phase of a t-link at global t = T-1
+  const R one = R(1);
+  const R ph_f = (NROW == 2 && t == T - 1) ? R(t_boundary) : one;
+  const R ph_b = (NROW == 2 && tb == T - 1) ? R(t_boundary) : one;
+  // forward legs take (1 - gamma), backward legs (1 + gamma); dagger swaps
+  const int sf = DAGGER ? -1 : 1;
+  const int sb = -sf;
+
+  cpx<R> acc[4][3];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[a][c] = {R(0), R(0)};
+
+  // forward: U_mu(x)|q psi(x + mu);  backward: U_mu(x - mu)|p^dag psi(x - mu)
+  hop_leg<0, NROW, false>(acc, psi, u, n_sites, site(t, z, y, xf), n, q, sf, one);
+  hop_leg<0, NROW, true>(acc, psi, u, n_sites, site(t, z, y, xb), site(t, z, y, xb), p, sb, one);
+  hop_leg<1, NROW, false>(acc, psi, u, n_sites, site(t, z, yf, xh), n, q, sf, one);
+  hop_leg<1, NROW, true>(acc, psi, u, n_sites, site(t, z, yb, xh), site(t, z, yb, xh), p, sb, one);
+  hop_leg<2, NROW, false>(acc, psi, u, n_sites, site(t, zf, y, xh), n, q, sf, one);
+  hop_leg<2, NROW, true>(acc, psi, u, n_sites, site(t, zb, y, xh), site(t, zb, y, xh), p, sb, one);
+  hop_leg<3, NROW, false>(acc, psi, u, n_sites, site(tf, z, y, xh), n, q, sf, ph_f);
+  hop_leg<3, NROW, true>(acc, psi, u, n_sites, site(tb, z, y, xh), site(tb, z, y, xh), p, sb, ph_b);
+
+  // fused site-term epilogue (tpuqcd/ops/dslash_pallas.py:446-460)
+  const R tw = R(tw_d), k2 = R(k2_d);
+  const R den = R(1) / (R(1) + tw * tw);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const R g5 = a < 2 ? R(1) : R(-1);  // gamma5 = diag(1, 1, -1, -1)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int64_t o_re = (int64_t)(0 * 12 + a * 3 + c) * n_sites + n;
+      const int64_t o_im = (int64_t)(1 * 12 + a * 3 + c) * n_sites + n;
+      R rr = acc[a][c].re, ri = acc[a][c].im;
+      if (epilogue == 1) {  // (1 - i tw g5) / (1 + tw^2) . D psi
+        const R dr = rr, di = ri;
+        rr = den * dr + (tw * den) * g5 * di;
+        ri = den * di - (tw * den) * g5 * dr;
+      } else if (epilogue == 2) {  // (1 + i tw g5) psi0 - k2 . D psi
+        const R p0r = to_compute(psi0[o_re]), p0i = to_compute(psi0[o_im]);
+        const R dr = rr, di = ri;
+        rr = p0r - tw * g5 * p0i - k2 * dr;
+        ri = p0i + tw * g5 * p0r - k2 * di;
+      }
+      store(out + o_re, rr);
+      store(out + o_im, ri);
+    }
+  }
+}
+
+template <typename S>
+int launch(const void* u, const void* psi, const void* psi0, void* out, int T, int Z, int Y,
+           int Xh, int nrow, int src_parity, int dagger, int epilogue, double tw, double k2,
+           int t_boundary, int device, void* stream) {
+  if ((nrow != 2 && nrow != 3) || (src_parity != 0 && src_parity != 1) || epilogue < 0 ||
+      epilogue > 2 || (epilogue == 2 && psi0 == nullptr) || T <= 0 || Z <= 0 || Y <= 0 ||
+      Xh <= 0)
+    return (int)cudaErrorInvalidValue;
+  // this library links its own CUDA runtime, whose current device is not
+  // PyTorch's: select the tensors' device before launching on its stream
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  const int64_t n_sites = (int64_t)T * Z * Y * Xh;
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((n_sites + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+  const S* u_ = (const S*)u;
+  const S* psi_ = (const S*)psi;
+  const S* psi0_ = (const S*)psi0;
+  S* out_ = (S*)out;
+#define TQ_LAUNCH(NR, DG)                                                                   \
+  dslash_eo_kernel<S, NR, DG><<<blocks, threads, 0, s>>>(u_, psi_, psi0_, out_, T, Z, Y, Xh, \
+                                                          src_parity, epilogue, tw, k2,     \
+                                                          t_boundary)
+  if (nrow == 2) {
+    if (dagger) TQ_LAUNCH(2, true); else TQ_LAUNCH(2, false);
+  } else {
+    if (dagger) TQ_LAUNCH(3, true); else TQ_LAUNCH(3, false);
+  }
+#undef TQ_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define TQ_ENTRY(NAME, S)                                                                     \
+  extern "C" int NAME(const void* u, const void* psi, const void* psi0, void* out, int T,     \
+                      int Z, int Y, int Xh, int nrow, int src_parity, int dagger, int epilogue, \
+                      double tw, double k2, int t_boundary, int device, void* stream) {       \
+    return launch<S>(u, psi, psi0, out, T, Z, Y, Xh, nrow, src_parity, dagger, epilogue, tw,  \
+                     k2, t_boundary, device, stream);                                         \
+  }
+
+TQ_ENTRY(tq_dslash_eo_f32, float)
+TQ_ENTRY(tq_dslash_eo_bf16, __nv_bfloat16)
+TQ_ENTRY(tq_dslash_eo_f64, double)
+
+extern "C" const char* tq_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

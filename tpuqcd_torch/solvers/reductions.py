@@ -1,0 +1,35 @@
+"""Global reductions accumulated in float64.
+
+Counterpart of ``tpuqcd/solvers/reductions.py``.  The H100 has native
+f64, so the sums simply run in float64; results are 0-d float64
+tensors on the field's device (no host sync until a caller asks).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _f64(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1).to(torch.float64)
+
+
+def norm2(x: torch.Tensor) -> torch.Tensor:
+    """sum |x|^2 (x real or complex) as a float64 0-d tensor."""
+    if x.is_complex():
+        return norm2(torch.view_as_real(x))
+    v = _f64(x)
+    return torch.dot(v, v)
+
+
+def redot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Re <x, y> = Re sum conj(x) y as a float64 0-d tensor."""
+    if x.is_complex():
+        return redot(torch.view_as_real(x), torch.view_as_real(y))
+    return torch.dot(_f64(x), _f64(y))
+
+
+def cdot(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """<x, y> = sum conj(x) y of complex fields as a (re, im) float64 pair."""
+    xr, xi = _f64(x.real), _f64(x.imag)
+    yr, yi = _f64(y.real), _f64(y.imag)
+    return torch.dot(xr, yr) + torch.dot(xi, yi), torch.dot(xr, yi) - torch.dot(xi, yr)

@@ -1,0 +1,52 @@
+"""State carried over from tpuqcd: numpy arrays -> the port's tensors.
+
+A gauge field in the full site layout (as tpuqcd's setup or an ILDG
+reader returns it) goes through the port's own boundary phase, eo split,
+device layout and packing; arrays already in a packed layout are checked
+and moved as they are.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fields import apply_boundary_phase, gauge_full_to_eo
+from ..lattice import Lattice
+from ..ops.layout import gauge_to_device
+from .packed import pack_gauge
+
+
+def gauge_from_full(u_full, lat: Lattice, antiperiodic_t: bool = True,
+                    dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """Complex full-layout gauge [4, T, Z, Y, X, 3, 3] (numpy array or
+    tensor, no boundary phase) -> packed [4, 2, 3, 3, 2, T, Z, S] on
+    ``device``, with the temporal boundary phase folded in."""
+    u = torch.as_tensor(u_full, device=device)
+    if not u.is_complex() or tuple(u.shape) != lat.gauge_shape():
+        raise ValueError(f"gauge must be complex {lat.gauge_shape()}, got "
+                         f"{u.dtype} {tuple(u.shape)}")
+    u = apply_boundary_phase(u, lat, antiperiodic_t=antiperiodic_t)
+    return pack_gauge(gauge_to_device(gauge_full_to_eo(u, lat), lat), dtype)
+
+
+def packed_from_numpy(arr: np.ndarray, lat: Lattice, device=None) -> torch.Tensor:
+    """An array in one of the packed layouts -> a contiguous tensor on
+    ``device`` of the same dtype (float32, float64, or bfloat16 as numpy
+    carries it for jax).  Layouts:
+
+        spinor       [2, 4, 3, T, Z, S]
+        full system  [2, 2, 4, 3, T, Z, S]
+        gauge        [4, 2, 3, 3, 2, T, Z, S] or reconstruct-12 [4, 2, 2, 3, 2, T, Z, S]
+    """
+    arr = np.asarray(arr)
+    sites = lat.site_shape
+    layouts = [(2, 4, 3, *sites), (2, 2, 4, 3, *sites), (4, 2, 3, 3, 2, *sites),
+               (4, 2, 2, 3, 2, *sites)]
+    if arr.shape not in layouts:
+        raise ValueError(f"shape {arr.shape} is not a packed layout of {lat.dims}: "
+                         f"{layouts}")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
+    if arr.dtype not in (np.float32, np.float64):
+        raise ValueError(f"dtype {arr.dtype} is not float32, float64 or bfloat16")
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
