@@ -9,16 +9,28 @@ Phases, each of which exits non-zero on failure:
 2. the build of tpuqcd_torch/csrc/dslash_eo.cu with nvcc for sm_90a, and
    its seconds;
 3. the Dslash kernel against its plain PyTorch version on the card, at
-   8^3x16 and 32^3x64, in every mode the solve runs (epilogues none,
+   8^3x16 and 32^3x64, in every mode the solves run (epilogues none,
    twist_inv, xpay and xpay with the kappa scale; both source parities;
    dagger off and on) and in each storage type (float64 18-real links,
-   float32 and bfloat16 reconstruct-12 links);
-4. the main path: tpuqcd_torch.cli.run_invert at 32^3x64 (random gauge
-   seed 1, kappa 0.115, mu 0.08, CG, tol 1e-10) with the kernel's launch
-   counts, the certified residual, and an independent float64 residual
-   of the solution through the plain version;
-5. times at 32^3x64 float32 reconstruct-12: the kernel per launch for
-   each epilogue beside the plain version, GFLOP/s and effective GB/s.
+   float32 and bfloat16 reconstruct-12 links); then the leg modes (K4):
+   legs_out with all 8 legs and with a dirs subset given out of order,
+   each single dirs leg, and legs_out into the parity views of an MG
+   field, in the same parities, daggers and storage types; and the MG
+   fine operator (DeviceFineLevel.apply: xpay into the parity views of an
+   MG field, flavor +1 and -1) in each storage type;
+4. the main paths, each with the kernel's launch counts set to 0 just
+   before it and read just after, the certified residual, and an
+   independent float64 residual of the solution through the plain
+   version:
+   a. tpuqcd_torch.cli.run_invert at 32^3x64 (random gauge seed 1,
+      kappa 0.115, mu 0.08, CG, tol 1e-10);
+   b. run_invert's multigrid path at 32^3x64: a beta = 6.0 heatbath gauge
+      (160 compound sweeps), kappa 0.157, mu 0.0009, mg.preset
+      near_critical, inner_tol 1e-7, tol 1e-10; it prints the plaquette,
+      the setup seconds by stage, the inner iterations and refinements;
+5. times at 32^3x64: the kernel per launch for each epilogue and storage
+   type the solves use and for the legs_out and dirs modes, beside the
+   plain version, with GFLOP/s and effective GB/s.
 
 The line before the last is the JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -43,6 +55,9 @@ STORAGE = (("f64", torch.float64, 3, 1e-13),
 #: epilogue modes: (name, epilogue, xpay_scale)
 MODES = (("none", "none", None), ("twist_inv", "twist_inv", None),
          ("xpay", "xpay", None), ("xpay_full", "xpay", KAPPA))
+#: the multigrid cell: heatbath gauge, near-critical action and preset
+MG_KAPPA, MG_MU, MG_BETA, MG_SWEEPS = 0.157, 0.0009, 6.0, 160
+PLAQ_BETA6, PLAQ_TOL = 0.5937, 0.002
 FLOP_PER_SITE = 1320
 RELRES_MAX = 1e-10
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet, at the 700 W limit
@@ -120,11 +135,97 @@ def compare(dims, dev) -> dict:
     return max_abs
 
 
-def plain_full_relres(u64, b, x, lat) -> float:
+def compare_legs(dims, dev) -> dict:
+    """The leg modes (K4) against the plain version; returns {storage:
+    max abs err over the legs_out cases}."""
+    from tpuqcd_torch.ops.dslash_cuda import LEG_ORDER, dslash_eo, dslash_eo_plain
+    lat, gauges, psi64, _ = problem(dims, dev, seed=3)
+    subset = ((3, -1), (0, +1), (2, +1))           # out of the kernel's order
+    cases = [("legs_out", dict(legs_out=True)),
+             ("legs_out_subset", dict(legs_out=True, dirs=subset))]
+    cases += [(f"dirs{m}{'+' if s > 0 else '-'}", dict(dirs=((m, s),))) for m, s in LEG_ORDER]
+    max_abs = {}
+    for name, dt, _, tol in STORAGE:
+        u = gauges[name]
+        # psi as the odd-parity view of an MG field [2(ri), 2(par), ...]
+        field = torch.stack([psi64, psi64.flip(0)], dim=1).to(dt)
+        psi = field[:, 1]
+        max_abs[name] = 0.0
+        rel = {}
+        for parity in (0, 1):
+            for dagger in (False, True):
+                for case, kw in cases:
+                    k = dslash_eo(u, psi, parity, lat, dagger=dagger, **kw).double()
+                    p = dslash_eo_plain(u, psi, parity, lat, dagger=dagger, **kw).double()
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(k).all():
+                        fail(f"{dims} {name} {case}: non-finite kernel output")
+                    err = (k - p).abs().max().item()
+                    if case.startswith("legs_out"):
+                        max_abs[name] = max(max_abs[name], err)
+                    rel[case] = max(rel.get(case, 0.0), err / p.abs().max().item())
+                # legs_out written into the parity views of an MG leg bank
+                out = torch.empty((8, *field.shape), dtype=dt, device=dev)
+                dslash_eo(u, psi, parity, lat, dagger=dagger, legs_out=True, out=out[:, :, 0])
+                p = dslash_eo_plain(u, psi, parity, lat, dagger=dagger, legs_out=True)
+                torch.cuda.synchronize()
+                err = (out[:, :, 0].double() - p.double()).abs().max().item()
+                rel["legs_out_view"] = max(rel.get("legs_out_view", 0.0),
+                                           err / p.double().abs().max().item())
+        for case, r in rel.items():
+            ok = r <= tol
+            print(f"  {'x'.join(map(str, dims))} {name:4s} {case:15s} "
+                  f"max rel err {r:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"leg mode disagrees with the plain version: {dims} {name} {case}")
+    return max_abs
+
+
+def compare_fine_apply(dims, dev) -> dict:
+    """The MG fine operator M v (mg/device.DeviceFineLevel.apply: xpay with
+    the kappa scale, psi0 and out the parity views of an MG field
+    [2(ri), 2(par), ...]) at the MG cell's kappa and mu, flavor +1 and -1
+    (the CG-NE setup), in each storage type (the float32 level, its bf16
+    smoother twin, its float64 certification twin), against the plain
+    version on contiguous copies of the same parities; returns {storage:
+    max abs err}."""
+    from tpuqcd_torch.mg.device import DeviceFineLevel
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo_plain
+    lat, gauges, psi64, psi064 = problem(dims, dev, seed=4)
+    field = torch.stack([psi64, psi064], dim=1)           # [2(ri), 2(par), 4, 3, T, Z, S]
+    max_abs = {}
+    for flavor in (+1, -1):
+        f32 = DeviceFineLevel(lat, gauges["f64"].float(), MG_KAPPA, MG_MU, flavor)
+        for name, level in (("f64", f32.as_hp()), ("f32", f32), ("bf16", f32.sloppy())):
+            u = level.u_pk if level.u12 is None else level.u12
+            tol = next(s[3] for s in STORAGE if s[0] == name)
+            v = field.to(u.dtype)
+            k = level.apply(v).double()
+            p = torch.stack([dslash_eo_plain(
+                u, v[:, 1 - par].contiguous(), 1 - par, lat, epilogue="xpay",
+                kappa=MG_KAPPA, mu=MG_MU, flavor=flavor, t_boundary=level.t_boundary,
+                psi0=v[:, par].contiguous(), xpay_scale=MG_KAPPA).double()
+                for par in (0, 1)], dim=1)
+            torch.cuda.synchronize()
+            if not torch.isfinite(k).all():
+                fail(f"{dims} {name} fine apply flavor {flavor:+d}: non-finite output")
+            err = (k - p).abs().max().item()
+            max_abs[name] = max(max_abs.get(name, 0.0), err)
+            rel = err / p.abs().max().item()
+            ok = rel <= tol
+            print(f"  {'x'.join(map(str, dims))} {name:4s} fine apply flavor {flavor:+d} "
+                  f"max rel err {rel:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"MG fine apply disagrees with the plain version: {dims} {name} "
+                     f"flavor {flavor:+d}")
+    return max_abs
+
+
+def plain_full_relres(u64, b, x, lat, kappa=KAPPA, mu=MU) -> float:
     """|b - M x| / |b| of the two-parity system with the plain version."""
     from tpuqcd_torch.ops.dslash_cuda import dslash_eo_plain
     m = [dslash_eo_plain(u64, x[1 - par].contiguous(), 1 - par, lat, epilogue="xpay",
-                         kappa=KAPPA, mu=MU, psi0=x[par].contiguous(), xpay_scale=KAPPA)
+                         kappa=kappa, mu=mu, psi0=x[par].contiguous(), xpay_scale=kappa)
          for par in (0, 1)]
     r = b - torch.stack(m)
     return (r.square().sum() / b.square().sum()).sqrt().item()
@@ -155,12 +256,57 @@ def main_path(dev):
         fail(f"solution shape {tuple(res.x.shape)}")
     # independent check: the same problem, rebuilt from its seeds, and the
     # plain float64 operator (launches here are outside the counted run)
-    lat, u_pk = setup_gauge(cfg, dev)
+    lat, u_pk, _, _ = setup_gauge(cfg, dev)
     b = random_source(lat, dev).double()
     rel_plain = plain_full_relres(u_pk.double(), b, res.x, lat)
     print(f"  certified relres {res.relres:.3e}, plain-operator relres {rel_plain:.3e}, "
           f"solver relres {res.solver_relres:.3e}, iters {res.iters}, "
           f"refinements {res.refinements}, wallclock {res.seconds:.3f} s")
+    if not rel_plain <= RELRES_MAX:
+        fail(f"plain-operator relres {rel_plain:.3e} > {RELRES_MAX:.0e}")
+    return res, counts
+
+
+def mg_path(dev):
+    """run_invert's multigrid path on the 32^3x64 heatbath gauge."""
+    from tpuqcd_torch.cli.run_invert import invert
+    from tpuqcd_torch.ops import dslash_cuda
+    from tpuqcd_torch.utils.config import config_from_dict
+    cfg = config_from_dict({
+        "gauge": {"dims": list(LARGE), "heatbath_beta": MG_BETA,
+                  "heatbath_sweeps": MG_SWEEPS, "random_seed": 0},
+        "action": {"kappa": MG_KAPPA, "mu": MG_MU},
+        "solver": {"tol": RELRES_MAX, "inner_tol": 1e-7},
+        "mg": {"enabled": True, "preset": "near_critical"}})
+    torch.cuda.synchronize()
+    dslash_cuda.reset_counts()
+    res = invert(cfg, dev)
+    torch.cuda.synchronize()
+    counts = dict(dslash_cuda.counts)
+    st = res.setup_seconds
+    print(f"  heatbath beta {MG_BETA}, {MG_SWEEPS} compound sweeps: plaquette "
+          f"{res.plaquette:.6f} (|p - {PLAQ_BETA6}| = {abs(res.plaquette - PLAQ_BETA6):.2e}, "
+          f"limit {PLAQ_TOL}), {st['gauge']:.1f} s")
+    print(f"  MG setup {st['mg_setup']:.2f} s: null vectors {st['nulls0']:.2f} s, "
+          f"Galerkin probing {st['galerkin0']:.2f} s")
+    print(f"  launches during setup and solve: {counts}")
+    if abs(res.plaquette - PLAQ_BETA6) > PLAQ_TOL:
+        fail(f"plaquette {res.plaquette:.6f} is not within {PLAQ_TOL} of {PLAQ_BETA6}")
+    for key in ("float32", "bfloat16", "float64", "float32:legs_out"):
+        if counts.get(key, 0) <= 0:
+            fail(f"the MG path did not launch the {key} kernel: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail(f"the MG path called the plain version {counts['plain']} times")
+    if not (res.relres <= RELRES_MAX and res.solver_relres <= RELRES_MAX
+            and torch.isfinite(res.x).all()):
+        fail(f"certified relres {res.relres:.3e} / {res.solver_relres:.3e} > "
+             f"{RELRES_MAX:.0e} or non-finite x")
+    from tpuqcd_torch.lattice import Lattice
+    rel_plain = plain_full_relres(res.u_pk.double(), res.b_pk.double(), res.x, Lattice(LARGE),
+                                  MG_KAPPA, MG_MU)
+    print(f"  certified relres {res.relres:.3e} (hierarchy's own {res.solver_relres:.3e}), "
+          f"plain-operator relres {rel_plain:.3e}, inner iterations {res.iters}, "
+          f"refinements {res.refinements}, solve wallclock {res.seconds:.3f} s")
     if not rel_plain <= RELRES_MAX:
         fail(f"plain-operator relres {rel_plain:.3e} > {RELRES_MAX:.0e}")
     return res, counts
@@ -196,7 +342,7 @@ def timings(dev, card_tag) -> dict:
     lat, gauges, psi64, psi064 = problem(LARGE, dev, seed=2)
     sites = lat.half_volume
     out = {}
-    for name, dt, rows, _ in STORAGE[:2]:
+    for name, dt, rows, _ in STORAGE:
         u, psi, psi0 = gauges[name], psi64.to(dt), psi064.to(dt)
         modes = MODES if name == "f32" else MODES[3:]
         for mode, epi, scale in modes:
@@ -212,6 +358,23 @@ def timings(dev, card_tag) -> dict:
                   f"naive, {comp / 1e9:.1f} GB/s compulsory = "
                   f"{comp / HBM_BYTES_PER_S:.1%} of 3.35 TB/s) | plain {p_ms:.3f} ms | {card_tag}")
             out[(name, mode)] = (k_ms, p_ms)
+    # legs_out (f32, reconstruct-12, the probing operand): one spinor and 8
+    # links read, 8 spinors written per output site
+    u, psi = gauges["f32"], psi64.float()
+    k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, legs_out=True), reps=50)
+    p_ms = time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, legs_out=True), reps=3, warmup=1)
+    byts = (96 + 8 * 48 + 8 * 96) * sites
+    print(f"  {'x'.join(map(str, LARGE))} f32 recon-12 legs_out kernel {k_ms:.4f} ms "
+          f"({byts / 1e9:.2f} GB compulsory, {byts / (k_ms * 1e-3) / 1e9:.1f} GB/s = "
+          f"{byts / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; floor "
+          f"{byts / HBM_BYTES_PER_S * 1e3:.3f} ms) | plain {p_ms:.3f} ms | {card_tag}")
+    out[("f32", "legs_out")] = (k_ms, p_ms)
+    # one dirs leg (the per-leg probing path): one spinor, one link, one store
+    k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, dirs=((3, +1),)), reps=50)
+    p_ms = time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, dirs=((3, +1),)), reps=3, warmup=1)
+    print(f"  {'x'.join(map(str, LARGE))} f32 recon-12 dirs (t, +1) kernel {k_ms:.4f} ms | "
+          f"plain {p_ms:.3f} ms | {card_tag}")
+    out[("f32", "dirs")] = (k_ms, p_ms)
     return out
 
 
@@ -243,27 +406,48 @@ def main() -> None:
     print("phase 3: kernel against plain version", flush=True)
     compare(SMALL, dev)
     max_abs = compare(LARGE, dev)
+    print("phase 3: leg modes (K4) against plain version", flush=True)
+    compare_legs(SMALL, dev)
+    legs_abs = compare_legs(LARGE, dev)
+    print("phase 3: MG fine apply against plain version", flush=True)
+    compare_fine_apply(SMALL, dev)
+    fine_abs = compare_fine_apply(LARGE, dev)
 
-    print("phase 4: main path, tpuqcd_torch.cli.run_invert at 32^3x64", flush=True)
+    print("phase 4a: main path, tpuqcd_torch.cli.run_invert (CG) at 32^3x64", flush=True)
     res, counts = main_path(dev)
+    print("phase 4b: main path, tpuqcd_torch.cli.run_invert (MG) at 32^3x64", flush=True)
+    mg_res, mg_counts = mg_path(dev)
 
     print(f"phase 5: times {card_tag}", flush=True)
     t = timings(dev, card_tag)
-    print(f"  solve: {res.seconds:.3f} s wallclock, {res.iters} sloppy matvecs, "
+    print(f"  CG solve: {res.seconds:.3f} s wallclock, {res.iters} sloppy matvecs, "
           f"{res.gflops:.1f} GFLOP/s (solve_flops accounting) {card_tag}")
+    print(f"  MG solve: {mg_res.seconds:.3f} s wallclock, {mg_res.iters} inner iterations, "
+          f"{mg_res.refinements} refinements; setup {mg_res.setup_seconds['mg_setup']:.2f} s "
+          f"{card_tag}")
 
     from tpuqcd_torch.ops.dslash_cuda import SOURCE
     src = "tpuqcd_torch/csrc/" + SOURCE.name
     replaces = "tpuqcd/ops/dslash_pallas.py:514"
+
+    def entry(name, launches, err, timed):
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": t[timed][0],
+                "plain_ms": t[timed][1]}
+
     kernels = [
-        {"name": "dslash_eo<float> reconstruct-12 (sloppy operator), xpay timed",
-         "route": "cuda", "source": src, "replaces": replaces,
-         "launches": counts["float32"], "max_abs_err": max_abs["f32"],
-         "ms": t[("f32", "xpay")][0], "plain_ms": t[("f32", "xpay")][1]},
-        {"name": "dslash_eo<double> 18-real (certification operator), xpay_full timed",
-         "route": "cuda", "source": src, "replaces": replaces,
-         "launches": counts["float64"], "max_abs_err": max_abs["f64"],
-         "ms": t[("f64", "xpay_full")][0], "plain_ms": t[("f64", "xpay_full")][1]},
+        entry("dslash_eo<float> reconstruct-12 (CG sloppy operator), xpay timed",
+              counts["float32"], max_abs["f32"], ("f32", "xpay")),
+        entry("dslash_eo<double> 18-real (CG certification operator), xpay_full timed",
+              counts["float64"], max_abs["f64"], ("f64", "xpay_full")),
+        entry("dslash_eo<float> reconstruct-12 (MG fine operator), xpay_full timed",
+              mg_counts["float32"], fine_abs["f32"], ("f32", "xpay_full")),
+        entry("dslash_eo<bf16> reconstruct-12 (MG smoother), xpay_full timed",
+              mg_counts["bfloat16"], fine_abs["bf16"], ("bf16", "xpay_full")),
+        entry("dslash_eo<double> 18-real (MG certification operator), xpay_full timed",
+              mg_counts["float64"], fine_abs["f64"], ("f64", "xpay_full")),
+        entry("dslash_eo<float> reconstruct-12 legs_out (K4, MG Galerkin probing)",
+              mg_counts["float32:legs_out"], legs_abs["f32"], ("f32", "legs_out")),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -107,8 +107,11 @@ def test_device_layout_round_trips():
 def test_boundary_phase_eo_layout_matches_full_layout():
     u = t(gauge_full(LAT, 9))
     a = gauge_full_to_eo(apply_boundary_phase(u, LAT), LAT)
-    b = apply_boundary_phase(gauge_full_to_eo(u, LAT), LAT, eo=True)
+    b = apply_boundary_phase(gauge_full_to_eo(u, LAT), LAT, layout="eo")
     assert torch.equal(a, b) and not torch.equal(a, gauge_full_to_eo(u, LAT))
+    c = apply_boundary_phase(gauge_to_device(gauge_full_to_eo(u, LAT), LAT), LAT,
+                             layout="device")
+    assert torch.equal(c, gauge_to_device(a, LAT))
     assert torch.equal(apply_boundary_phase(u, LAT, antiperiodic_t=False), u)
 
 

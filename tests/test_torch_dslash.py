@@ -6,7 +6,9 @@ chip_smoke.py).  Tolerances: float64 18-real against dslash_eo_dev_ri
 1e-12 abs (both are f64 sums of the same terms); float32 reconstruct-12
 against the Pallas kernel in interpret mode 2e-5 abs, as in
 test_dslash_pallas.py; bfloat16 storage one bf16 ulp relative (2^-7),
-since both round the same float32 result."""
+since both round the same float32 result.  The leg modes (K4: dirs,
+legs_out) against the Pallas kernel in interpret mode, 2e-5 abs, as in
+test_dslash_pallas.py:172-215."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ from tpuqcd.ops.dslash_pallas import dslash_eo_pallas
 from tpuqcd.ops.dslash_xla import dslash_eo_dev_ri
 
 from tpuqcd_torch.ops import dslash_cuda
-from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain, hop_index
+from tpuqcd_torch.ops.dslash_cuda import LEG_ORDER, dslash_eo, dslash_eo_plain, hop_index
 
 from _torch_inputs import gauge_full, jax_gauge_pk, lattices, n, spinor_pk, t
 
@@ -135,3 +137,91 @@ def test_dispatch_checks_and_counts():
     assert dslash_cuda.counts == {"plain": 1}
     out = dslash_eo_plain(u, psi, 1, LAT, epilogue="xpay", kappa=KAPPA, mu=MU, psi0=psi0)
     assert out.shape == psi.shape and dslash_cuda.counts == {"plain": 2}
+
+
+@pytest.mark.parametrize("rows,parity,dagger", [(2, 0, False), (2, 1, True), (3, 1, False),
+                                                (3, 0, True)])
+def test_plain_legs_out_matches_pallas(rows, parity, dagger):
+    """legs_out: the 8 legs in LEG_ORDER against the Pallas kernel's
+    legs_out slots; each single dirs leg against its slot; the slots sum
+    to the full hop."""
+    u, psi, _ = _fields(np.float32)
+    u_j = u[:, :, :rows]
+    kw = dict(dagger=dagger, t_boundary=-1)
+    ref = np.asarray(dslash_eo_pallas(u_j, psi, parity, JLAT, interpret=True, legs_out=True,
+                                      **kw))
+    uu, x = t(u_j), t(psi)
+    legs = dslash_eo(uu, x, parity, LAT, legs_out=True, **kw)
+    assert legs.shape == (8, *psi.shape) and legs.dtype == torch.float32
+    np.testing.assert_allclose(n(legs), ref, atol=2e-5, rtol=0)
+    for i, leg in enumerate(LEG_ORDER):
+        np.testing.assert_allclose(n(dslash_eo(uu, x, parity, LAT, dirs=(leg,), **kw)),
+                                   ref[i], atol=2e-5, rtol=0, err_msg=str(leg))
+    full = dslash_eo(uu, x, parity, LAT, **kw)
+    torch.testing.assert_close(legs.sum(0), full, atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("parity,dagger", [(0, False), (1, True)])
+def test_plain_dirs_single_legs_match_pallas(parity, dagger):
+    """dirs with one leg each against the Pallas dirs filter, and a
+    three-leg dirs sum with the twist_inv epilogue on top."""
+    u, psi, _ = _fields(np.float32)
+    u12 = u[:, :, :2]
+    for leg in LEG_ORDER:
+        ref = np.asarray(dslash_eo_pallas(u12, psi, parity, JLAT, interpret=True,
+                                          dirs=(leg,), dagger=dagger))
+        out = dslash_eo(t(u12), t(psi), parity, LAT, dirs=(leg,), dagger=dagger)
+        np.testing.assert_allclose(n(out), ref, atol=2e-5, rtol=0, err_msg=str(leg))
+    dirs = ((2, -1), (0, +1), (3, +1))
+    kw = dict(dirs=dirs, dagger=dagger, epilogue="twist_inv", kappa=KAPPA, mu=MU)
+    ref = np.asarray(dslash_eo_pallas(u12, psi, parity, JLAT, interpret=True, **kw))
+    np.testing.assert_allclose(n(dslash_eo(t(u12), t(psi), parity, LAT, **kw)), ref,
+                               atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+def test_plain_legs_out_subset_slot_order(parity):
+    """A dirs subset given out of order: the slots follow LEG_ORDER, as
+    the Pallas kernel's do."""
+    u, psi, _ = _fields(np.float32)
+    u12 = u[:, :, :2]
+    subset = ((3, -1), (0, +1), (2, +1))
+    ref = np.asarray(dslash_eo_pallas(u12, psi, parity, JLAT, interpret=True, legs_out=True,
+                                      dirs=subset))
+    out = dslash_eo(t(u12), t(psi), parity, LAT, legs_out=True, dirs=subset)
+    assert out.shape == (3, *psi.shape)
+    np.testing.assert_allclose(n(out), ref, atol=2e-5, rtol=0)
+    for slot, leg in zip(out, sorted(subset, key=LEG_ORDER.index)):
+        torch.testing.assert_close(slot, dslash_eo(t(u12), t(psi), parity, LAT, dirs=(leg,)),
+                                   atol=0, rtol=0)
+
+
+def test_leg_modes_on_parity_views_and_checks():
+    """The MG field layout: operands and outputs as parity views of
+    [2(ri), 2(par), ...] fields, written in place; and the leg checks."""
+    u, psi, psi0 = (t(a) for a in _fields(np.float32))
+    field = torch.stack([psi0, psi], dim=1)              # [2, 2(par), 4, 3, T, Z, S]
+    out = torch.zeros_like(field)
+    ret = dslash_eo(u, field[:, 1], 1, LAT, epilogue="xpay", kappa=KAPPA, mu=MU,
+                    psi0=field[:, 0], out=out[:, 0])
+    assert ret.data_ptr() == out.data_ptr()
+    torch.testing.assert_close(out[:, 0], dslash_eo(u, psi, 1, LAT, epilogue="xpay",
+                                                    kappa=KAPPA, mu=MU, psi0=psi0),
+                               atol=0, rtol=0)
+    assert out[:, 1].abs().max() == 0
+    bank = torch.zeros((8, *field.shape))
+    dslash_eo(u, field[:, 1], 1, LAT, legs_out=True, out=bank[:, :, 0])
+    torch.testing.assert_close(bank[:, :, 0], dslash_eo(u, psi, 1, LAT, legs_out=True),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="legs_out composes"):
+        dslash_eo(u, psi, 0, LAT, legs_out=True, epilogue="twist_inv")
+    with pytest.raises(ValueError, match="dirs entries"):
+        dslash_eo(u, psi, 0, LAT, dirs=((4, 1),))
+    with pytest.raises(ValueError, match="twice"):
+        dslash_eo(u, psi, 0, LAT, dirs=((1, 1), (1, 1)))
+    with pytest.raises(ValueError, match="empty"):
+        dslash_eo(u, psi, 0, LAT, dirs=())
+    with pytest.raises(ValueError, match="out must be"):
+        dslash_eo(u, psi, 0, LAT, legs_out=True, out=torch.empty_like(psi))
+    with pytest.raises(ValueError, match="within its re/im planes"):
+        dslash_eo(u, psi.transpose(-1, -2).contiguous().transpose(-1, -2), 0, LAT)

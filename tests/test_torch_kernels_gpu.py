@@ -1,5 +1,7 @@
 """The CUDA Dslash kernel against its plain PyTorch version on the card
-(phase 3 of chip_smoke.py).  Marked ``gpu``; skips without CUDA.
+(phase 3 of chip_smoke.py), in the summed modes (K1, K2), the leg modes
+of MG probing (K4: dirs, legs_out) and the MG fine operator's xpay on
+parity views.  Marked ``gpu``; skips without CUDA.
 
 It imports neither jax nor tpuqcd, so it runs on a machine that has only
 the port's dependencies:
@@ -16,7 +18,8 @@ from tpuqcd_torch import su3
 from tpuqcd_torch.cli.run_invert import invert
 from tpuqcd_torch.lattice import Lattice
 from tpuqcd_torch.ops import dslash_cuda
-from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+from tpuqcd_torch.mg.device import DeviceFineLevel, _hop_full
+from tpuqcd_torch.ops.dslash_cuda import LEG_ORDER, dslash_eo, dslash_eo_plain
 from tpuqcd_torch.utils.config import config_from_dict
 from tpuqcd_torch.utils.convert import gauge_from_full
 
@@ -85,3 +88,81 @@ def test_run_invert_goes_through_the_kernel(cuda):
     assert res.relres <= 1e-10
     assert dslash_cuda.counts["float32"] > 0 and dslash_cuda.counts["float64"] > 0
     assert dslash_cuda.counts["plain"] == 0
+
+
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("dims", [(8, 8, 8, 16), (32, 32, 32, 64)], ids=["8c16", "32c64"])
+def test_leg_modes_match_plain(cuda, dims, storage):
+    """dirs single legs, legs_out with 8 legs and with an out-of-order
+    subset (slots in LEG_ORDER), both parities, dagger off and on."""
+    dt, rows, tol = STORAGE[storage]
+    lat, u64, psi, _ = _problem(dims, cuda)
+    u = (u64 if rows == 3 else u64[:, :, :2]).to(dt).contiguous()
+    psi = psi.to(dt)
+    subset = ((3, -1), (0, +1), (2, +1))
+    key = str(dt).removeprefix("torch.")
+    for parity in (0, 1):
+        for dagger in (False, True):
+            singles = []
+            for leg in LEG_ORDER:
+                k = dslash_eo(u, psi, parity, lat, dagger=dagger, dirs=(leg,)).double()
+                p = dslash_eo_plain(u, psi, parity, lat, dagger=dagger, dirs=(leg,)).double()
+                assert ((k - p).abs().max() / p.abs().max()).item() <= tol, (leg, parity, dagger)
+                singles.append(k)
+            before = dslash_cuda.counts[key + ":legs_out"]
+            legs = dslash_eo(u, psi, parity, lat, dagger=dagger, legs_out=True).double()
+            assert dslash_cuda.counts[key + ":legs_out"] == before + 1
+            p = dslash_eo_plain(u, psi, parity, lat, dagger=dagger, legs_out=True).double()
+            torch.cuda.synchronize()
+            assert legs.shape[0] == 8 and torch.isfinite(legs).all()
+            assert ((legs - p).abs().max() / p.abs().max()).item() <= tol
+            for slot, single in zip(legs, singles):
+                assert ((slot - single).abs().max() / single.abs().max()).item() <= tol
+            part = dslash_eo(u, psi, parity, lat, dagger=dagger, legs_out=True,
+                             dirs=subset).double()
+            order = [LEG_ORDER.index(leg) for leg in subset]
+            for slot, i in zip(part, sorted(order)):
+                assert ((slot - singles[i]).abs().max() / singles[i].abs().max()).item() <= tol
+
+
+@pytest.mark.parametrize("flavor", [+1, -1])
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("dims", [(8, 8, 8, 16), (32, 32, 32, 64)], ids=["8c16", "32c64"])
+def test_fine_apply_matches_plain(cuda, dims, storage, flavor):
+    """DeviceFineLevel.apply (xpay with the kappa scale, psi0 and out the
+    parity views of an MG field) against the plain version on contiguous
+    copies of the same parities, at the MG cell's kappa and mu."""
+    dt, _, tol = STORAGE[storage]
+    kappa, mu = 0.157, 0.0009
+    lat, u64, psi, psi0 = _problem(dims, cuda)
+    level = DeviceFineLevel(lat, u64.float(), kappa, mu, flavor)
+    level = {"f64": level.as_hp(), "f32": level, "bf16": level.sloppy()}[storage]
+    u = level.u_pk if level.u12 is None else level.u12
+    assert u.dtype == dt
+    v = torch.stack([psi, psi0], dim=1).to(dt)       # [2(ri), 2(par), 4, 3, T, Z, S]
+    key = str(dt).removeprefix("torch.")
+    before = dslash_cuda.counts[key]
+    k = level.apply(v).double()
+    assert dslash_cuda.counts[key] == before + 2
+    p = torch.stack([dslash_eo_plain(u, v[:, 1 - par].contiguous(), 1 - par, lat,
+                                     epilogue="xpay", kappa=kappa, mu=mu, flavor=flavor,
+                                     psi0=v[:, par].contiguous(), xpay_scale=kappa).double()
+                     for par in (0, 1)], dim=1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all()
+    assert ((k - p).abs().max() / p.abs().max()).item() <= tol
+
+
+def test_apply_hop_all_matches_hop_full_per_leg(cuda):
+    """The fused probing pass (one legs_out launch per parity) against
+    the per-leg dirs launches of _hop_full, on a fine MG field."""
+    lat, u64, _, _ = _problem((8, 8, 8, 16), cuda)
+    level = DeviceFineLevel(lat, u64.float(), KAPPA, MU)
+    v = level.random_field(torch.Generator(device=cuda).manual_seed(5))
+    dslash_cuda.reset_counts()
+    legs = level.apply_hop_all(v)
+    assert dslash_cuda.counts == {"float32:legs_out": 2}
+    for i, (mu, sign) in enumerate(LEG_ORDER):
+        want = _hop_full(level, v, mu, sign)
+        assert ((legs[i] - want).abs().max() / want.abs().max()).item() <= 1e-6
+    assert dslash_cuda.counts["float32:dirs"] == 16 and dslash_cuda.counts["plain"] == 0

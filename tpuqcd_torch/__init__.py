@@ -1,8 +1,10 @@
 """tpuqcd_torch — the PyTorch and CUDA port of tpuqcd.
 
 The certified twisted-mass solve (``cli/run_invert``) on PyTorch tensors,
-with the even-odd Wilson hop as a hand-written CUDA kernel for Hopper
-(``csrc/dslash_eo.cu``, bound in ``ops/dslash_cuda.py``).  Module names
+by CG or by the adaptive multigrid (``mg/``) on a random or quenched
+heatbath gauge (``ops/heatbath.py``), with the even-odd Wilson hop as a
+hand-written CUDA kernel for Hopper (``csrc/dslash_eo.cu``, bound in
+``ops/dslash_cuda.py``; its leg modes feed the MG Galerkin probing).  Module names
 mirror ``tpuqcd`` so that each counterpart is easy to find; the field
 layouts at every public function are the same as there:
 
@@ -10,6 +12,8 @@ layouts at every public function are the same as there:
     full-system spinor   [2(par), 2(ri), 4, 3, T, Z, S]
     gauge                [4, 2(par), 3, 3, 2(ri), T, Z, S]
     gauge, reconstruct-12 [4, 2(par), 2, 3, 2(ri), T, Z, S]
+    MG fine field        [2(ri), 2(par), 4, 3, T, Z, S]
+    MG coarse field      [2(ri), N, Tc*Zc*Yc*Xc]
 
 The package imports torch and never jax; the device is always explicit.
 """

@@ -1,25 +1,29 @@
-"""Shared CLI plumbing: arguments, device, scope checks, gauge setup.
+"""Shared CLI plumbing: arguments, device, scope checks, gauge setup,
+the solver.
 
-Counterpart of ``tpuqcd/cli/common.py:21-77, :183-275``.  The device is
-explicit: ``--device`` defaults to ``cuda`` and raises when CUDA is
-missing; ``--device cpu`` runs the plain PyTorch versions.
+Counterpart of ``tpuqcd/cli/common.py:21-77, :183-275, :298-426``.  The
+device is explicit: ``--device`` defaults to ``cuda`` and raises when
+CUDA is missing; ``--device cpu`` runs the plain PyTorch versions.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import sys
+import time
+from typing import NamedTuple
 
 import torch
 
 from .. import su3
-from ..fields import gauge_full_to_eo
+from ..fields import apply_boundary_phase, gauge_full_to_eo
 from ..lattice import Lattice
 from ..ops.gauge_tools import plaquette
 from ..ops.layout import gauge_to_device
 from ..phys.propagator import full_to_packed
 from ..utils.config import RunConfig, load_config
-from ..utils.convert import gauge_from_full
+from ..utils.packed import pack_gauge
+from ..utils.profile import sync
 
 log = logging.getLogger("tpuqcd_torch")
 
@@ -58,43 +62,133 @@ def _not_ported(what: str, item: str):
 
 def check_in_slice(cfg: RunConfig) -> None:
     """Refuse the configurations the port does not run yet."""
-    g, a = cfg.gauge, cfg.action
-    if cfg.mg.enabled:
-        _not_ported("mg.enabled (the multigrid solve)", "7, MG on the main path")
+    g, a, mg = cfg.gauge, cfg.action, cfg.mg
+    mesh = cfg.mesh.nt * cfg.mesh.nz * cfg.mesh.ny > 1
+    if mg.enabled and a.csw != 0.0:
+        _not_ported("mg.enabled with action.csw (the twisted-clover fine level)",
+                    "8, TM-clover")
+    if mg.enabled and mesh:
+        _not_ported("mg.enabled with mesh (the sharded multigrid)", "13, multi-device")
+    for key in ("gcr_dtype", "vec_dtype"):
+        if mg.enabled and getattr(mg, key) != "float32":
+            raise NotImplementedError(
+                f"mg.{key}: {getattr(mg, key)} is not ported to tpuqcd_torch: bfloat16 "
+                "solver buffers fitted the MG solve into a 16 GB TPU (ROADMAP.md, 'How "
+                "the new hardware changes the port'); set it to float32")
     if a.csw != 0.0:
         _not_ported("action.csw != 0 (twisted clover)", "8, TM-clover")
     if a.epsbar != 0.0:
         _not_ported("action.epsbar (the non-degenerate doublet)", "12, remaining variants")
     if a.mu_list:
         _not_ported("action.mu_list (the multishift mass sweep)", "12, remaining variants")
-    if cfg.mesh.nt * cfg.mesh.nz * cfg.mesh.ny > 1:
+    if mesh:
         _not_ported("mesh (the multi-device solve)", "13, multi-device")
     if cfg.solver.solver == "eigcg":
         _not_ported("solver.solver: eigcg", "11, loops and deflation")
-    if g.config_files or g.random_seeds or g.heatbath_n_cfg > 1:
-        _not_ported("ensemble members (gauge.config_files, random_seeds, "
-                    "heatbath_n_cfg)", "9, config-4 physics end to end")
+    if g.heatbath_n_cfg > 1:
+        _not_ported("gauge.heatbath_n_cfg > 1 (heatbath.generate_ensemble)",
+                    "12, remaining variants")
+    if g.config_files or g.random_seeds:
+        _not_ported("ensemble members (gauge.config_files, random_seeds)",
+                    "9, config-4 physics end to end")
     if g.config_file:
         _not_ported("gauge.config_file (ILDG reading)", "9, config-4 physics end to end")
-    if g.heatbath_beta is not None:
-        _not_ported("gauge.heatbath_beta (the quenched heatbath)", "7, MG on the main path")
     if g.fix:
         _not_ported("gauge.fix (gauge fixing)", "12, remaining variants")
 
 
-def setup_gauge(cfg: RunConfig, device: torch.device) -> tuple[Lattice, torch.Tensor]:
-    """Random gauge from gauge.random_seed -> (lat, packed float32 gauge
-    [4, 2, 3, 3, 2, T, Z, S] on ``device`` with the boundary phase)."""
+class Gauge(NamedTuple):
+    lat: Lattice
+    u_pk: torch.Tensor     # packed float32 [4, 2, 3, 3, 2, T, Z, S], boundary phase in
+    plaquette: float
+    seconds: float         # generation, host clock, device synchronised
+
+
+def setup_gauge(cfg: RunConfig, device: torch.device) -> Gauge:
+    """The gauge of gauge.*: a quenched heatbath at gauge.heatbath_beta
+    (thermalized on ``device`` from a cold start, the generator seeded
+    with gauge.random_seed), else random SU(3) links from
+    gauge.random_seed."""
     lat = Lattice(tuple(cfg.gauge.dims))
-    gen = torch.Generator().manual_seed(int(cfg.gauge.random_seed))
-    u_full = su3.random_gauge(lat, gen, device)
-    log.info("generated random gauge dims=%s seed=%d", lat.dims, cfg.gauge.random_seed)
-    plaq = plaquette(gauge_to_device(gauge_full_to_eo(u_full, lat), lat), lat)
+    t0 = time.perf_counter()
+    if cfg.gauge.heatbath_beta is not None:
+        from ..ops.heatbath import thermalize
+        gen = torch.Generator(device=device).manual_seed(int(cfg.gauge.random_seed))
+        u_dev = thermalize(gen, lat, cfg.gauge.heatbath_beta, cfg.gauge.heatbath_sweeps)
+        sync(device)
+        log.info("heatbath gauge dims=%s beta=%.3f sweeps=%d seed=%d", lat.dims,
+                 cfg.gauge.heatbath_beta, cfg.gauge.heatbath_sweeps, cfg.gauge.random_seed)
+    else:
+        gen = torch.Generator().manual_seed(int(cfg.gauge.random_seed))
+        u_dev = gauge_to_device(gauge_full_to_eo(su3.random_gauge(lat, gen, device), lat),
+                                lat)
+        log.info("generated random gauge dims=%s seed=%d", lat.dims, cfg.gauge.random_seed)
+    seconds = time.perf_counter() - t0
+    plaq = plaquette(u_dev, lat)
     log.info("plaquette = %.8f", plaq)
     if cfg.gauge.plaquette_check is not None and abs(plaq - cfg.gauge.plaquette_check) > 1e-5:
         raise RuntimeError(f"plaquette check failed: {plaq} != {cfg.gauge.plaquette_check}")
-    u_pk = gauge_from_full(u_full, lat, cfg.gauge.antiperiodic_t, torch.float32, device)
-    return lat, u_pk
+    u_dev = apply_boundary_phase(u_dev, lat, "device", cfg.gauge.antiperiodic_t)
+    return Gauge(lat, pack_gauge(u_dev, torch.float32).contiguous(), plaq, seconds)
+
+
+def _mg_fine_level(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor, flavor: int):
+    """The twisted-mass fine level of the action config."""
+    from ..mg.device import DeviceFineLevel
+    return DeviceFineLevel(lat, u_pk.to(torch.float32), cfg.action.kappa, cfg.action.mu,
+                           flavor, t_boundary=-1 if cfg.gauge.antiperiodic_t else 1)
+
+
+def mg_params(cfg: RunConfig):
+    from ..mg.dsolve import DeviceMGParams
+    m = cfg.mg
+    return DeviceMGParams(n_vec=tuple(m.n_vec), block=tuple(m.block),
+                          setup_iters=m.setup_iters, smoother_iters=m.smoother_iters,
+                          coarse_iters=m.coarse_maxiter, restart=m.restart,
+                          mu_factor=m.mu_factor, setup_solver=m.setup_solver,
+                          smoother_dtype=m.smoother_dtype, coarse_dtype=m.coarse_dtype,
+                          gcr_dtype=m.gcr_dtype, vec_dtype=m.vec_dtype)
+
+
+class MGSolver:
+    """The MG branch of tpuqcd's make_solver (cli/common.py:380-426):
+    solve(b_pk, flavor) for
+    packed two-parity sources [2(par), 2(ri), 4, 3, T, Z, S].
+
+    A flavor's hierarchy is set up (or loaded from mg.vec_infile) when a
+    solve first asks for it, or by ``setup(flavor)``; tpuqcd builds both
+    flavors up front.  The results are the same."""
+
+    def __init__(self, cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor):
+        self.cfg, self.lat, self.u_pk = cfg, lat, u_pk
+        self.params = mg_params(cfg)
+        self.hierarchies = {}
+
+    def setup(self, flavor: int = +1):
+        if flavor not in self.hierarchies:
+            from ..utils.checkpoint import load_device_mg, save_device_mg
+            from ..mg.dsolve import DeviceMG
+            m = self.cfg.mg
+            lv = _mg_fine_level(self.cfg, self.lat, self.u_pk, flavor)
+            if m.vec_infile:
+                mg = load_device_mg(f"{m.vec_infile}.f{flavor:+d}.npz", lv, self.params)
+                log.info("MG hierarchy loaded (flavor %+d)", flavor)
+            else:
+                log.info("MG setup (flavor %+d)...", flavor)
+                mg = DeviceMG(lv, self.params)
+                log.info("MG setup seconds %s", mg.setup_seconds)
+                if m.vec_outfile:
+                    save_device_mg(f"{m.vec_outfile}.f{flavor:+d}.npz", mg)
+            self.hierarchies[flavor] = mg
+        return self.hierarchies[flavor]
+
+    def __call__(self, b_pk: torch.Tensor, flavor: int = +1):
+        from ..solve import solve_tm_mg
+        res = solve_tm_mg(self.setup(flavor), b_pk, tol=self.cfg.solver.tol,
+                          inner_tol=self.cfg.solver.inner_tol)
+        log.info("  mg solve: relres=%.2e iters=%d refinements=%d", res.relres, res.iters,
+                 res.refinements)
+        return res
 
 
 def random_source(lat: Lattice, device: torch.device, seed: int = 99) -> torch.Tensor:

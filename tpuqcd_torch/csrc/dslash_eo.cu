@@ -32,6 +32,24 @@
 // Reuse of neighbour spinors through shared memory, TMA and wider loads
 // are later work; a Dslash has no product of tensor-core size.
 //
+// Leg filter and per-leg output (the TPU kernel's `dirs` and `legs_out`,
+// dslash_pallas.py:341-354, :428-432, :670-680), for MG Galerkin probing:
+//   - leg_mask: bit 2*mu + (sign < 0) selects the hop legs computed; the
+//     8 legs are tested in the kernel's textual order (mu-major, forward
+//     before backward), a uniform branch for the whole grid;
+//   - legs_out: each selected leg's reconstructed contribution is stored
+//     to its own output slot, in that textual order, right after it is
+//     computed (the slot's 24 reals are the only extra registers), and no
+//     epilogue runs.  A legs_out launch at 32^3x64 f32 recon-12 reads
+//     about 480 B/site (one spinor and 8 links, compulsory) and writes
+//     768 B/site (8 spinors), so it is store-bound where the summed hop is
+//     read-bound.
+// Spinor operands may be views whose re/im planes are a stride apart
+// (psi_rs, psi0_rs, out_rs: elements from the re to the im plane; 12*n
+// when contiguous) and per-leg outputs a stride out_ls apart, so that
+// the MG layout [2(ri), 2(par), 4, 3, T, Z, S] is read and written per
+// parity in place.  Inside a plane the layout is [4, 3, T, Z, S].
+//
 // Spin-projection tables (DeGrand-Rossi; tpuqcd/gammas.py).  For
 // (1 - gamma_mu):  h_a = psi_a + P(mu,a) psi_{partner(mu,a)},  a = 0, 1
 //                  out_a = h_a,  out_b = Q(mu,b) h_{src(mu,b)},  b = 2, 3
@@ -95,9 +113,9 @@ __host__ __device__ constexpr int recon_im(int mu, int b) {
 // adjoint.  sgn = +1 takes the (1 - gamma) tables, -1 the (1 + gamma).
 template <int MU, int NROW, bool ADJ, typename S, typename R>
 __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict__ psi,
-                                        const S* __restrict__ u, int64_t n_sites,
-                                        int64_t psi_site, int64_t link_site, int link_par,
-                                        int sgn, R phase) {
+                                        int64_t psi_rs, const S* __restrict__ u,
+                                        int64_t n_sites, int64_t psi_site, int64_t link_site,
+                                        int link_par, int sgn, R phase) {
   // half-spinor projection at the neighbour
   cpx<R> h[2][3];
 #pragma unroll
@@ -105,10 +123,10 @@ __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict
     const int b = partner(MU, a);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      cpx<R> pa = {to_compute(psi[(0 * 12 + a * 3 + c) * n_sites + psi_site]),
-                   to_compute(psi[(1 * 12 + a * 3 + c) * n_sites + psi_site])};
-      cpx<R> pb = {to_compute(psi[(0 * 12 + b * 3 + c) * n_sites + psi_site]),
-                   to_compute(psi[(1 * 12 + b * 3 + c) * n_sites + psi_site])};
+      const S* pa_ = psi + (a * 3 + c) * n_sites + psi_site;
+      const S* pb_ = psi + (b * 3 + c) * n_sites + psi_site;
+      cpx<R> pa = {to_compute(pa_[0]), to_compute(pa_[psi_rs])};
+      cpx<R> pb = {to_compute(pb_[0]), to_compute(pb_[psi_rs])};
       cpx<R> t = coef_mul(proj_re(MU, a), proj_im(MU, a), pb);
       h[a][c] = sgn > 0 ? cadd(pa, t) : cpx<R>{pa.re - t.re, pa.im - t.im};
     }
@@ -158,11 +176,36 @@ __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict
   }
 }
 
-template <typename S, int NROW, bool DAGGER>
+// Zero an accumulator.
+template <typename R>
+__device__ __forceinline__ void zero(cpx<R> (&acc)[4][3]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[a][c] = {R(0), R(0)};
+}
+
+// Store a spinor's 24 reals at site n of an output with re/im planes rs apart.
+template <typename S, typename R>
+__device__ __forceinline__ void store_spinor(S* __restrict__ out, int64_t rs, int64_t n_sites,
+                                             int64_t n, const cpx<R> (&acc)[4][3]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      S* o = out + (a * 3 + c) * n_sites + n;
+      store(o, acc[a][c].re);
+      store(o + rs, acc[a][c].im);
+    }
+}
+
+template <typename S, int NROW, bool DAGGER, bool LEGS_OUT>
 __global__ void __launch_bounds__(128)
 dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
                  const S* __restrict__ psi0, S* __restrict__ out, int T, int Z, int Y,
-                 int Xh, int p, int epilogue, double tw_d, double k2_d, int t_boundary) {
+                 int Xh, int p, int epilogue, double tw_d, double k2_d, int t_boundary,
+                 int leg_mask, int64_t psi_rs, int64_t psi0_rs, int64_t out_rs,
+                 int64_t out_ls) {
   using R = typename ComputeOf<S>::type;
   const int64_t n_sites = (int64_t)T * Z * Y * Xh;
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -191,20 +234,31 @@ dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
   const int sb = -sf;
 
   cpx<R> acc[4][3];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc[a][c] = {R(0), R(0)};
+  zero(acc);
+  S* slot = out;
 
-  // forward: U_mu(x)|q psi(x + mu);  backward: U_mu(x - mu)|p^dag psi(x - mu)
-  hop_leg<0, NROW, false>(acc, psi, u, n_sites, site(t, z, y, xf), n, q, sf, one);
-  hop_leg<0, NROW, true>(acc, psi, u, n_sites, site(t, z, y, xb), site(t, z, y, xb), p, sb, one);
-  hop_leg<1, NROW, false>(acc, psi, u, n_sites, site(t, z, yf, xh), n, q, sf, one);
-  hop_leg<1, NROW, true>(acc, psi, u, n_sites, site(t, z, yb, xh), site(t, z, yb, xh), p, sb, one);
-  hop_leg<2, NROW, false>(acc, psi, u, n_sites, site(t, zf, y, xh), n, q, sf, one);
-  hop_leg<2, NROW, true>(acc, psi, u, n_sites, site(t, zb, y, xh), site(t, zb, y, xh), p, sb, one);
-  hop_leg<3, NROW, false>(acc, psi, u, n_sites, site(tf, z, y, xh), n, q, sf, ph_f);
-  hop_leg<3, NROW, true>(acc, psi, u, n_sites, site(tb, z, y, xh), site(tb, z, y, xh), p, sb, ph_b);
+  // forward: U_mu(x)|q psi(x + mu);  backward: U_mu(x - mu)|p^dag psi(x - mu).
+  // A selected leg accumulates, or (LEGS_OUT) is stored to the next slot.
+#define TQ_LEG(BIT, MU, ADJ, PSI_SITE, LINK_SITE, LINK_PAR, SGN, PHASE)                   \
+  if (leg_mask & (1 << (BIT))) {                                                           \
+    if (LEGS_OUT) zero(acc);                                                               \
+    hop_leg<MU, NROW, ADJ>(acc, psi, psi_rs, u, n_sites, PSI_SITE, LINK_SITE, LINK_PAR, SGN, \
+                           PHASE);                                                         \
+    if (LEGS_OUT) {                                                                        \
+      store_spinor(slot, out_rs, n_sites, n, acc);                                         \
+      slot += out_ls;                                                                      \
+    }                                                                                      \
+  }
+  TQ_LEG(0, 0, false, site(t, z, y, xf), n, q, sf, one)
+  TQ_LEG(1, 0, true, site(t, z, y, xb), site(t, z, y, xb), p, sb, one)
+  TQ_LEG(2, 1, false, site(t, z, yf, xh), n, q, sf, one)
+  TQ_LEG(3, 1, true, site(t, z, yb, xh), site(t, z, yb, xh), p, sb, one)
+  TQ_LEG(4, 2, false, site(t, zf, y, xh), n, q, sf, one)
+  TQ_LEG(5, 2, true, site(t, zb, y, xh), site(t, zb, y, xh), p, sb, one)
+  TQ_LEG(6, 3, false, site(tf, z, y, xh), n, q, sf, ph_f)
+  TQ_LEG(7, 3, true, site(tb, z, y, xh), site(tb, z, y, xh), p, sb, ph_b)
+#undef TQ_LEG
+  if (LEGS_OUT) return;
 
   // fused site-term epilogue (tpuqcd/ops/dslash_pallas.py:446-460)
   const R tw = R(tw_d), k2 = R(k2_d);
@@ -214,32 +268,32 @@ dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
     const R g5 = a < 2 ? R(1) : R(-1);  // gamma5 = diag(1, 1, -1, -1)
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const int64_t o_re = (int64_t)(0 * 12 + a * 3 + c) * n_sites + n;
-      const int64_t o_im = (int64_t)(1 * 12 + a * 3 + c) * n_sites + n;
       R rr = acc[a][c].re, ri = acc[a][c].im;
       if (epilogue == 1) {  // (1 - i tw g5) / (1 + tw^2) . D psi
         const R dr = rr, di = ri;
         rr = den * dr + (tw * den) * g5 * di;
         ri = den * di - (tw * den) * g5 * dr;
       } else if (epilogue == 2) {  // (1 + i tw g5) psi0 - k2 . D psi
-        const R p0r = to_compute(psi0[o_re]), p0i = to_compute(psi0[o_im]);
+        const S* p0 = psi0 + (a * 3 + c) * n_sites + n;
+        const R p0r = to_compute(p0[0]), p0i = to_compute(p0[psi0_rs]);
         const R dr = rr, di = ri;
         rr = p0r - tw * g5 * p0i - k2 * dr;
         ri = p0i + tw * g5 * p0r - k2 * di;
       }
-      store(out + o_re, rr);
-      store(out + o_im, ri);
+      acc[a][c] = {rr, ri};
     }
   }
+  store_spinor(out, out_rs, n_sites, n, acc);
 }
 
 template <typename S>
 int launch(const void* u, const void* psi, const void* psi0, void* out, int T, int Z, int Y,
            int Xh, int nrow, int src_parity, int dagger, int epilogue, double tw, double k2,
-           int t_boundary, int device, void* stream) {
+           int t_boundary, int leg_mask, int legs_out, int64_t psi_rs, int64_t psi0_rs,
+           int64_t out_rs, int64_t out_ls, int device, void* stream) {
   if ((nrow != 2 && nrow != 3) || (src_parity != 0 && src_parity != 1) || epilogue < 0 ||
       epilogue > 2 || (epilogue == 2 && psi0 == nullptr) || T <= 0 || Z <= 0 || Y <= 0 ||
-      Xh <= 0)
+      Xh <= 0 || leg_mask <= 0 || leg_mask > 255 || (legs_out && epilogue != 0))
     return (int)cudaErrorInvalidValue;
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: select the tensors' device before launching on its stream
@@ -253,15 +307,19 @@ int launch(const void* u, const void* psi, const void* psi0, void* out, int T, i
   const S* psi_ = (const S*)psi;
   const S* psi0_ = (const S*)psi0;
   S* out_ = (S*)out;
-#define TQ_LAUNCH(NR, DG)                                                                   \
-  dslash_eo_kernel<S, NR, DG><<<blocks, threads, 0, s>>>(u_, psi_, psi0_, out_, T, Z, Y, Xh, \
-                                                          src_parity, epilogue, tw, k2,     \
-                                                          t_boundary)
+#define TQ_LAUNCH(NR, DG, LO)                                                               \
+  dslash_eo_kernel<S, NR, DG, LO><<<blocks, threads, 0, s>>>(                               \
+      u_, psi_, psi0_, out_, T, Z, Y, Xh, src_parity, epilogue, tw, k2, t_boundary, leg_mask, \
+      psi_rs, psi0_rs, out_rs, out_ls)
+#define TQ_LAUNCH_LO(NR, DG)              \
+  if (legs_out) TQ_LAUNCH(NR, DG, true);  \
+  else TQ_LAUNCH(NR, DG, false);
   if (nrow == 2) {
-    if (dagger) TQ_LAUNCH(2, true); else TQ_LAUNCH(2, false);
+    if (dagger) { TQ_LAUNCH_LO(2, true) } else { TQ_LAUNCH_LO(2, false) }
   } else {
-    if (dagger) TQ_LAUNCH(3, true); else TQ_LAUNCH(3, false);
+    if (dagger) { TQ_LAUNCH_LO(3, true) } else { TQ_LAUNCH_LO(3, false) }
   }
+#undef TQ_LAUNCH_LO
 #undef TQ_LAUNCH
   return (int)cudaGetLastError();
 }
@@ -271,9 +329,12 @@ int launch(const void* u, const void* psi, const void* psi0, void* out, int T, i
 #define TQ_ENTRY(NAME, S)                                                                     \
   extern "C" int NAME(const void* u, const void* psi, const void* psi0, void* out, int T,     \
                       int Z, int Y, int Xh, int nrow, int src_parity, int dagger, int epilogue, \
-                      double tw, double k2, int t_boundary, int device, void* stream) {       \
+                      double tw, double k2, int t_boundary, int leg_mask, int legs_out,       \
+                      int64_t psi_rs, int64_t psi0_rs, int64_t out_rs, int64_t out_ls,        \
+                      int device, void* stream) {                                             \
     return launch<S>(u, psi, psi0, out, T, Z, Y, Xh, nrow, src_parity, dagger, epilogue, tw,  \
-                     k2, t_boundary, device, stream);                                         \
+                     k2, t_boundary, leg_mask, legs_out, psi_rs, psi0_rs, out_rs, out_ls,     \
+                     device, stream);                                                         \
   }
 
 TQ_ENTRY(tq_dslash_eo_f32, float)

@@ -51,17 +51,22 @@ def gauge_eo_to_full(u: torch.Tensor, lat: Lattice) -> torch.Tensor:
     return eo_to_full(u, lat, site_ndim_left=1)
 
 
-def apply_boundary_phase(u: torch.Tensor, lat: Lattice, eo: bool = False,
+#: the T axis of U_t (u[3]) in each gauge layout
+_T_AXIS = {"full": 0,        # [4, T, Z, Y, X, 3, 3]
+           "eo": 1,          # [4, 2, T, Z, Y, X//2, 3, 3]
+           "device": 3}      # [4, 2, 3, 3, T, Z, S] (ops/layout.gauge_to_device)
+
+
+def apply_boundary_phase(u: torch.Tensor, lat: Lattice, layout: str = "full",
                          antiperiodic_t: bool = True) -> torch.Tensor:
     """Fold the fermion temporal boundary condition into the links.
 
-    Returns a copy with U_t(t = Lt-1) multiplied by -1 (full [4, T, ...]
-    or eo [4, 2, T, ...] layout), so that the hop stays periodic.
+    Returns a copy with U_t(t = Lt-1) multiplied by -1 (``layout`` full,
+    eo or device), so that the hop stays periodic.
     """
     if not antiperiodic_t:
         return u
     out = u.clone()
-    t_axis = 2 if eo else 1
-    out[3].select(t_axis - 1, lat.Lt - 1).neg_()
+    out[3].select(_T_AXIS[layout], lat.Lt - 1).neg_()
     return out
 

@@ -24,6 +24,20 @@ only, the arithmetic is float32).  Epilogues, with tw = 2 kappa mu flavor:
     "twist_inv"  out = (1 - i tw g5) / (1 + tw^2) . D psi
     "xpay"       out = (1 + i tw g5) psi0 - k2 . D psi,  k2 = kappa^2
                  (or xpay_scale: kappa gives the full two-parity M)
+
+Leg selection, for MG Galerkin probing (the TPU kernel's K4 modes):
+
+    dirs=((mu, sign), ...)   only those hop legs (mu 0..3 = x, y, z, t;
+                             sign +1 forward, -1 backward); epilogue as usual
+    legs_out=True            each selected leg (all 8 without dirs) stored
+                             apart: [n_legs, 2(ri), 4, 3, T, Z, S], slots in
+                             LEG_ORDER (mu-major, +1 before -1) whatever the
+                             order of dirs; epilogue "none" only
+
+Spinor operands may be views whose re/im planes are any stride apart
+(the parity halves of an MG field [2(ri), 2(par), 4, 3, T, Z, S]); each
+plane itself must be contiguous.  ``out=`` writes the result into such a
+view instead of a new tensor.
 """
 from __future__ import annotations
 
@@ -50,11 +64,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 EPILOGUES = {"none": 0, "twist_inv": 1, "xpay": 2}
+#: the kernel's textual leg order: slot order of legs_out, bit order of
+#: the leg mask (bit 2*mu + (sign < 0))
+LEG_ORDER = tuple((mu, s) for mu in range(4) for s in (+1, -1))
 _ENTRY = {torch.float32: "tq_dslash_eo_f32", torch.bfloat16: "tq_dslash_eo_bf16",
           torch.float64: "tq_dslash_eo_f64"}
 
-#: launches of the kernel, by storage dtype name, and calls of the plain
-#: version under "plain".  Each kernel launch adds one; nothing else does.
+#: launches of the kernel, by storage dtype name ("float32"), with the
+#: leg modes apart ("float32:dirs", "float32:legs_out"), and calls of the
+#: plain version under "plain".  Each kernel launch adds one; nothing else
+#: does.
 counts: collections.Counter = collections.Counter()
 
 
@@ -91,7 +110,8 @@ class _Library:
         for name in _ENTRY.values():
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                           + [ctypes.c_double] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                           + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
+                           + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.tq_error_string.argtypes = [ctypes.c_int]
         lib.tq_error_string.restype = ctypes.c_char_p
@@ -125,9 +145,45 @@ library = _Library()
 # --------------------------------------------------------------------------
 # checks shared by the kernel and the plain version
 
-def _check(u, psi, src_parity, lat, epilogue, psi0):
+def _ri_stride(x: torch.Tensor, name: str, lead: int = 0) -> int:
+    """Elements from the re to the im plane of a spinor operand whose
+    dims after ``lead`` leading dims are [2(ri), 4, 3, T, Z, S], each
+    plane contiguous; raises otherwise."""
+    planes = x.shape[lead + 1:]
+    want, step = [], 1
+    for d in reversed(planes):
+        want.append(step)
+        step *= d
+    if tuple(x.stride()[lead + 1:]) != tuple(reversed(want)):
+        raise ValueError(f"{name} is not contiguous within its re/im planes "
+                         f"(strides {tuple(x.stride())})")
+    return x.stride(lead)
+
+
+def _leg_mask(dirs) -> int:
+    if dirs is None:
+        return 255
+    mask = 0
+    for leg in dirs:
+        if tuple(leg) not in LEG_ORDER:
+            raise ValueError(f"dirs entries must be (mu, sign) with mu in 0..3 and "
+                             f"sign +-1, got {leg!r}")
+        bit = 1 << LEG_ORDER.index(tuple(leg))
+        if mask & bit:
+            raise ValueError(f"dirs lists {leg!r} twice")
+        mask |= bit
+    if not mask:
+        raise ValueError("dirs is empty")
+    return mask
+
+
+def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, out=None):
+    """Validate the operands; returns (leg mask, output shape)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {sorted(EPILOGUES)}, got {epilogue!r}")
+    if legs_out and epilogue != "none":
+        raise ValueError("legs_out composes with epilogue='none' only")
+    mask = _leg_mask(dirs)
     if src_parity not in (0, 1):
         raise ValueError(f"src_parity must be 0 or 1, got {src_parity!r}")
     if psi.dtype not in _ENTRY:
@@ -141,19 +197,30 @@ def _check(u, psi, src_parity, lat, epilogue, psi0):
             or tuple(u.shape[3:]) != (3, 2, *sites):
         raise ValueError(f"gauge shape {tuple(u.shape)} is neither "
                          f"{(4, 2, 3, 3, 2, *sites)} nor {(4, 2, 2, 3, 2, *sites)}")
-    tensors = [("u", u), ("psi", psi)]
+    if not u.is_contiguous():
+        raise ValueError("u is not contiguous (a u[:, :, :2] view must be copied: "
+                         "utils.packed.pack_gauge12)")
+    _ri_stride(psi, "psi")
+    tensors = [("psi", psi)]
     if epilogue == "xpay":
         if psi0 is None:
             raise ValueError("the xpay epilogue needs psi0")
         if psi0.shape != psi.shape or psi0.dtype != psi.dtype:
             raise ValueError("psi0 must match psi in shape and dtype")
+        _ri_stride(psi0, "psi0")
         tensors.append(("psi0", psi0))
-    for name, x in tensors:
+    n_legs = bin(mask).count("1")
+    shape = (n_legs, *psi.shape) if legs_out else tuple(psi.shape)
+    if out is not None:
+        if tuple(out.shape) != shape or out.dtype != psi.dtype:
+            raise ValueError(f"out must be {psi.dtype} {shape}, got {out.dtype} "
+                             f"{tuple(out.shape)}")
+        _ri_stride(out, "out", lead=1 if legs_out else 0)
+        tensors.append(("out", out))
+    for name, x in tensors + [("u", u)]:
         if x.device != psi.device:
             raise ValueError(f"{name} is on {x.device}, psi on {psi.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} is not contiguous (a u[:, :, :2] view must "
-                             "be copied: utils.packed.pack_gauge12)")
+    return mask, shape
 
 
 def _site_terms(kappa, mu, flavor, xpay_scale):
@@ -165,31 +232,44 @@ def _site_terms(kappa, mu, flavor, xpay_scale):
 def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice, *,
               dagger: bool = False, epilogue: str = "none", kappa: float = 0.0,
               mu: float = 0.0, flavor: int = 1, psi0: torch.Tensor | None = None,
-              t_boundary: int = -1, xpay_scale: float | None = None) -> torch.Tensor:
+              t_boundary: int = -1, xpay_scale: float | None = None,
+              dirs: tuple | None = None, legs_out: bool = False,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """D_{q<-p} psi with a fused epilogue; result at parity 1 - src_parity.
 
     t_boundary is the fermion T-boundary phase folded into the stored
     links (-1 antiperiodic, +1 periodic); only reconstruct-12 reads it.
+    dirs, legs_out and out: see the module docstring.
     """
-    _check(u, psi, src_parity, lat, epilogue, psi0)
+    kw = dict(dagger=dagger, epilogue=epilogue, kappa=kappa, mu=mu, flavor=flavor,
+              psi0=psi0, t_boundary=t_boundary, xpay_scale=xpay_scale, dirs=dirs,
+              legs_out=legs_out, out=out)
+    mask, shape = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out)
     if psi.device.type == "cpu":
-        return dslash_eo_plain(u, psi, src_parity, lat, dagger=dagger, epilogue=epilogue,
-                               kappa=kappa, mu=mu, flavor=flavor, psi0=psi0,
-                               t_boundary=t_boundary, xpay_scale=xpay_scale)
+        return dslash_eo_plain(u, psi, src_parity, lat, **kw)
     if psi.device.type != "cuda":
         raise ValueError(f"no Dslash for device {psi.device}")
     tw, k2 = _site_terms(kappa, mu, flavor, xpay_scale)
     fn = getattr(library.get(), _ENTRY[psi.dtype])
-    out = torch.empty_like(psi)
+    if out is None:
+        out = torch.empty(shape, dtype=psi.dtype, device=psi.device)
+    lead = 1 if legs_out else 0
     T, Z, _ = lat.site_shape
     stream = torch.cuda.current_stream(psi.device).cuda_stream
     err = fn(u.data_ptr(), psi.data_ptr(), psi0.data_ptr() if psi0 is not None else None,
              out.data_ptr(), T, Z, lat.Ly, lat.Lx // 2, u.shape[2], src_parity, int(dagger),
-             EPILOGUES[epilogue], tw, k2, int(t_boundary), psi.device.index, stream)
+             EPILOGUES[epilogue], tw, k2, int(t_boundary), mask, int(legs_out),
+             psi.stride(0), psi0.stride(0) if psi0 is not None else 0, out.stride(lead),
+             out.stride(0) if legs_out else 0, psi.device.index, stream)
     if err != 0:
         msg = library.get().tq_error_string(err).decode()
         raise RuntimeError(f"dslash_eo kernel launch failed: {msg} (CUDA error {err})")
-    counts[str(psi.dtype).removeprefix("torch.")] += 1
+    key = str(psi.dtype).removeprefix("torch.")
+    if legs_out:
+        key += ":legs_out"
+    elif dirs is not None:
+        key += ":dirs"
+    counts[key] += 1
     return out
 
 
@@ -243,14 +323,16 @@ def expand_links(u: torch.Tensor, lat: Lattice, t_boundary: int = -1) -> torch.T
 def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
                     *, dagger: bool = False, epilogue: str = "none", kappa: float = 0.0,
                     mu: float = 0.0, flavor: int = 1, psi0: torch.Tensor | None = None,
-                    t_boundary: int = -1, xpay_scale: float | None = None) -> torch.Tensor:
+                    t_boundary: int = -1, xpay_scale: float | None = None,
+                    dirs: tuple | None = None, legs_out: bool = False,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """The same function as the kernel in plain PyTorch, on any device.
 
     A port of tpuqcd's dslash_eo_dev_ri (spin projection, SU(3) mat-vec,
-    reconstruction) with reconstruct-12 and the epilogues added.
-    bfloat16 storage computes in float32, reconstruction included.
+    reconstruction) with reconstruct-12, the epilogues and the leg modes
+    added.  bfloat16 storage computes in float32, reconstruction included.
     """
-    _check(u, psi, src_parity, lat, epilogue, psi0)
+    mask, _ = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out)
     counts["plain"] += 1
     p, q = src_parity, 1 - src_parity
     T, Z, S = lat.site_shape
@@ -265,23 +347,34 @@ def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: La
     hpm, hrm, hpp, hrp = tabs
     if dagger:
         hpm, hrm, hpp, hrp = hpp, hrp, hpm, hrm
-    acc = torch.zeros_like(x)
-    for m in range(4):
-        # forward: (1 - g_mu) U_mu(x)|q psi(x + mu)
-        h = torch.einsum("hs,scn->hcn", hpm[m], x[:, :, idx[m, 0]])
-        w = torch.einsum("ijn,hjn->hin", links[m, q], h)
-        acc += torch.einsum("bh,hin->bin", hrm[m], w)
-        # backward: (1 + g_mu) U_mu(x - mu)|p^dag psi(x - mu)
-        nb = idx[m, 1]
-        h = torch.einsum("hs,scn->hcn", hpp[m], x[:, :, nb])
-        w = torch.einsum("jin,hjn->hin", links[m, p][:, :, nb].conj(), h)
-        acc += torch.einsum("bh,hin->bin", hrp[m], w)
-    tw, k2 = _site_terms(kappa, mu, flavor, xpay_scale)
-    g5 = torch.tensor(G5_DIAG, dtype=rdt, device=dev)[:, None, None]
-    if epilogue == "twist_inv":
-        acc = (1 - 1j * tw * g5) / (1 + tw * tw) * acc
-    elif epilogue == "xpay":
-        x0 = torch.complex(psi0[0].to(rdt), psi0[1].to(rdt)).reshape(4, 3, -1)
-        acc = (1 + 1j * tw * g5) * x0 - k2 * acc
-    out = torch.stack([acc.real, acc.imag]).reshape(2, 4, 3, T, Z, S)
-    return out.to(psi.dtype)
+    legs = []
+    for bit, (m, sign) in enumerate(LEG_ORDER):
+        if not mask & (1 << bit):
+            continue
+        if sign > 0:
+            # forward: (1 - g_mu) U_mu(x)|q psi(x + mu)
+            h = torch.einsum("hs,scn->hcn", hpm[m], x[:, :, idx[m, 0]])
+            w = torch.einsum("ijn,hjn->hin", links[m, q], h)
+            legs.append(torch.einsum("bh,hin->bin", hrm[m], w))
+        else:
+            # backward: (1 + g_mu) U_mu(x - mu)|p^dag psi(x - mu)
+            nb = idx[m, 1]
+            h = torch.einsum("hs,scn->hcn", hpp[m], x[:, :, nb])
+            w = torch.einsum("jin,hjn->hin", links[m, p][:, :, nb].conj(), h)
+            legs.append(torch.einsum("bh,hin->bin", hrp[m], w))
+    if legs_out:
+        acc = torch.stack(legs)
+        res = torch.stack([acc.real, acc.imag], dim=1).reshape(len(legs), 2, 4, 3, T, Z, S)
+    else:
+        acc = sum(legs[1:], legs[0])
+        tw, k2 = _site_terms(kappa, mu, flavor, xpay_scale)
+        g5 = torch.tensor(G5_DIAG, dtype=rdt, device=dev)[:, None, None]
+        if epilogue == "twist_inv":
+            acc = (1 - 1j * tw * g5) / (1 + tw * tw) * acc
+        elif epilogue == "xpay":
+            x0 = torch.complex(psi0[0].to(rdt), psi0[1].to(rdt)).reshape(4, 3, -1)
+            acc = (1 + 1j * tw * g5) * x0 - k2 * acc
+        res = torch.stack([acc.real, acc.imag]).reshape(2, 4, 3, T, Z, S)
+    if out is None:
+        return res.to(psi.dtype)
+    return out.copy_(res)

@@ -1,7 +1,7 @@
 """Certified twisted-mass solve: sloppy Krylov iteration inside an f64
 defect-correction loop.
 
-Counterpart of ``tpuqcd/solve.py:30-166, :251``.  The iteration operator
+Counterpart of ``tpuqcd/solve.py:30-166, :251, :445``.  The iteration operator
 runs in the sloppy dtype on a reconstruct-12 gauge copy; true residuals,
 the even-odd preparation, the reconstruction and the final full-system
 residual use the float64 operator on the full 18-real gauge.  On a CUDA
@@ -105,3 +105,20 @@ def full_system_relres(u_pk: torch.Tensor, b_pk: torch.Tensor, x_pk: torch.Tenso
     b64 = b_pk.to(torch.float64)
     r = b64 - pc.apply_full(u_pk.to(torch.float64).contiguous(), x_pk.to(torch.float64))
     return (norm2(r).item() / max(norm2(b64).item(), 1e-300)) ** 0.5
+
+
+def solve_tm_mg(mg, b_pk: torch.Tensor, *, tol: float = 1e-10,
+                inner_tol: float | None = None, maxiter: int = 200,
+                verbose: bool = False) -> SolveResult:
+    """MG-preconditioned solve of the two-parity system M x = b on a
+    mg.dsolve.DeviceMG hierarchy (tpuqcd/solve.py:445).
+
+    b_pk: packed source [2(par), 2(ri), 4, 3, T, Z, S]; the source is
+    rounded to float32, as in tpuqcd, and the hierarchy's float64
+    defect correction certifies |b - M x| / |b|.  Returns x in the same
+    parity-first layout, float64.
+    """
+    res = mg.solve_certified(b_pk.to(torch.float32).transpose(0, 1).contiguous(), tol=tol,
+                             inner_tol=inner_tol, maxiter=maxiter, verbose=verbose)
+    return SolveResult(x=res.x.transpose(0, 1).contiguous(), relres=res.relres,
+                       iters=res.iters, refinements=res.refinements)

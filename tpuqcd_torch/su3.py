@@ -34,6 +34,13 @@ def random_su3(shape: tuple[int, ...], generator: torch.Generator,
     return torch.stack([r0, r1, _cross_conj(r0, r1)], dim=-2)
 
 
+def unit_gauge(lat, device=None, dtype=torch.complex64) -> torch.Tensor:
+    """Free-field (identity) gauge in the device layout [4, 2, 3, 3, T, Z, S]
+    (tpuqcd/su3.py unit_gauge_dev), the heatbath's cold start."""
+    eye = torch.eye(3, dtype=dtype, device=device).reshape(1, 1, 3, 3, 1, 1, 1)
+    return eye.expand(4, 2, 3, 3, *lat.site_shape).contiguous()
+
+
 def random_gauge(lat, generator: torch.Generator, device=None,
                  dtype=torch.complex64) -> torch.Tensor:
     """Random full-layout gauge field [4, T, Z, Y, X, 3, 3]."""

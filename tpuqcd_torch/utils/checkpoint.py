@@ -1,0 +1,78 @@
+"""MG hierarchy dumps, in the npz format of ``tpuqcd.utils.checkpoint``.
+
+``save_device_mg`` writes, and ``load_device_mg`` reads, the arrays of
+tpuqcd's ``save_device_mg`` (utils/checkpoint.py:70, :87) under the same
+keys and layouts: per transfer the raw null vectors ``t{i}_v``, Linv
+``t{i}_linv`` and the block ``t{i}_block``; per coarse level the links
+``c{i}_links`` [2, 9, N, N, Vc], ``c{i}_dims`` and ``c{i}_n``.  A
+hierarchy dumped by either package loads into the other; a reload skips
+the null-vector solves, the block orthogonalization and the probing.
+
+tpuqcd writes bfloat16 coarse links (coarse_dtype "bfloat16") with
+ml_dtypes' bfloat16, which ``np.load`` returns as a 2-byte void dtype;
+they are read here as the bfloat16 bit patterns they are.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def save_device_mg(path: str, mg) -> None:
+    """Dump a DeviceMG (tpuqcd_torch.mg.dsolve) hierarchy; float32 arrays
+    (bfloat16-rounded coarse links are exact in float32)."""
+    blobs = {"n_transfers": np.asarray(len(mg.transfers))}
+    for i, tr in enumerate(mg.transfers):
+        blobs[f"t{i}_v"] = tr.v_pk().cpu().numpy()
+        blobs[f"t{i}_linv"] = tr.linv_pk().cpu().numpy()
+        blobs[f"t{i}_block"] = np.asarray(tr.block)
+    for i, lv in enumerate(mg.levels[1:]):
+        blobs[f"c{i}_links"] = lv.links_pk().cpu().numpy()
+        blobs[f"c{i}_dims"] = np.asarray(lv.dims)
+        blobs[f"c{i}_n"] = np.asarray(lv.n)
+    np.savez_compressed(path, **blobs)
+
+
+def float_array(arr: np.ndarray, name: str = "array") -> np.ndarray:
+    """A dumped float array as float32 or float64: a 2-byte void array (a
+    bfloat16 array written from jax) is widened bit-exactly; any other
+    dtype raises."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        bits = arr.view(np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32)
+    if arr.dtype.name == "bfloat16":
+        return arr.astype(np.float32)
+    if arr.dtype not in (np.float32, np.float64):
+        raise ValueError(f"{name}: dtype {arr.dtype} is not float32, float64 or bfloat16")
+    return arr
+
+
+def load_device_mg(path: str, fine_level, params):
+    """Rebuild a DeviceMG on ``fine_level`` from a dump (no setup)."""
+    from ..mg.device import DeviceCoarseLevel, DeviceCoarseTransfer, DeviceFineTransfer
+    from ..mg.dsolve import DeviceMG
+
+    dev = fine_level.device
+    z = np.load(path)
+
+    def tensor(key):
+        return torch.from_numpy(np.ascontiguousarray(float_array(z[key], key))).to(dev)
+
+    transfers, coarse = [], []
+    level = fine_level
+    for i in range(int(z["n_transfers"])):
+        block = tuple(int(b) for b in z[f"t{i}_block"])
+        v, linv = tensor(f"t{i}_v"), tensor(f"t{i}_linv")
+        if i == 0:
+            tr = DeviceFineTransfer.from_pk(fine_level.lat, block, v, linv)
+        else:
+            tr = DeviceCoarseTransfer.from_pk(level.dims, level.n, block, v, linv)
+        links = tensor(f"c{i}_links")
+        if links.ndim != 5:
+            raise ValueError(f"{path}: coarse links have rank {links.ndim}, not the "
+                             "[2, 9, N, N, Vc] layout; regenerate the dump")
+        level = DeviceCoarseLevel.from_links_pk(tuple(int(d) for d in z[f"c{i}_dims"]),
+                                                int(z[f"c{i}_n"]), links)
+        transfers.append(tr)
+        coarse.append(level)
+    return DeviceMG.from_parts(fine_level, params, transfers, coarse)

@@ -2,10 +2,11 @@
 ``examples/``.
 
 Counterpart of ``tpuqcd/utils/config.py`` for the parameter groups the
-port runs: gauge, action, solver, and the switches of the parts not
-ported yet (mg, mesh), which ``cli/common.check_in_slice`` refuses.
-Keys of other groups (physics) and of unported options are ignored, so
-every existing YAML loads.
+port runs: gauge (random or heatbath), action, solver, mg (every key of
+tpuqcd's MGParamsCfg, with the named presets), and the switches of the
+parts not ported yet (mesh, ensembles), which
+``cli/common.check_in_slice`` refuses.  Keys of other groups (physics)
+and of unported options are ignored, so every existing YAML loads.
 """
 from __future__ import annotations
 
@@ -24,7 +25,11 @@ class GaugeParams:
     config_files: tuple = ()
     random_seeds: tuple = ()
     fix: str = ""
+    #: quenched heatbath gauge (ops/heatbath.py) when beta is set:
+    #: heatbath_sweeps compound sweeps (1 heatbath + 3 overrelaxation)
+    #: from a cold start, seeded by random_seed
     heatbath_beta: Optional[float] = None
+    heatbath_sweeps: int = 200
     heatbath_n_cfg: int = 1
 
 
@@ -51,7 +56,41 @@ class SolverParams:
 
 @dataclass(frozen=True)
 class MGParamsCfg:
+    """The mg: group (tpuqcd/utils/config.py:119-154)."""
     enabled: bool = False
+    #: "near_critical" rebases every unset key on MG_PRESETS; explicit
+    #: YAML keys win
+    preset: Optional[str] = None
+    n_vec: tuple[int, ...] = (16,)
+    block: tuple = ((4, 4, 4, 4),)
+    setup_iters: int = 60
+    smoother_iters: int = 4
+    #: parsed, as in tpuqcd, where no solver reads it either
+    coarse_tol: float = 0.25
+    coarse_maxiter: int = 32
+    #: flexible-GCR restart length of the outer MG-preconditioned solve
+    restart: int = 8
+    mu_factor: float = 6.0
+    setup_solver: str = "bicgstab"       # bicgstab | cgne
+    smoother_dtype: str = "float32"      # float32 | bfloat16
+    coarse_dtype: str = "float32"        # float32 | bfloat16
+    #: bfloat16 solver buffers: not ported (cli/common.check_in_slice)
+    gcr_dtype: str = "float32"
+    vec_dtype: str = "float32"
+    #: hierarchy dumps (utils/checkpoint.py), one file per flavor
+    vec_outfile: Optional[str] = None
+    vec_infile: Optional[str] = None
+
+
+#: MGParamsCfg values a preset rebases on (mirrors
+#: mg/dsolve.DeviceMGParams.near_critical; coarse_maxiter <-> coarse_iters)
+MG_PRESETS = {
+    "near_critical": dict(
+        n_vec=(16,), block=((4, 4, 4, 4),), setup_iters=300,
+        smoother_iters=4, coarse_maxiter=24, restart=24, mu_factor=6.0,
+        setup_solver="cgne", smoother_dtype="bfloat16",
+        coarse_dtype="bfloat16"),
+}
 
 
 @dataclass(frozen=True)
@@ -88,10 +127,65 @@ def validate_config(cfg: RunConfig) -> None:
     if cfg.solver.backend not in ("pallas", "xla"):
         raise ConfigError(f"solver.backend must be pallas | xla, "
                           f"got {cfg.solver.backend!r}")
+    for fld in ("smoother_dtype", "coarse_dtype", "gcr_dtype", "vec_dtype"):
+        v = getattr(cfg.mg, fld)
+        if v not in ("float32", "bfloat16"):
+            raise ConfigError(f"mg.{fld} must be float32 | bfloat16, got {v!r}")
+    if cfg.mg.setup_solver not in ("bicgstab", "cgne"):
+        raise ConfigError(f"mg.setup_solver must be bicgstab | cgne, "
+                          f"got {cfg.mg.setup_solver!r}")
+    g = cfg.gauge
+    if g.heatbath_beta is not None:
+        if g.config_file or g.config_files:
+            raise ConfigError("gauge.heatbath_beta generates the gauge in-process: "
+                              "exclusive with config_file(s)")
+        if g.heatbath_beta <= 0:
+            raise ConfigError(f"gauge.heatbath_beta must be > 0, got {g.heatbath_beta}")
+        if g.heatbath_sweeps <= 0:
+            raise ConfigError("gauge.heatbath_sweeps must be > 0")
+        if g.heatbath_n_cfg < 1:
+            raise ConfigError("gauge.heatbath_n_cfg must be >= 1")
+    if cfg.mg.enabled:
+        _validate_mg(cfg.mg, dims)
     if not 0.0 < cfg.solver.tol < 1.0:
         raise ConfigError(f"solver.tol must be in (0, 1), got {cfg.solver.tol}")
     if cfg.solver.maxiter <= 0:
         raise ConfigError(f"solver.maxiter must be positive, got {cfg.solver.maxiter}")
+
+
+def _validate_mg(mg: MGParamsCfg, dims) -> None:
+    """tpuqcd's MG checks: one block per n_vec entry, each block
+    dividing its level's extents, an even x block on the fine level."""
+    if len(mg.n_vec) != len(mg.block):
+        raise ConfigError(f"mg.n_vec ({len(mg.n_vec)} entries) and mg.block "
+                          f"({len(mg.block)} entries) must list one entry per "
+                          f"coarsening level")
+    lx, ly, lz, lt = dims
+    ds = [lt, lz, ly, lx]                   # (T, Z, Y, X) extents per level
+    for depth, blk in enumerate(mg.block):
+        if len(blk) != 4:
+            raise ConfigError(f"mg.block[{depth}] must be (bt, bz, by, bx), got {blk}")
+        if depth == 0 and blk[3] % 2:
+            raise ConfigError(f"mg.block[0] x-extent must be even (eo packing), "
+                              f"got bx={blk[3]}")
+        for name, d, b in zip("tzyx", ds, blk):
+            if b <= 0 or d % b:
+                raise ConfigError(f"mg.block[{depth}] {name}-extent {b} must divide the "
+                                  f"level-{depth} lattice extent {d} (lattice {dims}, "
+                                  f"blocks {mg.block})")
+        ds = [d // b for d, b in zip(ds, blk)]
+    if any(nv <= 0 for nv in mg.n_vec):
+        raise ConfigError(f"mg.n_vec entries must be positive, got {mg.n_vec}")
+
+
+def _apply_mg_preset(raw_mg: dict) -> dict:
+    """Merge a named preset under the explicit mg keys."""
+    preset = (raw_mg or {}).get("preset")
+    if not preset:
+        return raw_mg
+    if preset not in MG_PRESETS:
+        raise ConfigError(f"unknown mg.preset {preset!r}; known: {sorted(MG_PRESETS)}")
+    return {**MG_PRESETS[preset], **raw_mg}
 
 
 def _tupleize(v):
@@ -109,7 +203,7 @@ def config_from_dict(raw: dict) -> RunConfig:
     cfg = RunConfig(gauge=_build(GaugeParams, raw.get("gauge")),
                     action=_build(ActionParams, raw.get("action")),
                     solver=_build(SolverParams, raw.get("solver")),
-                    mg=_build(MGParamsCfg, raw.get("mg")),
+                    mg=_build(MGParamsCfg, _apply_mg_preset(raw.get("mg"))),
                     mesh=_build(MeshParams, raw.get("mesh")))
     validate_config(cfg)
     return cfg

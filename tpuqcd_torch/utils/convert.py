@@ -50,3 +50,17 @@ def packed_from_numpy(arr: np.ndarray, lat: Lattice, device=None) -> torch.Tenso
     if arr.dtype not in (np.float32, np.float64):
         raise ValueError(f"dtype {arr.dtype} is not float32, float64 or bfloat16")
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def fine_transfer_from_numpy(lat: Lattice, block, v_np: np.ndarray,
+                             linv_np: np.ndarray | None = None, device=None):
+    """tpuqcd's null vectors [n, 2, 2, 4, 3, T, Z, S] (and optionally its
+    Linv [2, 2, n, n, Tc, Zc, Sc]) as numpy arrays -> the port's
+    mg.device.DeviceFineTransfer on ``device``; without Linv the port
+    orthogonalizes the blocks itself."""
+    from ..mg.device import DeviceFineTransfer
+    from .checkpoint import float_array
+    v = torch.tensor(float_array(np.asarray(v_np), "v"), device=device)
+    linv = None if linv_np is None else torch.tensor(
+        float_array(np.asarray(linv_np), "linv"), device=device)
+    return DeviceFineTransfer.from_pk(lat, block, v, linv)

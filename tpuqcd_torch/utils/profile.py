@@ -9,9 +9,18 @@ import contextlib
 import time
 from collections import defaultdict
 
+import torch
+
 #: analytic flop count per lattice site of the twisted-mass hop
 #: (BASELINE.md Tier 2)
 FLOPS_TM_DSLASH = 1392
+
+
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU), so that a
+    host clock read after it includes that work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class Profile:
