@@ -1,7 +1,8 @@
 """The CUDA Dslash kernel against its plain PyTorch version on the card
 (phase 3 of chip_smoke.py), in the summed modes (K1, K2), the leg modes
-of MG probing (K4: dirs, legs_out) and the MG fine operator's xpay on
-parity views.  Marked ``gpu``; skips without CUDA.
+of MG probing (K4: dirs, legs_out), the clover epilogues (K3:
+clover_inv, clover_xpay) and the MG fine operators' xpay and clover_xpay
+on parity views.  Marked ``gpu``; skips without CUDA.
 
 It imports neither jax nor tpuqcd, so it runs on a machine that has only
 the port's dependencies:
@@ -18,8 +19,11 @@ from tpuqcd_torch import su3
 from tpuqcd_torch.cli.run_invert import invert
 from tpuqcd_torch.lattice import Lattice
 from tpuqcd_torch.ops import dslash_cuda
-from tpuqcd_torch.mg.device import DeviceFineLevel, _hop_full
+from tpuqcd_torch.mg.device import DeviceFineCloverLevel, DeviceFineLevel, _hop_full
+from tpuqcd_torch.ops.clover import clover_twist_inverse
 from tpuqcd_torch.ops.dslash_cuda import LEG_ORDER, dslash_eo, dslash_eo_plain
+from tpuqcd_torch.solve import clover_pk_from_gauge
+from tpuqcd_torch.utils.packed import pack_clover
 from tpuqcd_torch.utils.config import config_from_dict
 from tpuqcd_torch.utils.convert import gauge_from_full
 
@@ -30,6 +34,9 @@ STORAGE = {"f64": (torch.float64, 3, 1e-13), "f32": (torch.float32, 2, 1e-5),
            "bf16": (torch.bfloat16, 2, 1e-2)}
 MODES = {"none": ("none", None), "twist_inv": ("twist_inv", None), "xpay": ("xpay", None),
          "xpay_full": ("xpay", KAPPA)}
+CSW = 1.2
+CLOVER_MODES = {"clover_inv": ("clover_inv", None), "clover_xpay": ("clover_xpay", None),
+                "clover_xpay_full": ("clover_xpay", KAPPA)}
 
 
 @pytest.fixture
@@ -166,3 +173,94 @@ def test_apply_hop_all_matches_hop_full_per_leg(cuda):
         want = _hop_full(level, v, mu, sign)
         assert ((legs[i] - want).abs().max() / want.abs().max()).item() <= 1e-6
     assert dslash_cuda.counts["float32:dirs"] == 16 and dslash_cuda.counts["plain"] == 0
+
+
+def _clover(u64, lat, epilogue, out_parity):
+    """A from the gauge at csw 1.2 (clover_xpay) or its twisted inverse
+    (clover_inv), packed float64, at the output parity."""
+    a_pk = clover_pk_from_gauge(u64, lat, kappa=KAPPA, csw=CSW)
+    if epilogue == "clover_xpay":
+        return a_pk[out_parity].double()
+    inv = clover_twist_inverse(torch.complex(a_pk[:, 0], a_pk[:, 1]), KAPPA, MU, 1, out_parity)
+    return pack_clover(inv, torch.float64)
+
+
+@pytest.mark.parametrize("mode", sorted(CLOVER_MODES))
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("dims", [(8, 8, 8, 16), (32, 32, 32, 64)], ids=["8c16", "32c64"])
+def test_clover_epilogues_match_plain(cuda, dims, storage, mode):
+    dt, rows, tol = STORAGE[storage]
+    epi, scale = CLOVER_MODES[mode]
+    lat, u64, psi, psi0 = _problem(dims, cuda)
+    u = (u64 if rows == 3 else u64[:, :, :2]).to(dt).contiguous()
+    psi, psi0 = psi.to(dt), psi0.to(dt)
+    key = str(dt).removeprefix("torch.") + ":" + epi
+    for parity in (0, 1):
+        cl = _clover(u64, lat, epi, 1 - parity).to(dt).contiguous()
+        for dagger in (False, True):
+            kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale,
+                      clover=cl, psi0=psi0 if epi == "clover_xpay" else None)
+            before = dslash_cuda.counts[key]
+            k = dslash_eo(u, psi, parity, lat, **kw).double()
+            assert dslash_cuda.counts[key] == before + 1
+            p = dslash_eo_plain(u, psi, parity, lat, **kw).double()
+            torch.cuda.synchronize()
+            assert torch.isfinite(k).all()
+            rel = ((k - p).abs().max() / p.abs().max()).item()
+            assert rel <= tol, (parity, dagger, rel)
+
+
+def test_wrapper_refuses_a_strided_clover_operand(cuda):
+    lat, u, psi, _ = _problem((4, 4, 4, 4), cuda)
+    cl = torch.zeros((2, 2, 2, 6, 6, *lat.site_shape), device=cuda)
+    with pytest.raises(ValueError, match="clover is not contiguous"):
+        dslash_eo(u.float()[:, :, :2].contiguous(), psi.float(), 0, lat,
+                  epilogue="clover_inv", clover=cl[:, 0])
+
+
+@pytest.mark.parametrize("flavor", [+1, -1])
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("dims", [(8, 8, 8, 16), (32, 32, 32, 64)], ids=["8c16", "32c64"])
+def test_fine_clover_apply_matches_plain(cuda, dims, storage, flavor):
+    """DeviceFineCloverLevel.apply (clover_xpay with the kappa scale, psi0
+    and out the parity views of an MG field) against the plain version on
+    contiguous copies of the same parities, at the clover MG cell's
+    action (csw 1.769, kappa 0.1352, mu 0.0009)."""
+    dt, _, tol = STORAGE[storage]
+    kappa, mu, csw = 0.1352, 0.0009, 1.769
+    lat, u64, psi, psi0 = _problem(dims, cuda)
+    a_pk = clover_pk_from_gauge(u64, lat, kappa=kappa, csw=csw)
+    level = DeviceFineCloverLevel(lat, u64.float(), a_pk, kappa, mu, flavor=flavor)
+    level = {"f64": level.as_hp(), "f32": level, "bf16": level.sloppy()}[storage]
+    u = level.u_pk if level.u12 is None else level.u12
+    assert u.dtype == level.clover_pk.dtype == dt
+    v = torch.stack([psi, psi0], dim=1).to(dt)
+    key = str(dt).removeprefix("torch.") + ":clover_xpay"
+    before = dslash_cuda.counts[key]
+    k = level.apply(v).double()
+    assert dslash_cuda.counts[key] == before + 2
+    p = torch.stack([dslash_eo_plain(u, v[:, 1 - par].contiguous(), 1 - par, lat,
+                                     epilogue="clover_xpay", kappa=kappa, mu=mu, flavor=flavor,
+                                     psi0=v[:, par].contiguous(), xpay_scale=kappa,
+                                     clover=level.clover_pk[par]).double()
+                     for par in (0, 1)], dim=1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all()
+    assert ((k - p).abs().max() / p.abs().max()).item() <= tol
+
+
+@pytest.mark.parametrize("mg", [False, True], ids=["direct", "mg"])
+def test_run_invert_clover_goes_through_the_kernel(cuda, mg):
+    raw = {"gauge": {"dims": [8, 8, 8, 16], "random_seed": 1},
+           "action": {"kappa": KAPPA, "mu": 0.06, "csw": CSW},
+           "solver": {"solver": "bicgstab", "sloppy_dtype": "bfloat16", "inner_tol": 1e-4}}
+    if mg:
+        raw["mg"] = {"enabled": True, "n_vec": [8], "block": [[4, 4, 4, 4]],
+                     "setup_iters": 40, "smoother_dtype": "bfloat16"}
+    dslash_cuda.reset_counts()
+    res = invert(config_from_dict(raw), cuda)
+    assert res.relres <= 1e-10 and dslash_cuda.counts["plain"] == 0
+    want = (("float32:clover_xpay", "bfloat16:clover_xpay", "float32:legs_out") if mg
+            else ("bfloat16:clover_inv", "bfloat16:clover_xpay", "float64:clover_inv"))
+    for key in want + ("float64:clover_xpay",):
+        assert dslash_cuda.counts[key] > 0, key

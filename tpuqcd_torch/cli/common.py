@@ -64,9 +64,6 @@ def check_in_slice(cfg: RunConfig) -> None:
     """Refuse the configurations the port does not run yet."""
     g, a, mg = cfg.gauge, cfg.action, cfg.mg
     mesh = cfg.mesh.nt * cfg.mesh.nz * cfg.mesh.ny > 1
-    if mg.enabled and a.csw != 0.0:
-        _not_ported("mg.enabled with action.csw (the twisted-clover fine level)",
-                    "8, TM-clover")
     if mg.enabled and mesh:
         _not_ported("mg.enabled with mesh (the sharded multigrid)", "13, multi-device")
     for key in ("gcr_dtype", "vec_dtype"):
@@ -75,8 +72,6 @@ def check_in_slice(cfg: RunConfig) -> None:
                 f"mg.{key}: {getattr(mg, key)} is not ported to tpuqcd_torch: bfloat16 "
                 "solver buffers fitted the MG solve into a 16 GB TPU (ROADMAP.md, 'How "
                 "the new hardware changes the port'); set it to float32")
-    if a.csw != 0.0:
-        _not_ported("action.csw != 0 (twisted clover)", "8, TM-clover")
     if a.epsbar != 0.0:
         _not_ported("action.epsbar (the non-degenerate doublet)", "12, remaining variants")
     if a.mu_list:
@@ -133,10 +128,17 @@ def setup_gauge(cfg: RunConfig, device: torch.device) -> Gauge:
 
 
 def _mg_fine_level(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor, flavor: int):
-    """The twisted-mass fine level of the action config."""
-    from ..mg.device import DeviceFineLevel
-    return DeviceFineLevel(lat, u_pk.to(torch.float32), cfg.action.kappa, cfg.action.mu,
-                           flavor, t_boundary=-1 if cfg.gauge.antiperiodic_t else 1)
+    """The twisted-mass or, with action.csw, the twisted-clover fine level
+    of the action config; the A blocks come from the float32 gauge."""
+    from ..mg.device import DeviceFineCloverLevel, DeviceFineLevel
+    a, u32 = cfg.action, u_pk.to(torch.float32)
+    tb = -1 if cfg.gauge.antiperiodic_t else 1
+    if a.csw != 0.0:
+        from ..solve import clover_pk_from_gauge
+        cl_pk = clover_pk_from_gauge(u32, lat, kappa=a.kappa, csw=a.csw)
+        return DeviceFineCloverLevel(lat, u32, cl_pk, a.kappa, a.mu, flavor=flavor,
+                                     t_boundary=tb)
+    return DeviceFineLevel(lat, u32, a.kappa, a.mu, flavor, t_boundary=tb)
 
 
 def mg_params(cfg: RunConfig):

@@ -25,8 +25,8 @@
 //     registers (phase = t_boundary on t-links at global t = T-1), which
 //     cuts link traffic by a third;
 //   - the 24 output reals accumulate in registers; the epilogue
-//     (none | twist_inv | xpay) is fused before the single store, so one
-//     Schur-operator apply is exactly two launches;
+//     (none | twist_inv | xpay | clover_inv | clover_xpay) is fused before
+//     the single store, so one Schur-operator apply is exactly two launches;
 //   - storage is templated (float, __nv_bfloat16 with float arithmetic,
 //     double); the spin tables are compile-time constants.
 // Reuse of neighbour spinors through shared memory, TMA and wider loads
@@ -44,6 +44,24 @@
 //     about 480 B/site (one spinor and 8 links, compulsory) and writes
 //     768 B/site (8 spinors), so it is store-bound where the summed hop is
 //     read-bound.
+// Clover epilogues (the TPU kernel's clover_inv and clover_xpay,
+// dslash_pallas.py:461-501), for the twisted-clover operators: a clover
+// operand cl [2(ri), 2(chir), 6, 6, T, Z, S] at the output parity (two
+// Hermitian 6x6 blocks per site, row/column 3 * spin-in-chirality +
+// colour; chirality c holds spins 2c, 2c + 1, gamma5 = +1, -1):
+//   - clover_inv:  out = cl . D psi  (cl the twisted inverse
+//     (A + i tw g5)^{-1}; one Schur apply is clover_inv then clover_xpay);
+//   - clover_xpay: out = cl . psi0 + i tw g5 psi0 - k2 . D psi  (cl = A).
+// The block is the largest operand per site (144 reals against the
+// spinor's 24), every entry read once, coalesced (site index minor): a
+// clover launch at 32^3x64 f32 recon-12 reads and writes about
+// 1152 (clover_inv) or 1248 (clover_xpay) compulsory B/site, so it stays
+// bandwidth-bound (about 2 flop per byte).  The design streams the
+// block: per chirality the 6 inputs (D psi, or psi0) are held in
+// registers and each output row is summed from 6 entries loaded just
+// before use, so at most 12 extra reals are live beside the 24 of the
+// accumulator.  CLOVER is a template flag, so the other modes compile as
+// before.
 // Spinor operands may be views whose re/im planes are a stride apart
 // (psi_rs, psi0_rs, out_rs: elements from the re to the im plane; 12*n
 // when contiguous) and per-leg outputs a stride out_ls apart, so that
@@ -199,10 +217,11 @@ __device__ __forceinline__ void store_spinor(S* __restrict__ out, int64_t rs, in
     }
 }
 
-template <typename S, int NROW, bool DAGGER, bool LEGS_OUT>
+template <typename S, int NROW, bool DAGGER, bool LEGS_OUT, bool CLOVER>
 __global__ void __launch_bounds__(128)
 dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
-                 const S* __restrict__ psi0, S* __restrict__ out, int T, int Z, int Y,
+                 const S* __restrict__ psi0, const S* __restrict__ clov,
+                 S* __restrict__ out, int T, int Z, int Y,
                  int Xh, int p, int epilogue, double tw_d, double k2_d, int t_boundary,
                  int leg_mask, int64_t psi_rs, int64_t psi0_rs, int64_t out_rs,
                  int64_t out_ls) {
@@ -260,8 +279,45 @@ dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
 #undef TQ_LEG
   if (LEGS_OUT) return;
 
-  // fused site-term epilogue (tpuqcd/ops/dslash_pallas.py:446-460)
   const R tw = R(tw_d), k2 = R(k2_d);
+  if (CLOVER) {
+    // clover epilogue (tpuqcd/ops/dslash_pallas.py:461-501): per chirality,
+    // the block row by row over the 6 inputs; an output row overwrites
+    // only its own accumulator entry, which it alone reads
+    const int64_t cl_rs = 72 * n_sites;  // re -> im plane of the clover operand
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const R g5 = c == 0 ? R(1) : R(-1);
+      cpx<R> x[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        if (epilogue == 3) {
+          x[k] = acc[2 * c + k / 3][k % 3];
+        } else {
+          const S* p0 = psi0 + ((2 * c + k / 3) * 3 + k % 3) * n_sites + n;
+          x[k] = {to_compute(p0[0]), to_compute(p0[psi0_rs])};
+        }
+      }
+      const S* blk = clov + (int64_t)c * 36 * n_sites + n;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        cpx<R> row = {R(0), R(0)};
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          const S* m = blk + (int64_t)(i * 6 + k) * n_sites;
+          row = cadd(row, cmul(cpx<R>{to_compute(m[0]), to_compute(m[cl_rs])}, x[k]));
+        }
+        cpx<R>& o = acc[2 * c + i / 3][i % 3];
+        if (epilogue == 4)  // (A + i tw g5) psi0 - k2 . D psi
+          row = {row.re - tw * g5 * x[i].im - k2 * o.re, row.im + tw * g5 * x[i].re - k2 * o.im};
+        o = row;
+      }
+    }
+    store_spinor(out, out_rs, n_sites, n, acc);
+    return;
+  }
+
+  // fused site-term epilogue (tpuqcd/ops/dslash_pallas.py:446-460)
   const R den = R(1) / (R(1) + tw * tw);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -287,13 +343,16 @@ dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
 }
 
 template <typename S>
-int launch(const void* u, const void* psi, const void* psi0, void* out, int T, int Z, int Y,
-           int Xh, int nrow, int src_parity, int dagger, int epilogue, double tw, double k2,
-           int t_boundary, int leg_mask, int legs_out, int64_t psi_rs, int64_t psi0_rs,
-           int64_t out_rs, int64_t out_ls, int device, void* stream) {
+int launch(const void* u, const void* psi, const void* psi0, const void* clov, void* out, int T,
+           int Z, int Y, int Xh, int nrow, int src_parity, int dagger, int epilogue, double tw,
+           double k2, int t_boundary, int leg_mask, int legs_out, int64_t psi_rs,
+           int64_t psi0_rs, int64_t out_rs, int64_t out_ls, int device, void* stream) {
+  // epilogues: 0 none, 1 twist_inv, 2 xpay, 3 clover_inv, 4 clover_xpay
+  const bool clover = epilogue >= 3;
   if ((nrow != 2 && nrow != 3) || (src_parity != 0 && src_parity != 1) || epilogue < 0 ||
-      epilogue > 2 || (epilogue == 2 && psi0 == nullptr) || T <= 0 || Z <= 0 || Y <= 0 ||
-      Xh <= 0 || leg_mask <= 0 || leg_mask > 255 || (legs_out && epilogue != 0))
+      epilogue > 4 || ((epilogue == 2 || epilogue == 4) && psi0 == nullptr) ||
+      (clover && clov == nullptr) || T <= 0 || Z <= 0 || Y <= 0 || Xh <= 0 ||
+      leg_mask <= 0 || leg_mask > 255 || (legs_out && epilogue != 0))
     return (int)cudaErrorInvalidValue;
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: select the tensors' device before launching on its stream
@@ -306,14 +365,16 @@ int launch(const void* u, const void* psi, const void* psi0, void* out, int T, i
   const S* u_ = (const S*)u;
   const S* psi_ = (const S*)psi;
   const S* psi0_ = (const S*)psi0;
+  const S* clov_ = (const S*)clov;
   S* out_ = (S*)out;
-#define TQ_LAUNCH(NR, DG, LO)                                                               \
-  dslash_eo_kernel<S, NR, DG, LO><<<blocks, threads, 0, s>>>(                               \
-      u_, psi_, psi0_, out_, T, Z, Y, Xh, src_parity, epilogue, tw, k2, t_boundary, leg_mask, \
-      psi_rs, psi0_rs, out_rs, out_ls)
-#define TQ_LAUNCH_LO(NR, DG)              \
-  if (legs_out) TQ_LAUNCH(NR, DG, true);  \
-  else TQ_LAUNCH(NR, DG, false);
+#define TQ_LAUNCH(NR, DG, LO, CL)                                                           \
+  dslash_eo_kernel<S, NR, DG, LO, CL><<<blocks, threads, 0, s>>>(                           \
+      u_, psi_, psi0_, clov_, out_, T, Z, Y, Xh, src_parity, epilogue, tw, k2, t_boundary,  \
+      leg_mask, psi_rs, psi0_rs, out_rs, out_ls)
+#define TQ_LAUNCH_LO(NR, DG)                  \
+  if (legs_out) TQ_LAUNCH(NR, DG, true, false); \
+  else if (clover) TQ_LAUNCH(NR, DG, false, true); \
+  else TQ_LAUNCH(NR, DG, false, false);
   if (nrow == 2) {
     if (dagger) { TQ_LAUNCH_LO(2, true) } else { TQ_LAUNCH_LO(2, false) }
   } else {
@@ -327,14 +388,14 @@ int launch(const void* u, const void* psi, const void* psi0, void* out, int T, i
 }  // namespace
 
 #define TQ_ENTRY(NAME, S)                                                                     \
-  extern "C" int NAME(const void* u, const void* psi, const void* psi0, void* out, int T,     \
-                      int Z, int Y, int Xh, int nrow, int src_parity, int dagger, int epilogue, \
-                      double tw, double k2, int t_boundary, int leg_mask, int legs_out,       \
-                      int64_t psi_rs, int64_t psi0_rs, int64_t out_rs, int64_t out_ls,        \
-                      int device, void* stream) {                                             \
-    return launch<S>(u, psi, psi0, out, T, Z, Y, Xh, nrow, src_parity, dagger, epilogue, tw,  \
-                     k2, t_boundary, leg_mask, legs_out, psi_rs, psi0_rs, out_rs, out_ls,     \
-                     device, stream);                                                         \
+  extern "C" int NAME(const void* u, const void* psi, const void* psi0, const void* clov,     \
+                      void* out, int T, int Z, int Y, int Xh, int nrow, int src_parity,       \
+                      int dagger, int epilogue, double tw, double k2, int t_boundary,         \
+                      int leg_mask, int legs_out, int64_t psi_rs, int64_t psi0_rs,            \
+                      int64_t out_rs, int64_t out_ls, int device, void* stream) {             \
+    return launch<S>(u, psi, psi0, clov, out, T, Z, Y, Xh, nrow, src_parity, dagger,          \
+                     epilogue, tw, k2, t_boundary, leg_mask, legs_out, psi_rs, psi0_rs,       \
+                     out_rs, out_ls, device, stream);                                         \
   }
 
 TQ_ENTRY(tq_dslash_eo_f32, float)

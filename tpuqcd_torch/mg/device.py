@@ -1,7 +1,7 @@
 """Adaptive-multigrid levels, transfers and Galerkin probing on the device.
 
-Counterpart of ``tpuqcd/mg/device.py`` (twisted mass; the clover fine
-level is not ported yet).  Fields are packed real with the re/im axis
+Counterpart of ``tpuqcd/mg/device.py`` (the twisted-mass and the
+twisted-clover fine level).  Fields are packed real with the re/im axis
 leading, as there:
 
     fine field      [2(ri), 2(par), 4, 3, T, Z, S]
@@ -9,8 +9,10 @@ leading, as there:
 
 The fine level runs every apply through the Dslash kernel
 (ops/dslash_cuda.dslash_eo, or its plain version on the CPU): one
-``xpay`` launch per parity for M, the ``dirs`` leg filter for a single
-hop, and the ``legs_out`` mode for all 8 hops of Galerkin probing.  The
+``xpay`` launch per parity for M (``clover_xpay`` for twisted clover),
+the ``dirs`` leg filter for a single hop, and the ``legs_out`` mode for
+all 8 hops of Galerkin probing; the hops are clover-free, so the clover
+term reaches the coarse operator through the probes of M alone.  The
 kernel reads and writes the parity halves of a fine field in place.
 
 The coarse operator and the transfers were XLA in tpuqcd and are plain
@@ -53,24 +55,11 @@ if tuple(G5_DIAG) != (1.0, 1.0, -1.0, -1.0):
 # --------------------------------------------------------------------------
 # fine level
 
-@dataclasses.dataclass(frozen=True)
-class DeviceFineLevel:
-    """The two-parity twisted-mass operator M = (1 + 2 i kappa mu f g5)
-    - kappa D on fine fields.
-
-    u_pk: the 18-real gauge [4, 2, 3, 3, 2, T, Z, S] with the boundary
-    phase folded in (float32; float64 in the ``as_hp`` twin).  The
-    float32 and bfloat16 applies read the reconstruct-12 copy u12; the
-    float64 twin reads the 18 reals.  A field has the dtype of the links
-    its apply reads.
-    """
-    lat: Lattice
-    u_pk: torch.Tensor
-    kappa: float
-    mu: float = 0.0
-    flavor: int = +1
-    t_boundary: int = -1
-    u12: torch.Tensor | None = None
+class _FineHops:
+    """What the twisted-mass and twisted-clover fine levels share: the
+    gauge (u_pk, its reconstruct-12 copy u12), the clover-free hops and
+    the field shape.  Subclasses are frozen dataclasses with the fields
+    lat, u_pk, kappa, mu, flavor, t_boundary and u12."""
 
     def __post_init__(self):
         if self.u12 is None and self.u_pk.dtype != torch.float64:
@@ -95,14 +84,6 @@ class DeviceFineLevel:
                          mu=self.mu, flavor=self.flavor, t_boundary=self.t_boundary,
                          out=out, **kw)
 
-    def apply(self, v: torch.Tensor) -> torch.Tensor:
-        """M v: one xpay launch per parity, (1 + i tw g5) v_p - kappa D v_{1-p}."""
-        out = torch.empty_like(v)
-        for p in (0, 1):
-            self._dslash(v, p, out[:, p], epilogue="xpay", psi0=v[:, p],
-                         xpay_scale=self.kappa)
-        return out
-
     def apply_hop(self, v: torch.Tensor, mu: int, sign: int) -> torch.Tensor:
         """One hop term of M (including the -kappa), both parities."""
         return _hop_full(self, v, mu, sign)
@@ -116,6 +97,39 @@ class DeviceFineLevel:
             self._dslash(v, p, out[:, :, p], legs_out=True)
         return out.mul_(-self.kappa)
 
+    def random_field(self, generator: torch.Generator) -> torch.Tensor:
+        shape = (2, 2, 4, 3, *self.lat.site_shape)
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=self.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceFineLevel(_FineHops):
+    """The two-parity twisted-mass operator M = (1 + 2 i kappa mu f g5)
+    - kappa D on fine fields.
+
+    u_pk: the 18-real gauge [4, 2, 3, 3, 2, T, Z, S] with the boundary
+    phase folded in (float32; float64 in the ``as_hp`` twin).  The
+    float32 and bfloat16 applies read the reconstruct-12 copy u12; the
+    float64 twin reads the 18 reals.  A field has the dtype of the links
+    its apply reads.
+    """
+    lat: Lattice
+    u_pk: torch.Tensor
+    kappa: float
+    mu: float = 0.0
+    flavor: int = +1
+    t_boundary: int = -1
+    u12: torch.Tensor | None = None
+
+    def apply(self, v: torch.Tensor) -> torch.Tensor:
+        """M v: one xpay launch per parity, (1 + i tw g5) v_p - kappa D v_{1-p}."""
+        out = torch.empty_like(v)
+        for p in (0, 1):
+            self._dslash(v, p, out[:, p], epilogue="xpay", psi0=v[:, p],
+                         xpay_scale=self.kappa)
+        return out
+
     def as_hp(self) -> "DeviceFineLevel":
         """The float64 twin on the 18-real gauge, for the certified
         residuals (float32 links are exact in float64)."""
@@ -125,13 +139,48 @@ class DeviceFineLevel:
         """The smoother's twin with reconstruct-12 links stored in dtype."""
         return dataclasses.replace(self, u12=self.u12.to(dtype))
 
-    def random_field(self, generator: torch.Generator) -> torch.Tensor:
-        shape = (2, 2, 4, 3, *self.lat.site_shape)
-        return torch.randn(shape, generator=generator, dtype=torch.float32,
-                           device=self.device)
+
+@dataclasses.dataclass(frozen=True)
+class DeviceFineCloverLevel(_FineHops):
+    """The two-parity twisted-clover operator M = (A + 2 i kappa mu f g5)
+    - kappa D on fine fields (tpuqcd/mg/device.py:226).
+
+    clover_pk: the packed A blocks of both parities [2(par), 2(ri),
+    2(chir), 6, 6, T, Z, S] (solve.clover_pk_from_gauge), float32 from
+    the float32 gauge; the float64 twin (``as_hp``) promotes them
+    exactly, the bfloat16 smoother twin (``sloppy``) rounds them with
+    the links.  The blocks have the dtype of the links the apply reads.
+    """
+    lat: Lattice
+    u_pk: torch.Tensor
+    clover_pk: torch.Tensor
+    kappa: float
+    mu: float = 0.0
+    flavor: int = +1
+    t_boundary: int = -1
+    u12: torch.Tensor | None = None
+
+    def apply(self, v: torch.Tensor) -> torch.Tensor:
+        """M v: one clover_xpay launch per parity,
+        (A + i tw g5) v_p - kappa D v_{1-p}."""
+        out = torch.empty_like(v)
+        for p in (0, 1):
+            self._dslash(v, p, out[:, p], epilogue="clover_xpay", psi0=v[:, p],
+                         xpay_scale=self.kappa, clover=self.clover_pk[p])
+        return out
+
+    def as_hp(self) -> "DeviceFineCloverLevel":
+        """The float64 twin on the 18-real gauge and the promoted blocks."""
+        return dataclasses.replace(self, u_pk=self.u_pk.to(torch.float64),
+                                   clover_pk=self.clover_pk.to(torch.float64), u12=None)
+
+    def sloppy(self, dtype: torch.dtype = torch.bfloat16) -> "DeviceFineCloverLevel":
+        """The smoother's twin: reconstruct-12 links and clover blocks in dtype."""
+        return dataclasses.replace(self, u12=self.u12.to(dtype),
+                                   clover_pk=self.clover_pk.to(dtype))
 
 
-def _hop_full(level: DeviceFineLevel, v: torch.Tensor, mu: int, sign: int) -> torch.Tensor:
+def _hop_full(level: _FineHops, v: torch.Tensor, mu: int, sign: int) -> torch.Tensor:
     """Single hop term of the full operator, both parities, through the
     kernel's dirs leg filter."""
     out = torch.empty_like(v)

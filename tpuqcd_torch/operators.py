@@ -1,7 +1,9 @@
-"""Twisted-mass operators on packed fields, even-odd preconditioned.
+"""Twisted-mass and twisted-clover operators on packed fields, even-odd
+preconditioned.
 
-Counterpart of ``tpuqcd/operators.py:341-460``.  Asymmetric Schur
-complement on the even parity, with A = 1 + 2 i kappa mu g5 flavor:
+Counterpart of ``tpuqcd/operators.py:341-574``.  Asymmetric Schur
+complement on the even parity, with A = 1 + 2 i kappa mu g5 flavor
+(twisted mass) or A = A_clover + 2 i kappa mu g5 flavor (twisted clover):
 
     M           = [[A, -k D_eo], [-k D_oe, A]]
     Mhat x_e    = A x_e - k^2 D_eo A^{-1} D_oe x_e
@@ -9,7 +11,8 @@ complement on the even parity, with A = 1 + 2 i kappa mu g5 flavor:
     reconstruct:  x_o    = A^{-1} (b_o + k D_oe x_e)
 
 One Mhat apply is two Dslash launches with fused epilogues
-(twist_inv, then xpay).  Every hop goes through ops.dslash_cuda.dslash_eo,
+(twist_inv, then xpay; clover_inv, then clover_xpay for twisted
+clover).  Every hop goes through ops.dslash_cuda.dslash_eo,
 so the tensor's device picks the kernel or the plain version; the same
 class serves the float32/bfloat16 iteration operator and the float64
 certification operator.
@@ -23,6 +26,7 @@ import torch
 from .fields import EVEN, ODD
 from .gammas import G5_DIAG
 from .lattice import Lattice
+from .ops.clover import clover_apply_pk
 from .ops.dslash_cuda import dslash_eo
 
 
@@ -110,3 +114,64 @@ class PackedTMOperatorPC:
         return torch.stack([
             self._hop(u, x_o, ODD, epilogue="xpay", psi0=x_e, xpay_scale=self.kappa),
             self._hop(u, x_e, EVEN, epilogue="xpay", psi0=x_o, xpay_scale=self.kappa)])
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedTMCloverOperatorPC:
+    """Even-odd twisted-clover operator on packed fields (BASELINE config 2):
+
+        Mhat = Atw_ee - k^2 D_eo Atw_oo^{-1} D_oe,  Atw = A + 2 i kappa mu f g5.
+
+    The clover data travel with the gauge as one operand tuple
+
+        fields = (u,            gauge [4, 2, R, 3, 2, T, Z, S]
+                  cl_pk,        A blocks [2(par), 2(ri), 2(chir), 6, 6, T, Z, S]
+                  clinv_plus,   odd twisted inverses [2(ri), 2(chir), 6, 6, T, Z, S]
+                  clinv_minus)  of flavor +1 and -1
+
+    all of one dtype (solve.make_clover_fields builds them).  An apply is
+    two launches, clover_inv with the inverse of flavor f, then
+    clover_xpay with A_ee; the dagger takes daggered hops and f flipped,
+    since (A + i t g5)^dag = A - i t g5.
+    """
+    lat: Lattice
+    kappa: float
+    mu: float = 0.0
+    flavor: int = 1
+    t_boundary: int = -1
+
+    def _hop(self, u, psi, parity, dagger=False, epilogue="none", flavor=None, psi0=None,
+             clover=None):
+        return dslash_eo(u, psi, parity, self.lat, dagger=dagger, epilogue=epilogue,
+                         kappa=self.kappa, mu=self.mu,
+                         flavor=self.flavor if flavor is None else flavor,
+                         psi0=psi0, t_boundary=self.t_boundary, clover=clover)
+
+    @staticmethod
+    def _clinv(fields, f: int) -> torch.Tensor:
+        return fields[2] if f == +1 else fields[3]
+
+    def _apply(self, fields, psi, dagger: bool):
+        u, cl = fields[0], fields[1]
+        f = -self.flavor if dagger else self.flavor
+        t1 = self._hop(u, psi, EVEN, dagger, "clover_inv", f, clover=self._clinv(fields, f))
+        return self._hop(u, t1, ODD, dagger, "clover_xpay", f, psi0=psi, clover=cl[EVEN])
+
+    def apply(self, fields, psi: torch.Tensor) -> torch.Tensor:
+        return self._apply(fields, psi, dagger=False)
+
+    def apply_dagger(self, fields, psi: torch.Tensor) -> torch.Tensor:
+        return self._apply(fields, psi, dagger=True)
+
+    def normal(self, fields, psi: torch.Tensor) -> torch.Tensor:
+        return self.apply_dagger(fields, self.apply(fields, psi))
+
+    def prepare(self, fields, b_pk: torch.Tensor) -> torch.Tensor:
+        """bhat_e = b_e + k D_eo Atw_oo^{-1} b_o."""
+        t = clover_apply_pk(self._clinv(fields, self.flavor), b_pk[1])
+        return b_pk[0] + self.kappa * self._hop(fields[0], t, ODD)
+
+    def reconstruct(self, fields, x_e: torch.Tensor, b_pk: torch.Tensor) -> torch.Tensor:
+        """x_o = Atw_oo^{-1} (b_o + k D_oe x_e); returns [2(par), ...]."""
+        t = b_pk[1] + self.kappa * self._hop(fields[0], x_e, EVEN)
+        return torch.stack([x_e, clover_apply_pk(self._clinv(fields, self.flavor), t)])

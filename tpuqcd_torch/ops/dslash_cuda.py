@@ -1,5 +1,5 @@
-"""Even-odd Wilson hop with fused twisted-mass epilogues: the CUDA kernel,
-its plain PyTorch version, and the dispatch between them.
+"""Even-odd Wilson hop with fused twisted-mass and clover epilogues: the
+CUDA kernel, its plain PyTorch version, and the dispatch between them.
 
 Counterpart of ``tpuqcd/ops/dslash_pallas.py::dslash_eo_pallas`` (the
 TPU kernel) and ``tpuqcd/ops/dslash_xla.py::dslash_eo_dev_ri`` (whose f64
@@ -24,6 +24,12 @@ only, the arithmetic is float32).  Epilogues, with tw = 2 kappa mu flavor:
     "twist_inv"  out = (1 - i tw g5) / (1 + tw^2) . D psi
     "xpay"       out = (1 + i tw g5) psi0 - k2 . D psi,  k2 = kappa^2
                  (or xpay_scale: kappa gives the full two-parity M)
+    "clover_inv"  out = cl . D psi            (cl the twisted inverse of A)
+    "clover_xpay" out = (cl + i tw g5) psi0 - k2 . D psi      (cl = A)
+
+The clover epilogues (the TPU kernel's K3) take ``clover``, one parity's
+packed chiral blocks [2(ri), 2(chir), 6, 6, T, Z, S] at the output
+parity (ops/clover.py), contiguous and of the spinor's dtype.
 
 Leg selection, for MG Galerkin probing (the TPU kernel's K4 modes):
 
@@ -63,7 +69,8 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-EPILOGUES = {"none": 0, "twist_inv": 1, "xpay": 2}
+EPILOGUES = {"none": 0, "twist_inv": 1, "xpay": 2, "clover_inv": 3, "clover_xpay": 4}
+CLOVER_EPILOGUES = ("clover_inv", "clover_xpay")
 #: the kernel's textual leg order: slot order of legs_out, bit order of
 #: the leg mask (bit 2*mu + (sign < 0))
 LEG_ORDER = tuple((mu, s) for mu in range(4) for s in (+1, -1))
@@ -71,9 +78,10 @@ _ENTRY = {torch.float32: "tq_dslash_eo_f32", torch.bfloat16: "tq_dslash_eo_bf16"
           torch.float64: "tq_dslash_eo_f64"}
 
 #: launches of the kernel, by storage dtype name ("float32"), with the
-#: leg modes apart ("float32:dirs", "float32:legs_out"), and calls of the
-#: plain version under "plain".  Each kernel launch adds one; nothing else
-#: does.
+#: leg modes and the clover epilogues apart ("float32:dirs",
+#: "float32:legs_out", "float32:clover_inv", "float32:clover_xpay"), and
+#: calls of the plain version under "plain".  Each kernel launch adds one;
+#: nothing else does.
 counts: collections.Counter = collections.Counter()
 
 
@@ -109,7 +117,7 @@ class _Library:
         lib = ctypes.CDLL(str(path))
         for name in _ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                            + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
                            + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -177,7 +185,8 @@ def _leg_mask(dirs) -> int:
     return mask
 
 
-def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, out=None):
+def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, out=None,
+           clover=None):
     """Validate the operands; returns (leg mask, output shape)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {sorted(EPILOGUES)}, got {epilogue!r}")
@@ -202,9 +211,20 @@ def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, o
                          "utils.packed.pack_gauge12)")
     _ri_stride(psi, "psi")
     tensors = [("psi", psi)]
-    if epilogue == "xpay":
+    if epilogue in CLOVER_EPILOGUES:
+        if clover is None:
+            raise ValueError(f"the {epilogue} epilogue needs clover")
+        if tuple(clover.shape) != (2, 2, 6, 6, *sites) or clover.dtype != psi.dtype:
+            raise ValueError(f"clover must be {psi.dtype} {(2, 2, 6, 6, *sites)}, got "
+                             f"{clover.dtype} {tuple(clover.shape)}")
+        if not clover.is_contiguous():
+            raise ValueError("clover is not contiguous")
+        tensors.append(("clover", clover))
+    elif clover is not None:
+        raise ValueError(f"clover is given, but epilogue {epilogue!r} does not read it")
+    if epilogue in ("xpay", "clover_xpay"):
         if psi0 is None:
-            raise ValueError("the xpay epilogue needs psi0")
+            raise ValueError(f"the {epilogue} epilogue needs psi0")
         if psi0.shape != psi.shape or psi0.dtype != psi.dtype:
             raise ValueError("psi0 must match psi in shape and dtype")
         _ri_stride(psi0, "psi0")
@@ -234,17 +254,18 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
               mu: float = 0.0, flavor: int = 1, psi0: torch.Tensor | None = None,
               t_boundary: int = -1, xpay_scale: float | None = None,
               dirs: tuple | None = None, legs_out: bool = False,
-              out: torch.Tensor | None = None) -> torch.Tensor:
+              out: torch.Tensor | None = None,
+              clover: torch.Tensor | None = None) -> torch.Tensor:
     """D_{q<-p} psi with a fused epilogue; result at parity 1 - src_parity.
 
     t_boundary is the fermion T-boundary phase folded into the stored
     links (-1 antiperiodic, +1 periodic); only reconstruct-12 reads it.
-    dirs, legs_out and out: see the module docstring.
+    dirs, legs_out, out and clover: see the module docstring.
     """
     kw = dict(dagger=dagger, epilogue=epilogue, kappa=kappa, mu=mu, flavor=flavor,
               psi0=psi0, t_boundary=t_boundary, xpay_scale=xpay_scale, dirs=dirs,
-              legs_out=legs_out, out=out)
-    mask, shape = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out)
+              legs_out=legs_out, out=out, clover=clover)
+    mask, shape = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out, clover)
     if psi.device.type == "cpu":
         return dslash_eo_plain(u, psi, src_parity, lat, **kw)
     if psi.device.type != "cuda":
@@ -257,9 +278,10 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
     T, Z, _ = lat.site_shape
     stream = torch.cuda.current_stream(psi.device).cuda_stream
     err = fn(u.data_ptr(), psi.data_ptr(), psi0.data_ptr() if psi0 is not None else None,
-             out.data_ptr(), T, Z, lat.Ly, lat.Lx // 2, u.shape[2], src_parity, int(dagger),
-             EPILOGUES[epilogue], tw, k2, int(t_boundary), mask, int(legs_out),
-             psi.stride(0), psi0.stride(0) if psi0 is not None else 0, out.stride(lead),
+             clover.data_ptr() if clover is not None else None, out.data_ptr(), T, Z,
+             lat.Ly, lat.Lx // 2, u.shape[2], src_parity, int(dagger), EPILOGUES[epilogue],
+             tw, k2, int(t_boundary), mask, int(legs_out), psi.stride(0),
+             psi0.stride(0) if psi0 is not None else 0, out.stride(lead),
              out.stride(0) if legs_out else 0, psi.device.index, stream)
     if err != 0:
         msg = library.get().tq_error_string(err).decode()
@@ -269,6 +291,8 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
         key += ":legs_out"
     elif dirs is not None:
         key += ":dirs"
+    elif clover is not None:
+        key += ":" + epilogue
     counts[key] += 1
     return out
 
@@ -325,14 +349,16 @@ def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: La
                     mu: float = 0.0, flavor: int = 1, psi0: torch.Tensor | None = None,
                     t_boundary: int = -1, xpay_scale: float | None = None,
                     dirs: tuple | None = None, legs_out: bool = False,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    clover: torch.Tensor | None = None) -> torch.Tensor:
     """The same function as the kernel in plain PyTorch, on any device.
 
     A port of tpuqcd's dslash_eo_dev_ri (spin projection, SU(3) mat-vec,
     reconstruction) with reconstruct-12, the epilogues and the leg modes
-    added.  bfloat16 storage computes in float32, reconstruction included.
+    added; the clover epilogues apply the blocks with ops/clover.clover_mv.
+    bfloat16 storage computes in float32, reconstruction included.
     """
-    mask, _ = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out)
+    mask, _ = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out, clover)
     counts["plain"] += 1
     p, q = src_parity, 1 - src_parity
     T, Z, S = lat.site_shape
@@ -374,6 +400,15 @@ def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: La
         elif epilogue == "xpay":
             x0 = torch.complex(psi0[0].to(rdt), psi0[1].to(rdt)).reshape(4, 3, -1)
             acc = (1 + 1j * tw * g5) * x0 - k2 * acc
+        elif epilogue in CLOVER_EPILOGUES:
+            # imported here: ops/clover imports gauge_tools, which imports this module
+            from .clover import clover_mv
+            cl = torch.complex(clover[0].to(rdt), clover[1].to(rdt)).reshape(2, 6, 6, -1)
+            if epilogue == "clover_inv":
+                acc = clover_mv(cl, acc)
+            else:
+                x0 = torch.complex(psi0[0].to(rdt), psi0[1].to(rdt)).reshape(4, 3, -1)
+                acc = clover_mv(cl, x0) + 1j * tw * g5 * x0 - k2 * acc
         res = torch.stack([acc.real, acc.imag]).reshape(2, 4, 3, T, Z, S)
     if out is None:
         return res.to(psi.dtype)

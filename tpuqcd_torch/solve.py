@@ -1,5 +1,5 @@
-"""Certified twisted-mass solve: sloppy Krylov iteration inside an f64
-defect-correction loop.
+"""Certified twisted-mass and twisted-clover solves: sloppy Krylov
+iteration inside an f64 defect-correction loop.
 
 Counterpart of ``tpuqcd/solve.py:30-166, :251, :445``.  The iteration operator
 runs in the sloppy dtype on a reconstruct-12 gauge copy; true residuals,
@@ -10,6 +10,13 @@ device every one of them goes through the Dslash kernel.
     lat = Lattice((16, 16, 16, 32))
     res = solve_tm(u_pk, b_pk, lat, kappa=0.115, mu=0.05, tol=1e-10)
     x = res.x          # [2(par), 2(ri), 4, 3, T, Z, S] float64
+    clover = make_clover_fields(u_pk, lat, kappa=0.115, mu=0.05, csw=1.2)
+    res = solve_tm(u_pk, b_pk, lat, kappa=0.115, mu=0.05, csw=1.2, clover=clover)
+
+The clover fields hold the A blocks in float32 (built from the float32
+gauge, exact in float64) and the odd twisted inverses in float64, so the
+float64 operator certifies the even-odd system of the same M that
+full_system_relres applies.
 """
 from __future__ import annotations
 
@@ -17,11 +24,15 @@ from typing import NamedTuple
 
 import torch
 
+from .fields import ODD
 from .lattice import Lattice
-from .operators import PackedTMOperatorPC
+from .mg.device import DeviceFineCloverLevel
+from .operators import PackedTMCloverOperatorPC, PackedTMOperatorPC
+from .ops.clover import clover_blocks, clover_twist_inverse
 from .solvers.bicgstab import bicgstab
 from .solvers.cg import _cg_cycle
 from .solvers.reductions import norm2
+from .utils.packed import pack_clover, unpack_gauge
 
 
 class SolveResult(NamedTuple):
@@ -31,14 +42,14 @@ class SolveResult(NamedTuple):
     refinements: int
 
 
-def _refined_solve(pc, u_s, u_hp, bhat, *, tol, maxiter, inner_tol, solver, x0=None):
+def _refined_solve(pc, u_s, u_hp, bhat, *, sdt, tol, maxiter, inner_tol, solver, x0=None):
     """Defect correction: each pass solves Mhat dx = r in the sloppy dtype
-    (pc on the sloppy gauge u_s) to inner_tol and adds dx to the f64
-    iterate; stops when the f64 true residual (pc on u_hp) meets tol,
-    after maxiter sloppy matvecs, or 40 passes."""
+    sdt (pc on the sloppy operands u_s) to inner_tol and adds dx to the
+    f64 iterate; stops when the f64 true residual (pc on u_hp) meets tol,
+    after maxiter sloppy matvecs, or 40 passes.  u_s and u_hp are a gauge
+    or, for twisted clover, the operand tuple of make_clover_fields."""
     bsq = norm2(bhat).item()
     tol2 = tol * tol * bsq
-    sdt = u_s.dtype
 
     def inner(r_s, budget):
         if solver == "bicgstab":
@@ -67,43 +78,94 @@ def _refined_solve(pc, u_s, u_hp, bhat, *, tol, maxiter, inner_tol, solver, x0=N
     return x, (rsq / max(bsq, 1e-300)) ** 0.5, k, nref
 
 
+def clover_pk_from_gauge(u_pk: torch.Tensor, lat: Lattice, *, kappa: float,
+                         csw: float) -> torch.Tensor:
+    """The packed A blocks of both parities, [2(par), 2(ri), 2(chir), 6, 6,
+    T, Z, S] float32, built in complex64 from the float32 gauge."""
+    a = clover_blocks(unpack_gauge(u_pk.to(torch.float32)), lat, kappa, csw)
+    return torch.stack([pack_clover(a[0]), pack_clover(a[1])])
+
+
+def make_clover_fields(u_pk: torch.Tensor, lat: Lattice, *, kappa: float, mu: float,
+                       csw: float):
+    """One-time clover construction for PackedTMCloverOperatorPC:
+    (cl_pk, clinv_plus, clinv_minus).  cl_pk is clover_pk_from_gauge's A;
+    clinv_plus and clinv_minus [2(ri), 2(chir), 6, 6, T, Z, S] float64 hold
+    the odd twisted inverses of that A for flavor +1 and -1, inverted in
+    complex128."""
+    cl_pk = clover_pk_from_gauge(u_pk, lat, kappa=kappa, csw=csw)
+    a = torch.complex(cl_pk[:, 0], cl_pk[:, 1])
+    clinv = [pack_clover(clover_twist_inverse(a, kappa, mu, f, ODD), torch.float64)
+             for f in (+1, -1)]
+    return cl_pk, clinv[0], clinv[1]
+
+
 def solve_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: float,
              mu: float, flavor: int = 1, tol: float = 1e-10, maxiter: int = 5000,
              inner_tol: float = 1e-5, solver: str = "cg",
              sloppy_dtype: torch.dtype = torch.float32, t_boundary: int = -1,
+             csw: float = 0.0, clover=None,
              x0_e: torch.Tensor | None = None) -> SolveResult:
-    """Solve the two-parity twisted-mass system M x = b.
+    """Solve the two-parity twisted-mass(-clover) system M x = b.
 
     u_pk: packed gauge [4, 2, 3, 3, 2, T, Z, S] (any float dtype);
     b_pk: packed source [2(par), 2(ri), 4, 3, T, Z, S].
     solver: "cg" (normal equations) or "bicgstab" (on Mhat directly).
     t_boundary: the T-boundary phase folded into u_pk (-1 antiperiodic,
     +1 periodic); the sloppy reconstruct-12 operator restores it.
+    csw != 0 solves the twisted-clover system; ``clover =
+    make_clover_fields(...)`` reuses a clover construction (built here
+    otherwise).  The operand tuple is cast to the sloppy dtype for the
+    iteration and to float64 for the certification; reconstruct-12
+    applies to the gauge only.
     tol is on the even-odd preconditioned system; x0_e warm-starts the
     even-parity iterate.
     """
     if solver not in ("cg", "bicgstab"):
         raise ValueError(f"solver must be cg or bicgstab, got {solver!r}")
-    pc = PackedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor, t_boundary=t_boundary)
     # one contiguous reconstruct-12 copy per solve: the kernel rebuilds row 2
     u_s = u_pk[:, :, :2].to(sloppy_dtype).contiguous()
     u_hp = u_pk.to(torch.float64).contiguous()
+    if csw != 0.0:
+        if clover is None:
+            clover = make_clover_fields(u_pk, lat, kappa=kappa, mu=mu, csw=csw)
+        pc = PackedTMCloverOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor,
+                                      t_boundary=t_boundary)
+        u_s = (u_s, *(c.to(sloppy_dtype) for c in clover))
+        u_hp = (u_hp, *(c.to(torch.float64) for c in clover))
+    else:
+        pc = PackedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor,
+                                t_boundary=t_boundary)
     b_hp = b_pk.to(torch.float64)
     bhat = pc.prepare(u_hp, b_hp)
     x_e, relres, iters, nref = _refined_solve(
-        pc, u_s, u_hp, bhat, tol=tol, maxiter=maxiter, inner_tol=inner_tol,
-        solver=solver, x0=x0_e)
+        pc, u_s, u_hp, bhat, sdt=sloppy_dtype, tol=tol, maxiter=maxiter,
+        inner_tol=inner_tol, solver=solver, x0=x0_e)
     return SolveResult(x=pc.reconstruct(u_hp, x_e, b_hp), relres=relres, iters=iters,
                        refinements=nref)
 
 
 def full_system_relres(u_pk: torch.Tensor, b_pk: torch.Tensor, x_pk: torch.Tensor,
-                       lat: Lattice, *, kappa: float, mu: float, flavor: int = 1) -> float:
+                       lat: Lattice, *, kappa: float, mu: float, flavor: int = 1,
+                       csw: float = 0.0, clover_pk: torch.Tensor | None = None) -> float:
     """Certified float64 |b - M x| / |b| of the two-parity system, fields
-    [2(par), 2(ri), 4, 3, T, Z, S] and the 18-real gauge."""
-    pc = PackedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor)
+    [2(par), 2(ri), 4, 3, T, Z, S] and the 18-real gauge.
+
+    csw != 0 certifies against the twisted-clover M, which applies A
+    itself (DeviceFineCloverLevel.as_hp), never an inverse; clover_pk,
+    the A blocks [2(par), 2(ri), 2(chir), 6, 6, T, Z, S], is built from
+    u_pk when not given."""
     b64 = b_pk.to(torch.float64)
-    r = b64 - pc.apply_full(u_pk.to(torch.float64).contiguous(), x_pk.to(torch.float64))
+    u64 = u_pk.to(torch.float64).contiguous()
+    if csw != 0.0:
+        if clover_pk is None:
+            clover_pk = clover_pk_from_gauge(u_pk, lat, kappa=kappa, csw=csw)
+        lv = DeviceFineCloverLevel(lat, u64, clover_pk, kappa, mu, flavor=flavor).as_hp()
+        mx = lv.apply(x_pk.to(torch.float64).transpose(0, 1).contiguous()).transpose(0, 1)
+    else:
+        pc = PackedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor)
+        mx = pc.apply_full(u64, x_pk.to(torch.float64))
+    r = b64 - mx
     return (norm2(r).item() / max(norm2(b64).item(), 1e-300)) ** 0.5
 
 

@@ -2,8 +2,8 @@
 
 A gauge field in the full site layout (as tpuqcd's setup or an ILDG
 reader returns it) goes through the port's own boundary phase, eo split,
-device layout and packing; arrays already in a packed layout are checked
-and moved as they are.
+device layout and packing; arrays already in a packed layout (spinors,
+gauges, clover blocks) are checked and moved as they are.
 """
 from __future__ import annotations
 
@@ -50,6 +50,25 @@ def packed_from_numpy(arr: np.ndarray, lat: Lattice, device=None) -> torch.Tenso
     if arr.dtype not in (np.float32, np.float64):
         raise ValueError(f"dtype {arr.dtype} is not float32, float64 or bfloat16")
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def clover_from_numpy(lat: Lattice, cl_pk: np.ndarray, *inverses: np.ndarray,
+                      device=None) -> tuple[torch.Tensor, ...]:
+    """tpuqcd's packed clover arrays -> the port's tensors on ``device``,
+    dtypes kept: the A blocks cl_pk [2(par), 2(ri), 2(chir), 6, 6, T, Z, S]
+    (solve.make_clover_fields[0], or the clover_pk of setup_multigrid) and
+    any number of one-parity blocks [2(ri), 2(chir), 6, 6, T, Z, S] (the
+    twisted inverses clinv_plus, clinv_minus).  Returns (cl_pk, *inverses)."""
+    sites = lat.site_shape
+    out = []
+    for arr, lead in ((cl_pk, (2,)), *((a, ()) for a in inverses)):
+        arr = np.asarray(arr)
+        want = (*lead, 2, 2, 6, 6, *sites)
+        if arr.shape != want or arr.dtype not in (np.float32, np.float64):
+            raise ValueError(f"clover array {arr.dtype} {arr.shape} is not float32 or "
+                             f"float64 {want}")
+        out.append(torch.from_numpy(np.ascontiguousarray(arr)).to(device))
+    return tuple(out)
 
 
 def fine_transfer_from_numpy(lat: Lattice, block, v_np: np.ndarray,

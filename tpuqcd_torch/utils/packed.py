@@ -4,6 +4,7 @@ Counterpart of ``tpuqcd/utils/packed.py``:
 
     spinor: [2(ri), 4(spin), 3(color), T, Z, S]   (S = Y * X//2)
     gauge : [4(mu), 2(parity), 3, 3, 2(ri), T, Z, S]
+    clover: [2(ri), 2(chir), 6, 6, T, Z, S]       (one parity's blocks)
 
 Complex axpy with real scalars, norms and Re<x, y> are the plain real
 operations on the packed array; complex-scalar helpers for BiCGStab are
@@ -44,6 +45,12 @@ def unpack_gauge(u_pk: torch.Tensor) -> torch.Tensor:
     """packed [4, 2, R, 3, 2, T, Z, S] -> complex [4, 2, R, 3, T, Z, S]."""
     rdt = torch.float64 if u_pk.dtype == torch.float64 else torch.float32
     return torch.complex(u_pk[:, :, :, :, 0].to(rdt), u_pk[:, :, :, :, 1].to(rdt))
+
+
+def pack_clover(blocks: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """chiral clover blocks [2(chir), 6, 6, T, Z, S] complex -> packed
+    contiguous [2(ri), 2, 6, 6, T, Z, S] (the kernel's clover operand)."""
+    return torch.stack([blocks.real, blocks.imag]).to(dtype).contiguous()
 
 
 def caxpy(ar: torch.Tensor, ai: torch.Tensor, x_pk: torch.Tensor,
