@@ -18,10 +18,15 @@ Phases, each of which exits non-zero on failure:
    field, in the same parities, daggers and storage types; the clover
    epilogues (K3: clover_inv, clover_xpay and clover_xpay with the kappa
    scale) with a clover term built from the random gauge at csw 1.2, in
-   the same parities, daggers and storage types; and the MG fine
+   the same parities, daggers and storage types; the MG fine
    operators (DeviceFineLevel.apply and DeviceFineCloverLevel.apply: xpay
    or clover_xpay into the parity views of an MG field, flavor +1 and -1)
-   in each storage type;
+   in each storage type; and halo mode (K6) on an emulated (nt, nz) =
+   (2, 2) decomposition, each shard's faces cut from the global fields
+   with its own t_offset (epilogues none, twist_inv, xpay; both parities;
+   dagger off and on; half-spinor and full faces; float64 and float32
+   18-real, float32 and bfloat16 reconstruct-12 links), against the plain
+   version and, stitched, against the unsharded kernel;
 4. the main paths, each with the kernel's launch counts set to 0 just
    before it and read just after, the certified residual, and an
    independent float64 residual of the solution through the plain
@@ -39,10 +44,22 @@ Phases, each of which exits non-zero on failure:
    d. run_invert's twisted-clover multigrid path on the heatbath gauge of
       4b (thermalized once for both): csw 1.769, kappa 0.1352, mu 0.0009,
       near_critical, inner_tol 1e-7, tol 1e-10;
+   4b also builds 4b's coarse operator once more by per-leg probing
+   (dirs launches) and holds its links against the fused probing's;
+   e. run_invert's non-degenerate doublet path at 32^3x64 (random gauge
+      seed 1, kappa 0.115, mubar 0.135, epsbar 0.170: ETMC's heavy
+      doublet at beta = 1.95, arXiv:1010.3659; CG, tol 1e-10);
+   f. the same doublet solve through solve_ndeg_tm_sharded on a one-rank
+      LatticeMesh, whose faces are its own boundary slices (halo mode at
+      full width), its x held against 4e's;
+   g. with more than one card only: torchrun of run_invert's doublet path
+      on a mesh nt = 2 or 4 over NCCL (with one card it says so and is no
+      pass);
 5. times at 32^3x64: the kernel per launch for each epilogue and storage
-   type the solves use and for the legs_out and dirs modes, beside the
-   plain version, with GFLOP/s, effective GB/s and the bound (compulsory
-   bytes at 3.35 TB/s).
+   type the solves use and for the legs_out and dirs modes, and halo mode
+   on the one-rank mesh and at the (2, 2) shard size beside the plain hop
+   on the same volume, beside the plain version, with GFLOP/s, effective
+   GB/s and the bound (compulsory bytes at 3.35 TB/s).
 
 The line before the last is the JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -52,8 +69,11 @@ no result.
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -79,6 +99,13 @@ CL_KAPPA, CL_MU, CL_CSW = 0.115, 0.06, 1.2
 #: cell 4d: the non-perturbative csw at beta = 6.0 (ALPHA collaboration,
 #: hep-lat/9609035) and a kappa near its critical value
 MGC_KAPPA, MGC_MU, MGC_CSW = 0.1352, 0.0009, 1.769
+#: cell 4e-4g: the heavy doublet (ETMC, beta = 1.95, arXiv:1010.3659)
+ND_KAPPA, ND_MUBAR, ND_EPSBAR = 0.115, 0.135, 0.170
+#: halo mode's storage types: STORAGE and float32 with 18-real links
+HALO_STORAGE = STORAGE[:1] + (("f32_18", torch.float32, 3, 1e-5),) + STORAGE[1:]
+#: max |x(4f) - x(4e)| / max |x(4e)|: the same system, certified to 1e-10
+#: by two solves whose sloppy operators differ only in summation order
+X_AGREE = 1e-8
 FLOP_PER_SITE = 1320
 CLOVER_FLOP_PER_SITE = 552   # two 6x6 complex mat-vecs
 RELRES_MAX = 1e-10
@@ -160,22 +187,22 @@ def compare(dims, dev) -> dict:
     return max_abs
 
 
-def compare_legs(dims, dev) -> dict:
+def compare_legs(dims, dev) -> tuple[dict, dict]:
     """The leg modes (K4) against the plain version; returns {storage:
-    max abs err over the legs_out cases}."""
+    max abs err} over the legs_out cases and over the single dirs legs."""
     from tpuqcd_torch.ops.dslash_cuda import LEG_ORDER, dslash_eo, dslash_eo_plain
     lat, gauges, psi64, _ = problem(dims, dev, seed=3)
     subset = ((3, -1), (0, +1), (2, +1))           # out of the kernel's order
     cases = [("legs_out", dict(legs_out=True)),
              ("legs_out_subset", dict(legs_out=True, dirs=subset))]
     cases += [(f"dirs{m}{'+' if s > 0 else '-'}", dict(dirs=((m, s),))) for m, s in LEG_ORDER]
-    max_abs = {}
+    max_abs, dirs_abs = {}, {}
     for name, dt, _, tol in STORAGE:
         u = gauges[name]
         # psi as the odd-parity view of an MG field [2(ri), 2(par), ...]
         field = torch.stack([psi64, psi64.flip(0)], dim=1).to(dt)
         psi = field[:, 1]
-        max_abs[name] = 0.0
+        max_abs[name] = dirs_abs[name] = 0.0
         rel = {}
         for parity in (0, 1):
             for dagger in (False, True):
@@ -188,6 +215,8 @@ def compare_legs(dims, dev) -> dict:
                     err = (k - p).abs().max().item()
                     if case.startswith("legs_out"):
                         max_abs[name] = max(max_abs[name], err)
+                    else:
+                        dirs_abs[name] = max(dirs_abs[name], err)
                     rel[case] = max(rel.get(case, 0.0), err / p.abs().max().item())
                 # legs_out written into the parity views of an MG leg bank
                 out = torch.empty((8, *field.shape), dtype=dt, device=dev)
@@ -203,7 +232,7 @@ def compare_legs(dims, dev) -> dict:
                   f"max rel err {r:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"leg mode disagrees with the plain version: {dims} {name} {case}")
-    return max_abs
+    return max_abs, dirs_abs
 
 
 def clover_blocks_of(u_pk, lat, kappa, csw) -> torch.Tensor:
@@ -303,6 +332,55 @@ def compare_fine_apply(dims, dev, clover: bool = False) -> dict:
     return max_abs
 
 
+def compare_halo(dims, dev) -> dict:
+    """Halo mode (K6) on an emulated (2, 2) decomposition: each shard's
+    local fields and faces cut from the global ones (parallel/sharded.
+    cut_halo), its own t_offset; kernel against the plain version on the
+    same operands, and the stitched shards against the unsharded kernel;
+    returns {storage: max abs err against the plain version}."""
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.parallel.sharded import cut_halo
+    lat, gauges, psi64, psi064 = problem(dims, dev, seed=6)
+    shards = [LatticeMesh(lat, 2, 2, 1, r) for r in range(4)]
+    max_abs = {}
+    for name, dt, rows, tol in HALO_STORAGE:
+        u = (gauges["f64"] if rows == 3 else gauges["f32"]).to(dt).contiguous()
+        psi, psi0 = psi64.to(dt), psi064.to(dt)
+        max_abs[name] = 0.0
+        for mode, epi, _ in MODES[:3]:
+            rel = stitched = 0.0
+            for parity in (0, 1):
+                for dagger in (False, True):
+                    kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU)
+                    whole = dslash_eo(u, psi, parity, lat, psi0=psi0 if epi == "xpay" else None,
+                                      **kw).double()
+                    for half in (True, False):
+                        for m in shards:
+                            ul, pl, halo = cut_halo(m, u, psi, parity, dagger, half)
+                            p0 = m.shard(psi0).contiguous() if epi == "xpay" else None
+                            k = dslash_eo(ul, pl, parity, m.local_lat, psi0=p0, halo=halo,
+                                          **kw).double()
+                            p = dslash_eo_plain(ul, pl, parity, m.local_lat, psi0=p0, halo=halo,
+                                                **kw).double()
+                            torch.cuda.synchronize()
+                            if not torch.isfinite(k).all():
+                                fail(f"{dims} {name} halo {mode}: non-finite kernel output")
+                            err = (k - p).abs().max().item()
+                            max_abs[name] = max(max_abs[name], err)
+                            rel = max(rel, err / p.abs().max().item())
+                            ref = m.shard(whole)
+                            stitched = max(stitched,
+                                           (k - ref).abs().max().item() / ref.abs().max().item())
+            ok = rel <= tol and stitched <= tol
+            print(f"  {'x'.join(map(str, dims))} {name:6s} halo {mode:9s} max rel err "
+                  f"{rel:.3e} against plain, {stitched:.3e} stitched against unsharded "
+                  f"(tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"halo mode disagrees: {dims} {name} {mode}")
+    return max_abs
+
+
 def plain_full_relres(u64, b, x, lat, kappa=KAPPA, mu=MU, a64=None) -> float:
     """|b - M x| / |b| of the two-parity system with the plain version;
     with the A blocks a64 [2(par), 2(ri), 2(chir), 6, 6, T, Z, S] the
@@ -325,9 +403,10 @@ def plain_full_relres(u64, b, x, lat, kappa=KAPPA, mu=MU, a64=None) -> float:
     return (r.square().sum() / b.square().sum()).sqrt().item()
 
 
-def counted_invert(cfg, dev, gauge=None):
+def counted_invert(cfg, dev, gauge=None, flavors=False):
     """run_invert's invert with the launch counts set to 0 just before and
-    read just after; returns (result, counts)."""
+    read just after; returns (result, counts).  ``flavors``: x is a
+    doublet [2(fl), 2(par), ...]."""
     from tpuqcd_torch.cli.run_invert import invert
     from tpuqcd_torch.ops import dslash_cuda
     torch.cuda.synchronize()
@@ -342,8 +421,9 @@ def counted_invert(cfg, dev, gauge=None):
             and torch.isfinite(res.x).all()):
         fail(f"certified relres {res.relres:.3e} / {res.solver_relres:.3e} > "
              f"{RELRES_MAX:.0e} or non-finite x")
-    if tuple(res.x.shape) != (2, 2, 4, 3, LARGE[3], LARGE[2], LARGE[1] * LARGE[0] // 2):
-        fail(f"solution shape {tuple(res.x.shape)}")
+    want = (2,) * (3 if flavors else 2) + (4, 3, LARGE[3], LARGE[2], LARGE[1] * LARGE[0] // 2)
+    if tuple(res.x.shape) != want:
+        fail(f"solution shape {tuple(res.x.shape)}, not {want}")
     return res, counts
 
 
@@ -395,6 +475,140 @@ def clover_path(dev):
                            "float64:clover_inv", "float64:clover_xpay"))
     check_plain(res, Lattice(LARGE), CL_KAPPA, CL_MU, CL_CSW)
     return res, counts
+
+
+def plain_ndeg_relres(u64, b, x, lat) -> float:
+    """|b - M_nd x| / |b| of the two-parity doublet system with the plain
+    hop and the site term A = 1 + i t g5 tau3 + e tau1 written out."""
+    from tpuqcd_torch.operators import gamma5_apply_pk
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo_plain
+    tw, e = 2.0 * ND_KAPPA * ND_MUBAR, 2.0 * ND_KAPPA * ND_EPSBAR
+    r = []
+    for par in (0, 1):
+        for f, sign in ((0, 1.0), (1, -1.0)):
+            g = gamma5_apply_pk(x[f, par])
+            site = x[f, par] + sign * tw * torch.stack([-g[1], g[0]]) + e * x[1 - f, par]
+            hop = dslash_eo_plain(u64, x[f, 1 - par].contiguous(), 1 - par, lat)
+            r.append(b[f, par] - (site - ND_KAPPA * hop))
+    r = torch.stack(r)
+    return (r.square().sum() / b.square().sum()).sqrt().item()
+
+
+def ndeg_config(mesh_nt: int = 1):
+    from tpuqcd_torch.utils.config import config_from_dict
+    return config_from_dict({
+        "gauge": {"dims": list(LARGE), "random_seed": 1},
+        "action": {"kappa": ND_KAPPA, "mubar": ND_MUBAR, "epsbar": ND_EPSBAR},
+        "solver": {"solver": "cg", "tol": RELRES_MAX}, "mesh": {"nt": mesh_nt}})
+
+
+def ndeg_path(dev):
+    """run_invert's non-degenerate doublet path on one card (4e)."""
+    from tpuqcd_torch.lattice import Lattice
+    res, counts = counted_invert(ndeg_config(), dev, flavors=True)
+    need_launches(counts, ("float32", "float64"))
+    rel = plain_ndeg_relres(res.u_pk.double(), res.b_pk.double(), res.x, Lattice(LARGE))
+    print(f"  certified doublet relres {res.relres:.3e} (solver's own {res.solver_relres:.3e}), "
+          f"plain-operator relres {rel:.3e}, iterations {res.iters}, refinements "
+          f"{res.refinements}, solve wallclock {res.seconds:.3f} s")
+    if not rel <= RELRES_MAX:
+        fail(f"plain-operator doublet relres {rel:.3e} > {RELRES_MAX:.0e}")
+    return res, counts
+
+
+def sharded_path(dev, nd_res):
+    """4e's doublet solve through solve_ndeg_tm_sharded on a one-rank
+    LatticeMesh (4f): every hop in halo mode, its faces the shard's own
+    boundary slices.  Returns (seconds, counts)."""
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.ops import dslash_cuda
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.parallel.sharded import ShardedNdegTMOperatorPC
+    from tpuqcd_torch.solve import solve_ndeg_tm_sharded
+    lat = Lattice(LARGE)
+    lmesh = LatticeMesh.make(lat, 1)
+    op = ShardedNdegTMOperatorPC(lat, kappa=ND_KAPPA, mubar=ND_MUBAR, epsbar=ND_EPSBAR,
+                                 lmesh=lmesh)
+    ug = op.extend_gauge(nd_res.u_pk)
+    fields_s, fields_hp = ug.to(torch.float32, rows=2), ug.to(torch.float64)
+    torch.cuda.synchronize()
+    dslash_cuda.reset_counts()
+    t0 = time.perf_counter()
+    res = solve_ndeg_tm_sharded(op, fields_s, fields_hp, nd_res.b_pk, tol=RELRES_MAX)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(dslash_cuda.counts)
+    print(f"  launches during the run: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail(f"the sharded path called the plain version {counts['plain']} times")
+    need_launches(counts, ("float32:halo", "float64:halo"))
+    rel = plain_ndeg_relres(nd_res.u_pk.double(), nd_res.b_pk.double(), res.x, lat)
+    agree = ((res.x - nd_res.x).abs().max() / nd_res.x.abs().max()).item()
+    print(f"  certified relres {res.relres:.3e} (4e: {nd_res.solver_relres:.3e}), "
+          f"plain-operator relres {rel:.3e} (4e: see above), iterations {res.iters} (4e: "
+          f"{nd_res.iters}), max|x - x(4e)| / max|x(4e)| = {agree:.3e} (limit {X_AGREE:.0e}), "
+          f"solve wallclock {seconds:.3f} s")
+    if not (res.relres <= RELRES_MAX and rel <= RELRES_MAX and agree <= X_AGREE):
+        fail("the sharded doublet solve is not certified or does not agree with 4e")
+    return seconds, counts
+
+
+def multi_card_path(nd_res) -> None:
+    """4g: run_invert's doublet path under torchrun on a mesh nt = n over
+    NCCL, n the largest of 2 or 4 that the visible cards hold."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"  phase 4g not run: torch.cuda.device_count() = {n_cards}; the multi-rank "
+              "NCCL exchange needs one process per card (it is held on the CPU over gloo by "
+              "tests/test_torch_sharded.py)")
+        return
+    n = 4 if n_cards >= 4 else 2
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "ndeg_mesh.yaml")
+        with open(cfg, "w") as f:
+            f.write(f"gauge: {{dims: {list(LARGE)}, random_seed: 1}}\n"
+                    f"action: {{kappa: {ND_KAPPA}, mubar: {ND_MUBAR}, epsbar: {ND_EPSBAR}}}\n"
+                    f"solver: {{solver: cg, tol: {RELRES_MAX}}}\nmesh: {{nt: {n}}}\n")
+        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+                            str(n), "--master_addr", "localhost", "--master_port", "29517",
+                            "-m", "tpuqcd_torch.cli.run_invert", "--config", cfg],
+                           capture_output=True, text=True, timeout=600)
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
+    iters = [int(m) for m in re.findall(r"ndeg solve: .* iters=(\d+)", r.stdout)]
+    if r.returncode != 0 or len(line) != 1 or not iters:
+        fail(f"torchrun of {n} ranks: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    rel = float(re.search(r"relres=(\S+)", line[0]).group(1))
+    print(f"  {n} ranks over NCCL: {line[0]}; iterations {iters[0]} (4e: {nd_res.iters})")
+    if not (rel <= RELRES_MAX and abs(iters[0] - nd_res.iters) <= 2):
+        fail(f"the {n}-rank doublet solve: relres {rel:.3e}, iterations {iters[0]} against "
+             f"4e's {nd_res.iters}")
+
+
+def per_leg_probing(mg_res):
+    """4b's coarse operator built once more by per-leg probing (one dirs
+    launch per leg and parity, the memory-lean switch of
+    mg/device.build_coarse_device), held against the fused probing;
+    returns the launch counts of the per-leg build."""
+    from tpuqcd_torch.mg.device import build_coarse_device
+    from tpuqcd_torch.ops import dslash_cuda
+    level, tr = mg_res.mg.levels[0], mg_res.mg.transfers[0]
+    torch.cuda.synchronize()
+    dslash_cuda.reset_counts()
+    t0 = time.perf_counter()
+    per_leg = build_coarse_device(level, tr, fused_legs=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(dslash_cuda.counts)
+    print(f"  per-leg probing {seconds:.2f} s, launches: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail("per-leg probing called the plain version")
+    need_launches(counts, ("float32:dirs",))
+    fused = build_coarse_device(level, tr, fused_legs=True).links_c
+    rel = ((per_leg.links_c - fused).abs().max() / fused.abs().max()).item()
+    print(f"  per-leg against fused Galerkin links: max rel err {rel:.3e} (tol 1e-5)")
+    if not rel <= 1e-5:
+        fail(f"per-leg probing disagrees with the fused probing: {rel:.3e}")
+    return counts
 
 
 def mg_config(kappa, mu, csw=0.0):
@@ -470,7 +684,7 @@ def timings(dev, card_tag) -> dict:
     for name, dt, rows, _ in STORAGE:
         u, psi, psi0 = gauges[name], psi64.to(dt), psi064.to(dt)
         cl = a_pk.to(dt).contiguous()
-        modes = MODES if name == "f32" else MODES[3:]
+        modes = {"f32": MODES, "f64": MODES[:1] + MODES[3:]}.get(name, MODES[3:])
         for mode, epi, scale in modes + CLOVER_MODES[:2]:
             xpay, clover = epi.endswith("xpay"), epi.startswith("clover")
             kw = dict(epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale,
@@ -506,6 +720,50 @@ def timings(dev, card_tag) -> dict:
     print(f"  {dims} f32 recon-12 dirs (t, +1) kernel {k_ms:.4f} ms (bound {b_ms:.4f} ms by "
           f"{b_by}) | plain {p_ms:.3f} ms | {card_tag}")
     out[("f32", "dirs")] = (k_ms, p_ms, b_ms, b_by)
+    out.update(halo_timings(dev, card_tag))
+    return out
+
+
+def halo_timings(dev, card_tag) -> dict:
+    """Halo mode, epilogue none, half-spinor faces, per launch: on the
+    one-rank mesh at 32^3x64 (4f's shape; faces the own boundary slices)
+    and at the (2, 2) shard size (32^2 x 16 x 32), beside the plain hop on
+    the same local volume.  The bound reads the spinor, the links and the
+    faces (12 reals a face site, the face links) once and writes the
+    output once.  Returns {(storage, "halo_none" | "halo_none_2x2" |
+    "none_2x2"): (kernel ms, plain ms, bound ms, bound by)}."""
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.parallel.sharded import cut_halo
+    lat, gauges, psi64, _ = problem(LARGE, dev, seed=7)
+    out = {}
+    for name, dt, rows, _ in HALO_STORAGE[:3]:
+        u = (gauges["f64"] if rows == 3 else gauges["f32"]).to(dt).contiguous()
+        psi = psi64.to(dt)
+        item = psi.element_size()
+        for grid, tag in (((1, 1), "halo_none"), ((2, 2), "halo_none_2x2")):
+            m = LatticeMesh(lat, *grid, 1, 0)
+            ul, pl, halo = cut_halo(m, u, psi, 0)
+            llat = m.local_lat
+            T, Z, S = llat.site_shape
+            sites = llat.half_volume
+            k_ms = time_ms(lambda: dslash_eo(ul, pl, 0, llat, halo=halo), reps=50)
+            p_ms = time_ms(lambda: dslash_eo_plain(ul, pl, 0, llat, halo=halo), reps=3, warmup=1)
+            faces = sum(x.numel() for x in halo[:6]) * item
+            byts = (24 + 8 * rows * 6 + 24) * item * sites + faces
+            b_ms, b_by = bound(byts, FLOP_PER_SITE * sites, dt)
+            out[(name, tag)] = (k_ms, p_ms, b_ms, b_by)
+            line = (f"  {'x'.join(map(str, llat.dims))} {name} recon-{rows * 6} halo none "
+                    f"(grid {grid}) kernel {k_ms:.4f} ms ({byts / (k_ms * 1e-3) / 1e9:.1f} GB/s "
+                    f"compulsory with {faces / 1e6:.2f} MB of faces = "
+                    f"{byts / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; bound "
+                    f"{b_ms:.4f} ms by {b_by}) | plain {p_ms:.3f} ms")
+            if grid != (1, 1):
+                # K1 none on the same local volume, periodic in the shard
+                n_ms = time_ms(lambda: dslash_eo(ul, pl, 0, llat), reps=50)
+                out[(name, "none_2x2")] = (n_ms, None, None, None)
+                line += f" | K1 none on the shard {n_ms:.4f} ms"
+            print(line + f" | {card_tag}")
     return out
 
 
@@ -540,7 +798,7 @@ def main() -> None:
     max_abs = compare(LARGE, dev)
     print("phase 3: leg modes (K4) against plain version", flush=True)
     compare_legs(SMALL, dev)
-    legs_abs = compare_legs(LARGE, dev)
+    legs_abs, dirs_abs = compare_legs(LARGE, dev)
     print("phase 3: clover epilogues (K3) against plain version", flush=True)
     compare_clover(SMALL, dev)
     clover_abs = compare_clover(LARGE, dev)
@@ -549,6 +807,9 @@ def main() -> None:
     fine_abs = compare_fine_apply(LARGE, dev)
     compare_fine_apply(SMALL, dev, clover=True)
     fine_cl_abs = compare_fine_apply(LARGE, dev, clover=True)
+    print("phase 3: halo mode (K6) on an emulated (2, 2) decomposition", flush=True)
+    compare_halo(SMALL, dev)
+    halo_abs = compare_halo(LARGE, dev)
 
     print("phase 4a: main path, tpuqcd_torch.cli.run_invert (CG) at 32^3x64", flush=True)
     res, counts = main_path(dev)
@@ -562,11 +823,21 @@ def main() -> None:
     if abs(gauge.plaquette - PLAQ_BETA6) > PLAQ_TOL:
         fail(f"plaquette {gauge.plaquette:.6f} is not within {PLAQ_TOL} of {PLAQ_BETA6}")
     mg_res, mg_counts = mg_path(dev, gauge)
+    print("phase 4b: the same coarse operator by per-leg probing", flush=True)
+    pl_counts = per_leg_probing(mg_res)
     print("phase 4c: main path, run_invert (twisted clover, BiCGStab bf16) at 32^3x64",
           flush=True)
     cl_res, cl_counts = clover_path(dev)
     print("phase 4d: main path, run_invert (twisted clover, MG) at 32^3x64", flush=True)
     mgc_res, mgc_counts = mg_path(dev, gauge, clover=True)
+    print("phase 4e: main path, run_invert (non-degenerate doublet, CG) at 32^3x64",
+          flush=True)
+    nd_res, nd_counts = ndeg_path(dev)
+    print("phase 4f: the doublet solve on a one-rank LatticeMesh (halo mode) at 32^3x64",
+          flush=True)
+    sh_seconds, sh_counts = sharded_path(dev, nd_res)
+    print("phase 4g: run_invert's doublet path on a mesh of cards (torchrun, NCCL)", flush=True)
+    multi_card_path(nd_res)
 
     print(f"phase 5: times {card_tag}", flush=True)
     t = timings(dev, card_tag)
@@ -579,6 +850,9 @@ def main() -> None:
     print(f"  clover BiCGStab solve: {cl_res.seconds:.3f} s wallclock, {cl_res.iters} sloppy "
           f"matvecs, {cl_res.refinements} refinements; clover set-up "
           f"{cl_res.setup_seconds['clover']:.3f} s {card_tag}")
+    print(f"  doublet CG solve: {nd_res.seconds:.3f} s wallclock, {nd_res.iters} sloppy "
+          f"matvecs, {nd_res.refinements} refinements; on the one-rank mesh {sh_seconds:.3f} s "
+          f"{card_tag}")
     print(f"  smoke run {time.perf_counter() - t_start:.1f} s so far", flush=True)
 
     from tpuqcd_torch.ops.dslash_cuda import SOURCE
@@ -591,6 +865,7 @@ def main() -> None:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
     k3 = "tpuqcd/ops/dslash_pallas.py:461"
+    k6 = "tpuqcd/ops/dslash_pallas.py:583"
     kernels = [
         entry("dslash_eo<float> reconstruct-12 (CG sloppy operator), xpay timed",
               counts["float32"], max_abs["f32"], ("f32", "xpay")),
@@ -623,6 +898,19 @@ def main() -> None:
               k3),
         entry("dslash_eo<double> 18-real clover_xpay (K3, MG clover certification operator)",
               mgc_counts["float64:clover_xpay"], fine_cl_abs["f64"], ("f64", "clover_xpay"), k3),
+        entry("dslash_eo<float> reconstruct-12 dirs (K4, per-leg Galerkin probing), one leg timed",
+              pl_counts["float32:dirs"], dirs_abs["f32"], ("f32", "dirs"),
+              "tpuqcd/ops/dslash_pallas.py:428"),
+        entry("dslash_eo<float> reconstruct-12 none (ndeg sloppy operator, per-flavor hop)",
+              nd_counts["float32"], max_abs["f32"], ("f32", "none")),
+        entry("dslash_eo<double> 18-real none (ndeg certification operator)",
+              nd_counts["float64"], max_abs["f64"], ("f64", "none")),
+        entry("dslash_eo<float> reconstruct-12 halo (K6, sharded ndeg sloppy operator), none "
+              "timed on the one-rank mesh", sh_counts["float32:halo"], halo_abs["f32"],
+              ("f32", "halo_none"), k6),
+        entry("dslash_eo<double> 18-real halo (K6, sharded ndeg certification operator), none "
+              "timed on the one-rank mesh", sh_counts["float64:halo"], halo_abs["f64"],
+              ("f64", "halo_none"), k6),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -148,11 +148,12 @@ def test_plaquette_matches_tpuqcd():
     assert abs(plaquette(torch.movedim(unit, (-2, -1), (2, 3)), LAT) - 1.0) < 1e-14
 
 
-@pytest.mark.parametrize("layout", ["spinor", "system", "gauge", "gauge12"])
+@pytest.mark.parametrize("layout", ["spinor", "system", "doublet", "gauge", "gauge12"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_packed_from_numpy(layout, dtype):
     s = LAT.site_shape
     shape = {"spinor": (2, 4, 3, *s), "system": (2, 2, 4, 3, *s),
+             "doublet": (2, 2, 2, 4, 3, *s),
              "gauge": (4, 2, 3, 3, 2, *s), "gauge12": (4, 2, 2, 3, 2, *s)}[layout]
     arr = np.random.default_rng(13).standard_normal(shape).astype(dtype)
     x = packed_from_numpy(arr, LAT, "cpu")

@@ -1,8 +1,9 @@
 """The CUDA Dslash kernel against its plain PyTorch version on the card
 (phase 3 of chip_smoke.py), in the summed modes (K1, K2), the leg modes
 of MG probing (K4: dirs, legs_out), the clover epilogues (K3:
-clover_inv, clover_xpay) and the MG fine operators' xpay and clover_xpay
-on parity views.  Marked ``gpu``; skips without CUDA.
+clover_inv, clover_xpay), the MG fine operators' xpay and clover_xpay
+on parity views, and halo mode (K6) on emulated shards of a (2, 2) grid,
+with the doublet solve through it.  Marked ``gpu``; skips without CUDA.
 
 It imports neither jax nor tpuqcd, so it runs on a machine that has only
 the port's dependencies:
@@ -22,7 +23,9 @@ from tpuqcd_torch.ops import dslash_cuda
 from tpuqcd_torch.mg.device import DeviceFineCloverLevel, DeviceFineLevel, _hop_full
 from tpuqcd_torch.ops.clover import clover_twist_inverse
 from tpuqcd_torch.ops.dslash_cuda import LEG_ORDER, dslash_eo, dslash_eo_plain
-from tpuqcd_torch.solve import clover_pk_from_gauge
+from tpuqcd_torch.parallel.mesh import LatticeMesh
+from tpuqcd_torch.parallel.sharded import ShardedNdegTMOperatorPC, cut_halo
+from tpuqcd_torch.solve import clover_pk_from_gauge, solve_ndeg_tm_sharded
 from tpuqcd_torch.utils.packed import pack_clover
 from tpuqcd_torch.utils.config import config_from_dict
 from tpuqcd_torch.utils.convert import gauge_from_full
@@ -264,3 +267,67 @@ def test_run_invert_clover_goes_through_the_kernel(cuda, mg):
             else ("bfloat16:clover_inv", "bfloat16:clover_xpay", "float64:clover_inv"))
     for key in want + ("float64:clover_xpay",):
         assert dslash_cuda.counts[key] > 0, key
+
+
+#: halo mode also in float32 with 18-real links
+HALO_STORAGE = {**STORAGE, "f32_18": (torch.float32, 3, 1e-5)}
+
+
+@pytest.mark.parametrize("half", [True, False], ids=["half", "full"])
+@pytest.mark.parametrize("mode", ["none", "twist_inv", "xpay", "clover_inv"])
+@pytest.mark.parametrize("storage", sorted(HALO_STORAGE))
+@pytest.mark.parametrize("dims", [(8, 8, 8, 16), (32, 32, 32, 64)], ids=["8c16", "32c64"])
+def test_halo_mode_matches_plain_and_unsharded(cuda, dims, storage, mode, half):
+    """Each shard of a (2, 2) grid (faces cut from the global fields, its
+    own t_offset) against the plain version on the same operands, and the
+    stitched shards against the unsharded kernel; both parities, dagger
+    off and on."""
+    dt, rows, tol = HALO_STORAGE[storage]
+    lat, u64, psi, psi0 = _problem(dims, cuda)
+    u = (u64 if rows == 3 else u64[:, :, :2]).to(dt).contiguous()
+    psi, psi0 = psi.to(dt), psi0.to(dt)
+    key = str(dt).removeprefix("torch.") + (":clover_inv" if mode == "clover_inv" else "") + ":halo"
+    for parity in (0, 1):
+        extra = {"psi0": psi0} if mode == "xpay" else {}
+        if mode == "clover_inv":
+            extra = {"clover": _clover(u64, lat, mode, 1 - parity).to(dt).contiguous()}
+        for dagger in (False, True):
+            kw = dict(dagger=dagger, epilogue=mode, kappa=KAPPA, mu=MU)
+            whole = dslash_eo(u, psi, parity, lat, **kw, **extra).double()
+            for r in range(4):
+                m = LatticeMesh(lat, 2, 2, 1, r)
+                ul, pl, halo = cut_halo(m, u, psi, parity, dagger, half)
+                loc = {k: m.shard(v).contiguous() for k, v in extra.items()}
+                before = dslash_cuda.counts[key]
+                k = dslash_eo(ul, pl, parity, m.local_lat, halo=halo, **kw, **loc).double()
+                assert dslash_cuda.counts[key] == before + 1
+                p = dslash_eo_plain(ul, pl, parity, m.local_lat, halo=halo, **kw, **loc).double()
+                torch.cuda.synchronize()
+                assert torch.isfinite(k).all()
+                assert ((k - p).abs().max() / p.abs().max()).item() <= tol, (parity, dagger, r)
+                ref = m.shard(whole)
+                assert ((k - ref).abs().max() / ref.abs().max()).item() <= tol, (parity, dagger, r)
+
+
+def test_run_invert_ndeg_and_one_rank_mesh_go_through_the_kernel(cuda):
+    """The doublet solve: run_invert on one card launches K1 none (float32
+    reconstruct-12 and float64), and solve_ndeg_tm_sharded on a one-rank
+    mesh (faces its own boundary slices) launches K6, to the same x."""
+    cfg = config_from_dict({"gauge": {"dims": [8, 8, 8, 16], "random_seed": 1},
+                            "action": {"kappa": 0.115, "mubar": 0.135, "epsbar": 0.17}})
+    dslash_cuda.reset_counts()
+    res = invert(cfg, cuda)
+    assert res.relres <= 1e-10 and res.x.shape == (2, *res.b_pk.shape[1:])
+    assert dslash_cuda.counts["float32"] > 0 and dslash_cuda.counts["float64"] > 0
+    assert dslash_cuda.counts["plain"] == 0
+    lat = Lattice((8, 8, 8, 16))
+    lmesh = LatticeMesh.make(lat, 1)
+    op = ShardedNdegTMOperatorPC(lat, kappa=0.115, mubar=0.135, epsbar=0.17, lmesh=lmesh)
+    ug = op.extend_gauge(res.u_pk)
+    dslash_cuda.reset_counts()
+    sh = solve_ndeg_tm_sharded(op, ug.to(torch.float32, rows=2), ug.to(torch.float64),
+                               res.b_pk)
+    assert sh.relres <= 1e-10
+    assert dslash_cuda.counts["float32:halo"] > 0 and dslash_cuda.counts["float64:halo"] > 0
+    assert dslash_cuda.counts["plain"] == 0 and dslash_cuda.counts["float32"] == 0
+    assert ((sh.x - res.x).abs().max() / res.x.abs().max()).item() <= 1e-8

@@ -154,6 +154,8 @@ def test_out_of_slice_config_raises(section, key, value):
         raw["gauge"][key] = value
     if key == "csw":    # twisted clover is in the slice; its sharded solve is not
         raw["mesh"] = {"nt": 2}
+    if key == "epsbar":  # the doublet is in the slice, also on a mesh, but not y-sharded
+        raw["mesh"] = {"nt": 2, "ny": 2}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_in_slice(config_from_dict(raw))
 

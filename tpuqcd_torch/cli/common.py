@@ -4,6 +4,8 @@ the solver.
 Counterpart of ``tpuqcd/cli/common.py:21-77, :183-275, :298-426``.  The
 device is explicit: ``--device`` defaults to ``cuda`` and raises when
 CUDA is missing; ``--device cpu`` runs the plain PyTorch versions.
+Under torchrun every rank joins the process group first (NCCL for cuda,
+gloo for cpu), and ``--device cuda`` means cuda:LOCAL_RANK.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from ..fields import apply_boundary_phase, gauge_full_to_eo
 from ..lattice import Lattice
 from ..ops.gauge_tools import plaquette
 from ..ops.layout import gauge_to_device
+from ..parallel.dist import init_distributed
 from ..phys.propagator import full_to_packed
 from ..utils.config import RunConfig, load_config
 from ..utils.packed import pack_gauge
@@ -40,7 +43,9 @@ def parse_args(description: str, argv=None) -> tuple[RunConfig, torch.device]:
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s",
                         stream=sys.stdout)
-    return load_config(args.config), resolve_device(args.device)
+    device = resolve_device(args.device)
+    rank_device = init_distributed(device.type)
+    return load_config(args.config), rank_device or device
 
 
 def resolve_device(name) -> torch.device:
@@ -63,21 +68,26 @@ def _not_ported(what: str, item: str):
 def check_in_slice(cfg: RunConfig) -> None:
     """Refuse the configurations the port does not run yet."""
     g, a, mg = cfg.gauge, cfg.action, cfg.mg
+    # as in tpuqcd, a mesh of one device is no mesh
     mesh = cfg.mesh.nt * cfg.mesh.nz * cfg.mesh.ny > 1
     if mg.enabled and mesh:
         _not_ported("mg.enabled with mesh (the sharded multigrid)", "13, multi-device")
+    if mesh and a.epsbar == 0.0:
+        _not_ported("mesh without action.epsbar (the sharded twisted-mass and clover solves, "
+                    "with make_solver's mesh branch)", "9 and 13, multi-device")
+    if mesh and cfg.mesh.ny > 1:
+        _not_ported("mesh.ny > 1 (a y-sharded mesh, on the overlap engine)", "13, multi-device")
+    if mesh and cfg.solver.comm_policy == "overlap":
+        _not_ported("solver.comm_policy: overlap (the interior/exterior split)",
+                    "13, multi-device")
     for key in ("gcr_dtype", "vec_dtype"):
         if mg.enabled and getattr(mg, key) != "float32":
             raise NotImplementedError(
                 f"mg.{key}: {getattr(mg, key)} is not ported to tpuqcd_torch: bfloat16 "
                 "solver buffers fitted the MG solve into a 16 GB TPU (ROADMAP.md, 'How "
                 "the new hardware changes the port'); set it to float32")
-    if a.epsbar != 0.0:
-        _not_ported("action.epsbar (the non-degenerate doublet)", "12, remaining variants")
     if a.mu_list:
         _not_ported("action.mu_list (the multishift mass sweep)", "12, remaining variants")
-    if mesh:
-        _not_ported("mesh (the multi-device solve)", "13, multi-device")
     if cfg.solver.solver == "eigcg":
         _not_ported("solver.solver: eigcg", "11, loops and deflation")
     if g.heatbath_n_cfg > 1:
@@ -193,10 +203,16 @@ class MGSolver:
         return res
 
 
-def random_source(lat: Lattice, device: torch.device, seed: int = 99) -> torch.Tensor:
+def random_source(lat: Lattice, device: torch.device, seed: int = 99,
+                  columns: int | None = None) -> torch.Tensor:
     """Gaussian complex source, drawn in full layout on the CPU generator,
-    as packed float32 [2(par), 2(ri), 4, 3, T, Z, S] on ``device``."""
+    as packed float32 [2(par), 2(ri), 4, 3, T, Z, S] on ``device``; with
+    ``columns`` that many drawn one after the other and stacked in front
+    (columns=2: the doublet source [2(fl), 2(par), ...])."""
     gen = torch.Generator().manual_seed(seed)
     shape = (*lat.full_shape, 4, 3)
-    b = torch.complex(torch.randn(shape, generator=gen), torch.randn(shape, generator=gen))
-    return full_to_packed(b.to(device), lat)
+
+    def one():
+        b = torch.complex(torch.randn(shape, generator=gen), torch.randn(shape, generator=gen))
+        return full_to_packed(b.to(device), lat)
+    return one() if columns is None else torch.stack([one() for _ in range(columns)])

@@ -1,9 +1,10 @@
-"""One certified twisted-mass or twisted-clover solve against a random
-source, with the iteration count, the certified full-system residual and
-GFLOP/s.
+"""One certified twisted-mass, twisted-clover or non-degenerate doublet
+solve against a random source, with the iteration count, the certified
+full-system residual and GFLOP/s.
 
     python -m tpuqcd_torch.cli.run_invert --config examples/invert.yaml
     python -m tpuqcd_torch.cli.run_invert --config examples/invert_mg.yaml --device cpu
+    torchrun --nproc_per_node 2 -m tpuqcd_torch.cli.run_invert --config cfg.yaml
 
 Counterpart of ``tpuqcd/cli/run_invert.py``: with ``mg.enabled`` the
 MG-preconditioned solve (its hierarchy set up before the timed solve),
@@ -14,6 +15,14 @@ path is built before the timed solve).  Prints the same
 independent float64 |b - M x| / |b| of the two-parity system, with the
 clover term when csw != 0.  gflops counts the twisted-mass Dslash flops
 of the sloppy matvecs, as tpuqcd does, for clover too.
+
+``action.epsbar`` != 0 solves the non-degenerate doublet (tpuqcd's
+_main_ndeg) for a two-column source from seed 99, by CG inside the f64
+defect correction; with a mesh of more than one rank (torchrun, one
+process per card) on the sharded doublet operator, after which rank 0
+gathers x.  Rank 0 computes the independent float64 doublet residual
+with the unsharded kernel and alone prints ``RESULT solve_seconds=...
+relres=... dims=... tol=... ndeg=1``.
 """
 from __future__ import annotations
 
@@ -21,7 +30,11 @@ import dataclasses
 
 import torch
 
-from ..solve import full_system_relres, make_clover_fields, solve_tm
+from ..parallel import dist as tdist
+from ..parallel.mesh import LatticeMesh
+from ..parallel.sharded import ShardedNdegTMOperatorPC
+from ..solve import (full_system_relres, make_clover_fields, ndeg_full_relres, solve_ndeg_tm,
+                     solve_ndeg_tm_sharded, solve_tm)
 from ..utils.config import RunConfig
 from ..utils.profile import Profile, solve_flops, sync
 from .common import (Gauge, MGSolver, check_in_slice, log, parse_args, random_source,
@@ -35,15 +48,20 @@ class InvertResult:
     solver_relres: float   # the solver's certified residual (eo system for CG)
     iters: int             # sloppy matvecs (CG) or inner GCR iterations (MG)
     refinements: int
-    gflops: float          # 0.0 for MG, whose flops are not counted (as in tpuqcd)
-    x: torch.Tensor        # solution [2(par), 2(ri), 4, 3, T, Z, S] float64
+    gflops: float          # 0.0 for MG and ndeg, whose flops are not counted (as in tpuqcd)
+    #: solution [2(par), 2(ri), 4, 3, T, Z, S] float64 ([2(fl), 2(par), ...]
+    #: for the doublet); None on the ranks other than 0 of a mesh
+    x: torch.Tensor | None
     plaquette: float
     #: seconds of the stages before the solve: "gauge", for MG the
     #: hierarchy's "nulls0", "galerkin0", ... and their sum "mg_setup", for
-    #: a direct clover solve the clover construction "clover"
+    #: a direct clover solve the clover construction "clover", on a mesh the
+    #: gauge face exchange "halo"
     setup_seconds: dict
     u_pk: torch.Tensor     # the packed float32 gauge the solve ran on
     b_pk: torch.Tensor     # the packed float32 source
+    #: the multigrid hierarchy of an MG solve, else None
+    mg: object = None
 
 
 def main(argv=None):
@@ -59,10 +77,13 @@ def invert(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None) -> 
              "(%s) runs the CUDA kernel or, on the CPU, its plain version",
              cfg.solver.backend, device)
     lat, u_pk, plaq, gauge_seconds = setup_gauge(cfg, device) if gauge is None else gauge
+    setup_seconds = {"gauge": gauge_seconds}
+    if cfg.action.epsbar != 0.0:
+        return _invert_ndeg(cfg, device, lat, u_pk, plaq, setup_seconds)
     b_pk = random_source(lat, device)
     kappa, mu, csw = cfg.action.kappa, cfg.action.mu, cfg.action.csw
-    setup_seconds = {"gauge": gauge_seconds}
     prof = Profile()
+    mg = None
     if cfg.mg.enabled:
         solver = MGSolver(cfg, lat, u_pk)
         with prof.phase("mg_setup"):
@@ -103,6 +124,59 @@ def invert(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None) -> 
           f"dims={lat.dims} tol={cfg.solver.tol}")
     return InvertResult(seconds=t, relres=rel, solver_relres=res.relres, iters=res.iters,
                         refinements=res.refinements, gflops=gf, x=res.x, plaquette=plaq,
+                        setup_seconds=setup_seconds, u_pk=u_pk, b_pk=b_pk, mg=mg)
+
+
+def _invert_ndeg(cfg: RunConfig, device: torch.device, lat, u_pk, plaq,
+                 setup_seconds) -> InvertResult:
+    """The non-degenerate doublet solve (tpuqcd/cli/run_invert.py:146-249),
+    on one device or on the mesh of cfg.mesh."""
+    a, m = cfg.action, cfg.mesh
+    # the phase the links carry (tpuqcd's run_invert.py:210-216 leaves the default)
+    tb = -1 if cfg.gauge.antiperiodic_t else 1
+    sloppy = torch.bfloat16 if cfg.solver.sloppy_dtype == "bfloat16" else torch.float32
+    solver_kw = dict(tol=cfg.solver.tol, maxiter=cfg.solver.maxiter,
+                     inner_tol=cfg.solver.inner_tol)
+    b_pk = random_source(lat, device, columns=2)          # [2(fl), 2(par), 2(ri), ...]
+    prof = Profile()
+    if m.nt * m.nz * m.ny > 1:
+        lmesh = LatticeMesh.make(lat, m.nt, m.nz, m.ny)
+        log.info("ndeg lattice mesh: %d x %d x %d ranks over (T, Z, Y), comm_policy %s -> "
+                 "fused", m.nt, m.nz, m.ny, cfg.solver.comm_policy)
+        if not tdist.all_processes_agree(plaq, "plaquette"):
+            raise RuntimeError("the ranks built different gauges")
+        op = ShardedNdegTMOperatorPC(lat, kappa=a.kappa, mubar=a.mubar, epsbar=a.epsbar,
+                                     t_boundary=tb, lmesh=lmesh)
+        with prof.phase("halo"):
+            ug = op.extend_gauge(tdist.local_shard(u_pk, lmesh))
+            fields_s, fields_hp = ug.to(sloppy, rows=2), ug.to(torch.float64)
+            sync(device)
+        setup_seconds["halo"] = prof.times["halo"]
+        with prof.phase("solve"):
+            res = solve_ndeg_tm_sharded(op, fields_s, fields_hp,
+                                        tdist.local_shard(b_pk, lmesh), **solver_kw)
+            sync(device)
+        x = lmesh.gather(res.x)
+    else:
+        with prof.phase("solve"):
+            res = solve_ndeg_tm(u_pk, b_pk, lat, kappa=a.kappa, mubar=a.mubar, epsbar=a.epsbar,
+                                sloppy_dtype=sloppy, t_boundary=tb, **solver_kw)
+            sync(device)
+        x = res.x
+    t = prof.times["solve"]
+    log.info("ndeg solve: relres=%.2e iters=%d refinements=%d", res.relres, res.iters,
+             res.refinements)
+    rel = float("nan")
+    if x is not None:
+        rel = ndeg_full_relres(u_pk, b_pk, x, lat, kappa=a.kappa, mubar=a.mubar,
+                               epsbar=a.epsbar)
+    rel = tdist.broadcast_float(rel, device)
+    if tdist.rank() == 0:
+        log.info("wallclock %.3f s, certified doublet |r|/|b| = %.3e", t, rel)
+        print(f"RESULT solve_seconds={t:.3f} relres={rel:.3e} dims={lat.dims} "
+              f"tol={cfg.solver.tol} ndeg=1")
+    return InvertResult(seconds=t, relres=rel, solver_relres=res.relres, iters=res.iters,
+                        refinements=res.refinements, gflops=0.0, x=x, plaquette=plaq,
                         setup_seconds=setup_seconds, u_pk=u_pk, b_pk=b_pk)
 
 

@@ -62,6 +62,25 @@
 // before use, so at most 12 extra reals are live beside the 24 of the
 // accumulator.  CLOVER is a template flag, so the other modes compile as
 // before.
+// Halo mode (the TPU kernel's K6: halo_t, halo_z, local_dims and
+// t_offset, dslash_pallas.py:522-528, :548-556, :565-616, :640-656), for
+// one shard of a (t, z) decomposition: the launch's T and Z are the
+// shard's, and a t or z leg that steps past the local edge reads a face
+// operand instead of psi and u:
+//   - spinor faces t-1, t+1 [2(ri), ns, 3, Z, S] and z-1, z+1
+//     [2(ri), ns, 3, T, S], the neighbour shards' boundary slices; ns = 4
+//     (full spinors) or 2 (half-spinors, already projected with this
+//     launch's tables, so the leg skips its own projection);
+//   - the mu=3 links of the t-1 face [R, 3, 2(ri), Z, S] and the mu=2
+//     links of the z-1 face [R, 3, 2(ri), T, S], both of source parity p
+//     (the only links a backward leg reads across an edge);
+//   - t_offset, the shard's global t, and t_global, the global extent:
+//     the reconstruct-12 phase goes on the rebuilt row at global t = T-1
+//     (outside halo mode t_offset = 0 and t_global = T).
+// The checkerboard uses local coordinates, which is right because every
+// shard offset is even.  The faces add 2 x 12 (half) or 2 x 24 reals a
+// boundary site, a surface term; HALO is a template flag, so the other
+// modes keep their registers.
 // Spinor operands may be views whose re/im planes are a stride apart
 // (psi_rs, psi0_rs, out_rs: elements from the re to the im plane; 12*n
 // when contiguous) and per-leg outputs a stride out_ls apart, so that
@@ -129,11 +148,15 @@ __host__ __device__ constexpr int recon_im(int mu, int b) {
 
 // One hop leg: acc += (1 -+ gamma_mu) U psi(nb), with U = link or its
 // adjoint.  sgn = +1 takes the (1 - gamma) tables, -1 the (1 + gamma).
+// psi points at the neighbour's (spin 0, colour 0, re) element, spin-colour
+// components psi_ss apart and re/im psi_rs apart; half: it holds the two
+// projected spins.  ul points at the link's first element, elements u_ss
+// apart.
 template <int MU, int NROW, bool ADJ, typename S, typename R>
 __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict__ psi,
-                                        int64_t psi_rs, const S* __restrict__ u,
-                                        int64_t n_sites, int64_t psi_site, int64_t link_site,
-                                        int link_par, int sgn, R phase) {
+                                        int64_t psi_rs, int64_t psi_ss, bool half,
+                                        const S* __restrict__ ul, int64_t u_ss, int sgn,
+                                        R phase) {
   // half-spinor projection at the neighbour
   cpx<R> h[2][3];
 #pragma unroll
@@ -141,9 +164,13 @@ __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict
     const int b = partner(MU, a);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const S* pa_ = psi + (a * 3 + c) * n_sites + psi_site;
-      const S* pb_ = psi + (b * 3 + c) * n_sites + psi_site;
+      const S* pa_ = psi + (a * 3 + c) * psi_ss;
       cpx<R> pa = {to_compute(pa_[0]), to_compute(pa_[psi_rs])};
+      if (half) {
+        h[a][c] = pa;
+        continue;
+      }
+      const S* pb_ = psi + (b * 3 + c) * psi_ss;
       cpx<R> pb = {to_compute(pb_[0]), to_compute(pb_[psi_rs])};
       cpx<R> t = coef_mul(proj_re(MU, a), proj_im(MU, a), pb);
       h[a][c] = sgn > 0 ? cadd(pa, t) : cpx<R>{pa.re - t.re, pa.im - t.im};
@@ -151,13 +178,12 @@ __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict
   }
   // the link, rebuilt to 3x3 from reconstruct-12 if needed
   cpx<R> U[3][3];
-  const S* ul = u + (int64_t)(MU * 2 + link_par) * NROW * 3 * 2 * n_sites + link_site;
 #pragma unroll
   for (int i = 0; i < NROW; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      U[i][j] = {to_compute(ul[((i * 3 + j) * 2 + 0) * n_sites]),
-                 to_compute(ul[((i * 3 + j) * 2 + 1) * n_sites])};
+      U[i][j] = {to_compute(ul[((i * 3 + j) * 2 + 0) * u_ss]),
+                 to_compute(ul[((i * 3 + j) * 2 + 1) * u_ss])};
   if (NROW == 2) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
@@ -217,14 +243,17 @@ __device__ __forceinline__ void store_spinor(S* __restrict__ out, int64_t rs, in
     }
 }
 
-template <typename S, int NROW, bool DAGGER, bool LEGS_OUT, bool CLOVER>
+template <typename S, int NROW, bool DAGGER, bool LEGS_OUT, bool CLOVER, bool HALO>
 __global__ void __launch_bounds__(128)
 dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
                  const S* __restrict__ psi0, const S* __restrict__ clov,
                  S* __restrict__ out, int T, int Z, int Y,
                  int Xh, int p, int epilogue, double tw_d, double k2_d, int t_boundary,
                  int leg_mask, int64_t psi_rs, int64_t psi0_rs, int64_t out_rs,
-                 int64_t out_ls) {
+                 int64_t out_ls, const S* __restrict__ f_tm, const S* __restrict__ f_tp,
+                 const S* __restrict__ f_zm, const S* __restrict__ f_zp,
+                 const S* __restrict__ u_tm, const S* __restrict__ u_zm, int face_spins,
+                 int t_offset, int t_global) {
   using R = typename ComputeOf<S>::type;
   const int64_t n_sites = (int64_t)T * Z * Y * Xh;
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -239,18 +268,32 @@ dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
   auto site = [=](int t_, int z_, int y_, int xh_) -> int64_t {
     return (((int64_t)t_ * Z + z_) * Y + y_) * Xh + xh_;
   };
+  // the links of direction mu and parity par, one element a site
+  auto links = [=](int mu, int par) -> const S* {
+    return u + (int64_t)(mu * 2 + par) * NROW * 3 * 2 * n_sites;
+  };
   const int xf = o_p ? xh : (xh + 1 == Xh ? 0 : xh + 1);
   const int xb = o_p ? (xh == 0 ? Xh - 1 : xh - 1) : xh;
   const int yf = y + 1 == Y ? 0 : y + 1, yb = y == 0 ? Y - 1 : y - 1;
   const int zf = z + 1 == Z ? 0 : z + 1, zb = z == 0 ? Z - 1 : z - 1;
   const int tf = t + 1 == T ? 0 : t + 1, tb = t == 0 ? T - 1 : t - 1;
-  // reconstruct-12 phase of a t-link at global t = T-1
+  // reconstruct-12 phase of a t-link at global t = T-1: the forward leg's
+  // link at global t_offset + t, the backward leg's one slice below
   const R one = R(1);
-  const R ph_f = (NROW == 2 && t == T - 1) ? R(t_boundary) : one;
-  const R ph_b = (NROW == 2 && tb == T - 1) ? R(t_boundary) : one;
+  const int tg = t_offset + t;
+  const R ph_f = (NROW == 2 && tg == t_global - 1) ? R(t_boundary) : one;
+  const R ph_b = (NROW == 2 && tg == 0) ? R(t_boundary) : one;
   // forward legs take (1 - gamma), backward legs (1 + gamma); dagger swaps
   const int sf = DAGGER ? -1 : 1;
   const int sb = -sf;
+  // halo mode: the legs that step past the local t or z edge, and the
+  // site's index in a t face ([Z, S]) and in a z face ([T, S])
+  const bool at_tf = HALO && t == T - 1, at_tb = HALO && t == 0;
+  const bool at_zf = HALO && z == Z - 1, at_zb = HALO && z == 0;
+  const int64_t n_ts = (int64_t)Z * Y * Xh, n_zs = (int64_t)T * Y * Xh;
+  const int64_t i_t = n % n_ts, i_z = (int64_t)t * Y * Xh + n % ((int64_t)Y * Xh);
+  const bool half = face_spins == 2;
+  const int64_t frs_t = (int64_t)face_spins * 3 * n_ts, frs_z = (int64_t)face_spins * 3 * n_zs;
 
   cpx<R> acc[4][3];
   zero(acc);
@@ -258,24 +301,34 @@ dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
 
   // forward: U_mu(x)|q psi(x + mu);  backward: U_mu(x - mu)|p^dag psi(x - mu).
   // A selected leg accumulates, or (LEGS_OUT) is stored to the next slot.
-#define TQ_LEG(BIT, MU, ADJ, PSI_SITE, LINK_SITE, LINK_PAR, SGN, PHASE)                   \
+#define TQ_LEG(BIT, MU, ADJ, PSI, PSI_RS, PSI_SS, HALF, UL, U_SS, SGN, PHASE)               \
   if (leg_mask & (1 << (BIT))) {                                                           \
     if (LEGS_OUT) zero(acc);                                                               \
-    hop_leg<MU, NROW, ADJ>(acc, psi, psi_rs, u, n_sites, PSI_SITE, LINK_SITE, LINK_PAR, SGN, \
-                           PHASE);                                                         \
+    hop_leg<MU, NROW, ADJ>(acc, PSI, PSI_RS, PSI_SS, HALF, UL, U_SS, SGN, PHASE);           \
     if (LEGS_OUT) {                                                                        \
       store_spinor(slot, out_rs, n_sites, n, acc);                                         \
       slot += out_ls;                                                                      \
     }                                                                                      \
   }
-  TQ_LEG(0, 0, false, site(t, z, y, xf), n, q, sf, one)
-  TQ_LEG(1, 0, true, site(t, z, y, xb), site(t, z, y, xb), p, sb, one)
-  TQ_LEG(2, 1, false, site(t, z, yf, xh), n, q, sf, one)
-  TQ_LEG(3, 1, true, site(t, z, yb, xh), site(t, z, yb, xh), p, sb, one)
-  TQ_LEG(4, 2, false, site(t, zf, y, xh), n, q, sf, one)
-  TQ_LEG(5, 2, true, site(t, zb, y, xh), site(t, zb, y, xh), p, sb, one)
-  TQ_LEG(6, 3, false, site(tf, z, y, xh), n, q, sf, ph_f)
-  TQ_LEG(7, 3, true, site(tb, z, y, xh), site(tb, z, y, xh), p, sb, ph_b)
+  TQ_LEG(0, 0, false, psi + site(t, z, y, xf), psi_rs, n_sites, false, links(0, q) + n,
+         n_sites, sf, one)
+  TQ_LEG(1, 0, true, psi + site(t, z, y, xb), psi_rs, n_sites, false,
+         links(0, p) + site(t, z, y, xb), n_sites, sb, one)
+  TQ_LEG(2, 1, false, psi + site(t, z, yf, xh), psi_rs, n_sites, false, links(1, q) + n,
+         n_sites, sf, one)
+  TQ_LEG(3, 1, true, psi + site(t, z, yb, xh), psi_rs, n_sites, false,
+         links(1, p) + site(t, z, yb, xh), n_sites, sb, one)
+  TQ_LEG(4, 2, false, at_zf ? f_zp + i_z : psi + site(t, zf, y, xh), at_zf ? frs_z : psi_rs,
+         at_zf ? n_zs : n_sites, at_zf && half, links(2, q) + n, n_sites, sf, one)
+  TQ_LEG(5, 2, true, at_zb ? f_zm + i_z : psi + site(t, zb, y, xh), at_zb ? frs_z : psi_rs,
+         at_zb ? n_zs : n_sites, at_zb && half,
+         at_zb ? u_zm + i_z : links(2, p) + site(t, zb, y, xh), at_zb ? n_zs : n_sites, sb, one)
+  TQ_LEG(6, 3, false, at_tf ? f_tp + i_t : psi + site(tf, z, y, xh), at_tf ? frs_t : psi_rs,
+         at_tf ? n_ts : n_sites, at_tf && half, links(3, q) + n, n_sites, sf, ph_f)
+  TQ_LEG(7, 3, true, at_tb ? f_tm + i_t : psi + site(tb, z, y, xh), at_tb ? frs_t : psi_rs,
+         at_tb ? n_ts : n_sites, at_tb && half,
+         at_tb ? u_tm + i_t : links(3, p) + site(tb, z, y, xh), at_tb ? n_ts : n_sites, sb,
+         ph_b)
 #undef TQ_LEG
   if (LEGS_OUT) return;
 
@@ -346,7 +399,9 @@ template <typename S>
 int launch(const void* u, const void* psi, const void* psi0, const void* clov, void* out, int T,
            int Z, int Y, int Xh, int nrow, int src_parity, int dagger, int epilogue, double tw,
            double k2, int t_boundary, int leg_mask, int legs_out, int64_t psi_rs,
-           int64_t psi0_rs, int64_t out_rs, int64_t out_ls, int device, void* stream) {
+           int64_t psi0_rs, int64_t out_rs, int64_t out_ls, const void* f_tm, const void* f_tp,
+           const void* f_zm, const void* f_zp, const void* u_tm, const void* u_zm, int halo,
+           int face_spins, int t_offset, int t_global, int device, void* stream) {
   // epilogues: 0 none, 1 twist_inv, 2 xpay, 3 clover_inv, 4 clover_xpay
   const bool clover = epilogue >= 3;
   if ((nrow != 2 && nrow != 3) || (src_parity != 0 && src_parity != 1) || epilogue < 0 ||
@@ -354,6 +409,12 @@ int launch(const void* u, const void* psi, const void* psi0, const void* clov, v
       (clover && clov == nullptr) || T <= 0 || Z <= 0 || Y <= 0 || Xh <= 0 ||
       leg_mask <= 0 || leg_mask > 255 || (legs_out && epilogue != 0))
     return (int)cudaErrorInvalidValue;
+  if (halo && (legs_out || f_tm == nullptr || f_tp == nullptr || f_zm == nullptr ||
+               f_zp == nullptr || u_tm == nullptr || u_zm == nullptr ||
+               (face_spins != 2 && face_spins != 4) || t_offset < 0 ||
+               t_offset + T > t_global))
+    return (int)cudaErrorInvalidValue;
+  if (!halo) t_offset = 0, t_global = T;
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: select the tensors' device before launching on its stream
   const cudaError_t set = cudaSetDevice(device);
@@ -367,14 +428,18 @@ int launch(const void* u, const void* psi, const void* psi0, const void* clov, v
   const S* psi0_ = (const S*)psi0;
   const S* clov_ = (const S*)clov;
   S* out_ = (S*)out;
-#define TQ_LAUNCH(NR, DG, LO, CL)                                                           \
-  dslash_eo_kernel<S, NR, DG, LO, CL><<<blocks, threads, 0, s>>>(                           \
+#define TQ_LAUNCH(NR, DG, LO, CL, HA)                                                       \
+  dslash_eo_kernel<S, NR, DG, LO, CL, HA><<<blocks, threads, 0, s>>>(                       \
       u_, psi_, psi0_, clov_, out_, T, Z, Y, Xh, src_parity, epilogue, tw, k2, t_boundary,  \
-      leg_mask, psi_rs, psi0_rs, out_rs, out_ls)
-#define TQ_LAUNCH_LO(NR, DG)                  \
-  if (legs_out) TQ_LAUNCH(NR, DG, true, false); \
-  else if (clover) TQ_LAUNCH(NR, DG, false, true); \
-  else TQ_LAUNCH(NR, DG, false, false);
+      leg_mask, psi_rs, psi0_rs, out_rs, out_ls, (const S*)f_tm, (const S*)f_tp,             \
+      (const S*)f_zm, (const S*)f_zp, (const S*)u_tm, (const S*)u_zm, face_spins, t_offset, \
+      t_global)
+#define TQ_LAUNCH_LO(NR, DG)                                     \
+  if (legs_out) TQ_LAUNCH(NR, DG, true, false, false);           \
+  else if (halo && clover) TQ_LAUNCH(NR, DG, false, true, true);  \
+  else if (halo) TQ_LAUNCH(NR, DG, false, false, true);          \
+  else if (clover) TQ_LAUNCH(NR, DG, false, true, false);        \
+  else TQ_LAUNCH(NR, DG, false, false, false);
   if (nrow == 2) {
     if (dagger) { TQ_LAUNCH_LO(2, true) } else { TQ_LAUNCH_LO(2, false) }
   } else {
@@ -392,10 +457,14 @@ int launch(const void* u, const void* psi, const void* psi0, const void* clov, v
                       void* out, int T, int Z, int Y, int Xh, int nrow, int src_parity,       \
                       int dagger, int epilogue, double tw, double k2, int t_boundary,         \
                       int leg_mask, int legs_out, int64_t psi_rs, int64_t psi0_rs,            \
-                      int64_t out_rs, int64_t out_ls, int device, void* stream) {             \
+                      int64_t out_rs, int64_t out_ls, const void* f_tm, const void* f_tp,     \
+                      const void* f_zm, const void* f_zp, const void* u_tm, const void* u_zm, \
+                      int halo, int face_spins, int t_offset, int t_global, int device,       \
+                      void* stream) {                                                         \
     return launch<S>(u, psi, psi0, clov, out, T, Z, Y, Xh, nrow, src_parity, dagger,          \
                      epilogue, tw, k2, t_boundary, leg_mask, legs_out, psi_rs, psi0_rs,       \
-                     out_rs, out_ls, device, stream);                                         \
+                     out_rs, out_ls, f_tm, f_tp, f_zm, f_zp, u_tm, u_zm, halo, face_spins,    \
+                     t_offset, t_global, device, stream);                                     \
   }
 
 TQ_ENTRY(tq_dslash_eo_f32, float)

@@ -1,7 +1,7 @@
 """Twisted-mass and twisted-clover operators on packed fields, even-odd
 preconditioned.
 
-Counterpart of ``tpuqcd/operators.py:341-574``.  Asymmetric Schur
+Counterpart of ``tpuqcd/operators.py:341-681``.  Asymmetric Schur
 complement on the even parity, with A = 1 + 2 i kappa mu g5 flavor
 (twisted mass) or A = A_clover + 2 i kappa mu g5 flavor (twisted clover):
 
@@ -12,7 +12,9 @@ complement on the even parity, with A = 1 + 2 i kappa mu g5 flavor
 
 One Mhat apply is two Dslash launches with fused epilogues
 (twist_inv, then xpay; clover_inv, then clover_xpay for twisted
-clover).  Every hop goes through ops.dslash_cuda.dslash_eo,
+clover).  The non-degenerate doublet (PackedNdegTMOperatorPC) has a
+flavor-mixing site term and a flavor-diagonal hop: one plain launch per
+flavor.  Every hop goes through ops.dslash_cuda.dslash_eo,
 so the tensor's device picks the kernel or the plain version; the same
 class serves the float32/bfloat16 iteration operator and the float64
 certification operator.
@@ -175,3 +177,78 @@ class PackedTMCloverOperatorPC:
         """x_o = Atw_oo^{-1} (b_o + k D_oe x_e); returns [2(par), ...]."""
         t = b_pk[1] + self.kappa * self._hop(fields[0], x_e, EVEN)
         return torch.stack([x_e, clover_apply_pk(self._clinv(fields, self.flavor), t)])
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedNdegTMOperatorPC:
+    """Even-odd non-degenerate twisted-mass doublet (the heavy s/c pair)
+    on packed fields; counterpart of tpuqcd/operators.py:585-681.
+
+    Doublets chi [2(flavor), 2(ri), 4, 3, T, Z, S].  Site term
+
+        A = 1 + i t g5 tau3 + e tau1,  t = 2 kappa mubar, e = 2 kappa epsbar,
+
+    with the closed-form inverse (g5 is diagonal, det_flavor A = 1 + t^2 -
+    e^2 is a scalar, which must be > 0)
+
+        A^{-1} = [(1 - i t g5) chi_0 - e chi_1, (1 + i t g5) chi_1 - e chi_0]
+                 / (1 + t^2 - e^2),
+
+    Mhat = A_ee - k^2 D_eo A_oo^{-1} D_oe with D flavor-diagonal: one
+    plain hop (epilogue none) per flavor, with ``dagger`` for Mhat^dag
+    (daggered hops and mubar flipped).  The site terms are plain torch,
+    as they are XLA in tpuqcd.
+    """
+    lat: Lattice
+    kappa: float
+    mubar: float
+    epsbar: float
+    #: see PackedTMOperatorPC
+    t_boundary: int = -1
+
+    def site(self, chi: torch.Tensor, flip: bool = False) -> torch.Tensor:
+        """A chi (A^dag chi with ``flip``)."""
+        f, e = -1 if flip else 1, 2.0 * self.kappa * self.epsbar
+        return torch.stack([twist_apply_pk(chi[0], self.kappa, self.mubar, f) + e * chi[1],
+                            twist_apply_pk(chi[1], self.kappa, self.mubar, -f) + e * chi[0]])
+
+    def site_inv(self, chi: torch.Tensor, flip: bool = False) -> torch.Tensor:
+        f, e = -1 if flip else 1, 2.0 * self.kappa * self.epsbar
+        t = 2.0 * self.kappa * self.mubar
+        den = 1.0 / (1.0 + t * t - e * e)
+        return den * torch.stack([
+            twist_apply_pk(chi[0], self.kappa, self.mubar, -f) - e * chi[1],
+            twist_apply_pk(chi[1], self.kappa, self.mubar, f) - e * chi[0]])
+
+    def _hop(self, u, chi, parity, dagger):
+        """The flavor-diagonal hop, one launch per flavor."""
+        return torch.stack([dslash_eo(u, chi[f], parity, self.lat, dagger=dagger,
+                                      t_boundary=self.t_boundary) for f in (0, 1)])
+
+    def _apply(self, u, chi_e, dagger: bool):
+        w = self.site_inv(self._hop(u, chi_e, EVEN, dagger), dagger)
+        return self.site(chi_e, dagger) - (self.kappa * self.kappa) * self._hop(u, w, ODD, dagger)
+
+    def apply(self, u, chi_e: torch.Tensor) -> torch.Tensor:
+        return self._apply(u, chi_e, dagger=False)
+
+    def apply_dagger(self, u, chi_e: torch.Tensor) -> torch.Tensor:
+        return self._apply(u, chi_e, dagger=True)
+
+    def normal(self, u, chi_e: torch.Tensor) -> torch.Tensor:
+        return self.apply_dagger(u, self.apply(u, chi_e))
+
+    def prepare(self, u, b_pk: torch.Tensor) -> torch.Tensor:
+        """b [2(fl), 2(par), 2(ri), 4, 3, T, Z, S] -> bhat_e = b_e + k D_eo A^{-1} b_o."""
+        return b_pk[:, 0] + self.kappa * self._hop(u, self.site_inv(b_pk[:, 1]), ODD, False)
+
+    def reconstruct(self, u, x_e: torch.Tensor, b_pk: torch.Tensor) -> torch.Tensor:
+        """x_o = A^{-1} (b_o + k D_oe x_e); returns [2(fl), 2(par), ...]."""
+        x_o = self.site_inv(b_pk[:, 1] + self.kappa * self._hop(u, x_e, EVEN, False))
+        return torch.stack([x_e, x_o], dim=1)
+
+    def apply_full(self, u, x_pk: torch.Tensor) -> torch.Tensor:
+        """The unpreconditioned two-parity M_nd x on [2(fl), 2(par), 2(ri), ...]:
+        A x_par - k D x_(1-par), per parity."""
+        return torch.stack([self.site(x_pk[:, par]) - self.kappa * self._hop(
+            u, x_pk[:, 1 - par], 1 - par, False) for par in (0, 1)], dim=1)

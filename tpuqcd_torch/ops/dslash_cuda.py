@@ -40,6 +40,20 @@ Leg selection, for MG Galerkin probing (the TPU kernel's K4 modes):
                              LEG_ORDER (mu-major, +1 before -1) whatever the
                              order of dirs; epilogue "none" only
 
+Halo mode, for one shard of a (t, z) decomposition (the TPU kernel's
+K6; parallel/sharded.py builds the operands): ``lat`` is the shard's
+local lattice and ``halo=Halo(...)`` carries the neighbour shards' faces,
+which the t and z legs read where they step past the local edge:
+
+    t_m, t_p   spinor faces at t-1, t+1 [2(ri), ns, 3, Z, S]
+    z_m, z_p   spinor faces at z-1, z+1 [2(ri), ns, 3, T, S]
+               ns = 4 full spinors, or 2 half-spinors projected with the
+               launch's tables (parallel/sharded.half_tables)
+    u_t, u_z   mu=3 links of the t-1 face [R, 3, 2(ri), Z, S] and mu=2
+               links of the z-1 face [R, 3, 2(ri), T, S], source parity
+    t_offset   the shard's global t, and t_global the global Lt: the
+               reconstruct-12 phase is a global-t condition
+
 Spinor operands may be views whose re/im planes are any stride apart
 (the parity halves of an MG field [2(ri), 2(par), 4, 3, T, Z, S]); each
 plane itself must be contiguous.  ``out=`` writes the result into such a
@@ -56,6 +70,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -78,15 +93,31 @@ _ENTRY = {torch.float32: "tq_dslash_eo_f32", torch.bfloat16: "tq_dslash_eo_bf16"
           torch.float64: "tq_dslash_eo_f64"}
 
 #: launches of the kernel, by storage dtype name ("float32"), with the
-#: leg modes and the clover epilogues apart ("float32:dirs",
-#: "float32:legs_out", "float32:clover_inv", "float32:clover_xpay"), and
-#: calls of the plain version under "plain".  Each kernel launch adds one;
-#: nothing else does.
+#: leg modes, the clover epilogues and halo mode apart ("float32:dirs",
+#: "float32:legs_out", "float32:clover_inv", "float32:clover_xpay",
+#: "float32:halo", "float32:clover_xpay:halo"), and calls of the plain
+#: version under "plain".  Each kernel launch adds one; nothing else does.
 counts: collections.Counter = collections.Counter()
 
 
 def reset_counts() -> None:
     counts.clear()
+
+
+class Halo(NamedTuple):
+    """The face operands of a shard's hop (see the module docstring)."""
+    t_m: torch.Tensor
+    t_p: torch.Tensor
+    z_m: torch.Tensor
+    z_p: torch.Tensor
+    u_t: torch.Tensor
+    u_z: torch.Tensor
+    t_offset: int
+    t_global: int
+
+    @property
+    def spins(self) -> int:
+        return self.t_m.shape[1]
 
 
 # --------------------------------------------------------------------------
@@ -119,7 +150,8 @@ class _Library:
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                            + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
-                           + [ctypes.c_int64] * 4 + [ctypes.c_int, ctypes.c_void_p])
+                           + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 6
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.tq_error_string.argtypes = [ctypes.c_int]
         lib.tq_error_string.restype = ctypes.c_char_p
@@ -185,8 +217,35 @@ def _leg_mask(dirs) -> int:
     return mask
 
 
+def _check_halo(halo: Halo, u, psi, lat, legs_out):
+    """Validate the face operands; returns them as (name, tensor) pairs."""
+    if legs_out:
+        raise ValueError("halo mode composes with the summed hop only, not legs_out")
+    T, Z, S = lat.site_shape
+    ns = halo.spins
+    if ns not in (2, 4):
+        raise ValueError(f"spinor faces hold 4 spins or 2 projected ones, got {ns}")
+    rows = u.shape[2]
+    want = {"t_m": (2, ns, 3, Z, S), "t_p": (2, ns, 3, Z, S), "z_m": (2, ns, 3, T, S),
+            "z_p": (2, ns, 3, T, S), "u_t": (rows, 3, 2, Z, S), "u_z": (rows, 3, 2, T, S)}
+    faces = []
+    for name, shape in want.items():
+        x = getattr(halo, name)
+        if tuple(x.shape) != shape or x.dtype != psi.dtype:
+            raise ValueError(f"halo.{name} must be {psi.dtype} {shape}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"halo.{name} is not contiguous")
+        faces.append((f"halo.{name}", x))
+    if not (isinstance(halo.t_offset, int) and isinstance(halo.t_global, int)
+            and 0 <= halo.t_offset and halo.t_offset + T <= halo.t_global):
+        raise ValueError(f"halo needs the shard's global t_offset and the global Lt: got "
+                         f"t_offset {halo.t_offset!r}, t_global {halo.t_global!r}, local T {T}")
+    return faces
+
+
 def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, out=None,
-           clover=None):
+           clover=None, halo=None):
     """Validate the operands; returns (leg mask, output shape)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {sorted(EPILOGUES)}, got {epilogue!r}")
@@ -237,6 +296,8 @@ def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, o
                              f"{tuple(out.shape)}")
         _ri_stride(out, "out", lead=1 if legs_out else 0)
         tensors.append(("out", out))
+    if halo is not None:
+        tensors += _check_halo(halo, u, psi, lat, legs_out)
     for name, x in tensors + [("u", u)]:
         if x.device != psi.device:
             raise ValueError(f"{name} is on {x.device}, psi on {psi.device}")
@@ -255,17 +316,19 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
               t_boundary: int = -1, xpay_scale: float | None = None,
               dirs: tuple | None = None, legs_out: bool = False,
               out: torch.Tensor | None = None,
-              clover: torch.Tensor | None = None) -> torch.Tensor:
+              clover: torch.Tensor | None = None,
+              halo: Halo | None = None) -> torch.Tensor:
     """D_{q<-p} psi with a fused epilogue; result at parity 1 - src_parity.
 
     t_boundary is the fermion T-boundary phase folded into the stored
     links (-1 antiperiodic, +1 periodic); only reconstruct-12 reads it.
-    dirs, legs_out, out and clover: see the module docstring.
+    dirs, legs_out, out, clover and halo: see the module docstring.
     """
     kw = dict(dagger=dagger, epilogue=epilogue, kappa=kappa, mu=mu, flavor=flavor,
               psi0=psi0, t_boundary=t_boundary, xpay_scale=xpay_scale, dirs=dirs,
-              legs_out=legs_out, out=out, clover=clover)
-    mask, shape = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out, clover)
+              legs_out=legs_out, out=out, clover=clover, halo=halo)
+    mask, shape = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out, clover,
+                         halo)
     if psi.device.type == "cpu":
         return dslash_eo_plain(u, psi, src_parity, lat, **kw)
     if psi.device.type != "cuda":
@@ -277,12 +340,14 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
     lead = 1 if legs_out else 0
     T, Z, _ = lat.site_shape
     stream = torch.cuda.current_stream(psi.device).cuda_stream
+    faces = ([x.data_ptr() for x in halo[:6]] + [1, halo.spins, halo.t_offset, halo.t_global]
+             if halo is not None else [None] * 6 + [0, 4, 0, T])
     err = fn(u.data_ptr(), psi.data_ptr(), psi0.data_ptr() if psi0 is not None else None,
              clover.data_ptr() if clover is not None else None, out.data_ptr(), T, Z,
              lat.Ly, lat.Lx // 2, u.shape[2], src_parity, int(dagger), EPILOGUES[epilogue],
              tw, k2, int(t_boundary), mask, int(legs_out), psi.stride(0),
              psi0.stride(0) if psi0 is not None else 0, out.stride(lead),
-             out.stride(0) if legs_out else 0, psi.device.index, stream)
+             out.stride(0) if legs_out else 0, *faces, psi.device.index, stream)
     if err != 0:
         msg = library.get().tq_error_string(err).decode()
         raise RuntimeError(f"dslash_eo kernel launch failed: {msg} (CUDA error {err})")
@@ -293,6 +358,8 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
         key += ":dirs"
     elif clover is not None:
         key += ":" + epilogue
+    if halo is not None:
+        key += ":halo"
     counts[key] += 1
     return out
 
@@ -300,10 +367,13 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
 # --------------------------------------------------------------------------
 # plain PyTorch version
 
-def hop_index(lat: Lattice, src_parity: int, device=None) -> torch.Tensor:
+def hop_index(lat: Lattice, src_parity: int, device=None, halo: bool = False) -> torch.Tensor:
     """int64 [4(mu), 2(fwd, bwd), T*Z*S]: flat site index of the +mu and
     -mu neighbour of every output site, with periodic wrap and the eo
-    x-shift rule (the same index math as the kernel)."""
+    x-shift rule (the same index math as the kernel).  With ``halo`` a t
+    or z leg past the local edge indexes the faces appended after the N
+    local sites: t-1 face at N, t+1 at N + Z*S, z-1 at N + 2*Z*S, z+1 at
+    N + 2*Z*S + T*S (each face [Z, S] or [T, S], site index minor)."""
     T, Z, Y, Xh = lat.Lt, lat.Lz, lat.Ly, lat.Lx // 2
     ar = lambda n: torch.arange(n, device=device)  # noqa: E731
     t = ar(T)[:, None, None, None]
@@ -322,26 +392,85 @@ def hop_index(lat: Lattice, src_parity: int, device=None) -> torch.Tensor:
         (flat(t, (z + 1) % Z, y, xh), flat(t, (z - 1) % Z, y, xh)),
         (flat((t + 1) % T, z, y, xh), flat((t - 1) % T, z, y, xh)),
     ]
-    return torch.stack([torch.stack(pair) for pair in legs])
+    idx = torch.stack([torch.stack(pair) for pair in legs])
+    if halo:
+        n, S = T * Z * Y * Xh, Y * Xh
+        zero = torch.zeros((T, Z, Y, Xh), dtype=torch.int64, device=device)
+        i_t = (z * S + y * Xh + xh + zero).reshape(-1)          # index in a t face
+        i_z = (t * S + y * Xh + xh + zero).reshape(-1)          # index in a z face
+        tt, zz = (t + zero).reshape(-1), (z + zero).reshape(-1)
+        idx[3, 1] = torch.where(tt == 0, n + i_t, idx[3, 1])
+        idx[3, 0] = torch.where(tt == T - 1, n + Z * S + i_t, idx[3, 0])
+        idx[2, 1] = torch.where(zz == 0, n + 2 * Z * S + i_z, idx[2, 1])
+        idx[2, 0] = torch.where(zz == Z - 1, n + 2 * Z * S + T * S + i_z, idx[2, 0])
+    return idx
 
 
-def expand_links(u: torch.Tensor, lat: Lattice, t_boundary: int = -1) -> torch.Tensor:
+def _rebuild_row2(uc: torch.Tensor) -> torch.Tensor:
+    """Reconstruct-12 rows [..., 2, 3, n] complex -> the third row
+    conj(row0 x row1) [..., 3, n], without a phase."""
+    return torch.conj(torch.linalg.cross(uc[..., 0, :, :], uc[..., 1, :, :], dim=-2))
+
+
+def expand_links(u: torch.Tensor, lat: Lattice, t_boundary: int = -1, t_offset: int = 0,
+                 t_global: int | None = None) -> torch.Tensor:
     """Packed gauge -> complex [4, 2, 3, 3, T*Z*S] in the compute precision
     (complex128 for f64 storage, complex64 otherwise).  Reconstruct-12
     rebuilds row 2 = phase * conj(row0 x row1), phase = t_boundary on
-    t-links at t = T-1: the stored rows carry the phase, the bilinear
-    cross product squares it away."""
+    t-links at global t = t_global - 1 (t_global defaults to T; a shard
+    at global t_offset has it at local t_global - 1 - t_offset): the
+    stored rows carry the phase, the bilinear cross product squares it
+    away."""
     rdt = torch.float64 if u.dtype == torch.float64 else torch.float32
     n = lat.site_shape[0] * lat.site_shape[1] * lat.site_shape[2]
     uc = torch.complex(u[:, :, :, :, 0].to(rdt), u[:, :, :, :, 1].to(rdt))
     uc = uc.reshape(4, 2, u.shape[2], 3, n)
     if u.shape[2] == 3:
         return uc
-    r2 = torch.conj(torch.linalg.cross(uc[:, :, 0], uc[:, :, 1], dim=2))
-    if t_boundary != 1:
-        T = lat.Lt
-        r2[3, :, :, (T - 1) * (n // T):] *= t_boundary
+    r2 = _rebuild_row2(uc)
+    T = lat.Lt
+    t_last = (T if t_global is None else t_global) - 1 - t_offset
+    if t_boundary != 1 and 0 <= t_last < T:
+        r2[3, :, :, t_last * (n // T):(t_last + 1) * (n // T)] *= t_boundary
     return torch.cat([uc, r2[:, :, None]], dim=2)
+
+
+def _halo_operands(halo: Halo, x: torch.Tensor, links: torch.Tensor, p: int,
+                   t_boundary: int):
+    """The plain version's halo mode: the spinor faces appended to x
+    [4, 3, N] (half-spinor faces padded with zero spins 2, 3, which the
+    projection maps to exactly the shipped half-spinor) in hop_index's
+    order, and per direction the backward links of parity p with the face
+    links at the same indices: ([4, 3, N + F], [4, 3, 3, N + F])."""
+    rdt = x.real.dtype
+
+    def cplx(f):
+        c = torch.complex(f[0].to(rdt), f[1].to(rdt)).reshape(f.shape[1], 3, -1)
+        if c.shape[0] == 2:
+            c = torch.cat([c, torch.zeros_like(c)])
+        return c
+
+    def face_links(uf, phase):
+        uc = torch.complex(uf[:, :, 0].to(rdt), uf[:, :, 1].to(rdt)).reshape(uf.shape[0], 3, -1)
+        if uc.shape[0] == 2:
+            uc = torch.cat([uc, (phase * _rebuild_row2(uc))[None]])
+        return uc
+
+    faces = [cplx(f) for f in (halo.t_m, halo.t_p, halo.z_m, halo.z_p)]
+    nt, nz = faces[0].shape[-1], faces[2].shape[-1]
+    x_ext = torch.cat([x, *faces], dim=-1)
+    # the t-1 face sits at global t_offset - 1: the boundary slice when t_offset = 0
+    u_t = face_links(halo.u_t, t_boundary if halo.t_offset == 0 else 1)
+    u_z = face_links(halo.u_z, 1)
+
+    def pad(*parts):
+        return torch.cat([p_ if torch.is_tensor(p_) else
+                          torch.zeros((3, 3, p_), dtype=links.dtype, device=links.device)
+                          for p_ in parts], dim=-1)
+
+    bwd = torch.stack([pad(links[0, p], 2 * nt + 2 * nz), pad(links[1, p], 2 * nt + 2 * nz),
+                       pad(links[2, p], 2 * nt, u_z, nz), pad(links[3, p], u_t, nt + 2 * nz)])
+    return x_ext, bwd
 
 
 def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
@@ -350,15 +479,18 @@ def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: La
                     t_boundary: int = -1, xpay_scale: float | None = None,
                     dirs: tuple | None = None, legs_out: bool = False,
                     out: torch.Tensor | None = None,
-                    clover: torch.Tensor | None = None) -> torch.Tensor:
+                    clover: torch.Tensor | None = None,
+                    halo: Halo | None = None) -> torch.Tensor:
     """The same function as the kernel in plain PyTorch, on any device.
 
     A port of tpuqcd's dslash_eo_dev_ri (spin projection, SU(3) mat-vec,
-    reconstruction) with reconstruct-12, the epilogues and the leg modes
-    added; the clover epilogues apply the blocks with ops/clover.clover_mv.
-    bfloat16 storage computes in float32, reconstruction included.
+    reconstruction) with reconstruct-12, the epilogues, the leg modes and
+    halo mode added; the clover epilogues apply the blocks with
+    ops/clover.clover_mv.  bfloat16 storage computes in float32,
+    reconstruction included.
     """
-    mask, _ = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out, clover)
+    mask, _ = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out, clover,
+                     halo)
     counts["plain"] += 1
     p, q = src_parity, 1 - src_parity
     T, Z, S = lat.site_shape
@@ -366,8 +498,13 @@ def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: La
     cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
     dev = psi.device
     x = torch.complex(psi[0].to(rdt), psi[1].to(rdt)).reshape(4, 3, -1)
-    links = expand_links(u, lat, t_boundary)
-    idx = hop_index(lat, p, dev)
+    if halo is None:
+        links = expand_links(u, lat, t_boundary)
+        bwd_links = links[:, p]
+    else:
+        links = expand_links(u, lat, t_boundary, halo.t_offset, halo.t_global)
+        x, bwd_links = _halo_operands(halo, x, links, p, t_boundary)
+    idx = hop_index(lat, p, dev, halo=halo is not None)
     tabs = [t.to(device=dev, dtype=cdt) for t in
             (HALF_PROJ_MINUS, HALF_RECON_MINUS, HALF_PROJ_PLUS, HALF_RECON_PLUS)]
     hpm, hrm, hpp, hrp = tabs
@@ -386,7 +523,7 @@ def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: La
             # backward: (1 + g_mu) U_mu(x - mu)|p^dag psi(x - mu)
             nb = idx[m, 1]
             h = torch.einsum("hs,scn->hcn", hpp[m], x[:, :, nb])
-            w = torch.einsum("jin,hjn->hin", links[m, p][:, :, nb].conj(), h)
+            w = torch.einsum("jin,hjn->hin", bwd_links[m][:, :, nb].conj(), h)
             legs.append(torch.einsum("bh,hin->bin", hrp[m], w))
     if legs_out:
         acc = torch.stack(legs)

@@ -1,7 +1,7 @@
 """Certified twisted-mass and twisted-clover solves: sloppy Krylov
 iteration inside an f64 defect-correction loop.
 
-Counterpart of ``tpuqcd/solve.py:30-166, :251, :445``.  The iteration operator
+Counterpart of ``tpuqcd/solve.py:30-251, :445``.  The iteration operator
 runs in the sloppy dtype on a reconstruct-12 gauge copy; true residuals,
 the even-odd preparation, the reconstruction and the final full-system
 residual use the float64 operator on the full 18-real gauge.  On a CUDA
@@ -17,6 +17,13 @@ The clover fields hold the A blocks in float32 (built from the float32
 gauge, exact in float64) and the odd twisted inverses in float64, so the
 float64 operator certifies the even-odd system of the same M that
 full_system_relres applies.
+
+The non-degenerate doublet (solve_ndeg_tm, b and x [2(fl), 2(par), 2(ri),
+4, 3, T, Z, S]) runs the same loop with CG.  On a LatticeMesh,
+solve_tm_sharded and solve_ndeg_tm_sharded run it on the local shards
+with every reduction summed over the ranks; the same sharded operator
+certifies in float64 (tpuqcd needs an XLA twin there, its kernel being
+float32 only).
 """
 from __future__ import annotations
 
@@ -27,10 +34,11 @@ import torch
 from .fields import ODD
 from .lattice import Lattice
 from .mg.device import DeviceFineCloverLevel
-from .operators import PackedTMCloverOperatorPC, PackedTMOperatorPC
+from .operators import PackedNdegTMOperatorPC, PackedTMCloverOperatorPC, PackedTMOperatorPC
 from .ops.clover import clover_blocks, clover_twist_inverse
 from .solvers.bicgstab import bicgstab
 from .solvers.cg import _cg_cycle
+from .solvers import reductions
 from .solvers.reductions import norm2
 from .utils.packed import pack_clover, unpack_gauge
 
@@ -143,6 +151,69 @@ def solve_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: flo
         inner_tol=inner_tol, solver=solver, x0=x0_e)
     return SolveResult(x=pc.reconstruct(u_hp, x_e, b_hp), relres=relres, iters=iters,
                        refinements=nref)
+
+
+def solve_ndeg_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: float,
+                  mubar: float, epsbar: float, tol: float = 1e-10, maxiter: int = 5000,
+                  inner_tol: float = 1e-5, sloppy_dtype: torch.dtype = torch.float32,
+                  t_boundary: int = -1) -> SolveResult:
+    """Solve the two-parity non-degenerate doublet system M_nd x = b:
+    CG on the normal equations of the even-odd Schur complement inside
+    the f64 defect correction, as solve_tm (tpuqcd/solve.py:216).
+
+    b_pk: packed doublet [2(fl), 2(par), 2(ri), 4, 3, T, Z, S]; t_boundary
+    as in solve_tm (the sloppy reconstruct-12 hop restores it).
+    """
+    pc = PackedNdegTMOperatorPC(lat, kappa=kappa, mubar=mubar, epsbar=epsbar,
+                                t_boundary=t_boundary)
+    u_s = u_pk[:, :, :2].to(sloppy_dtype).contiguous()
+    u_hp = u_pk.to(torch.float64).contiguous()
+    b_hp = b_pk.to(torch.float64)
+    bhat = pc.prepare(u_hp, b_hp)
+    x_e, relres, iters, nref = _refined_solve(
+        pc, u_s, u_hp, bhat, sdt=sloppy_dtype, tol=tol, maxiter=maxiter,
+        inner_tol=inner_tol, solver="cg")
+    return SolveResult(x=pc.reconstruct(u_hp, x_e, b_hp), relres=relres, iters=iters,
+                       refinements=nref)
+
+
+def solve_tm_sharded(op, fields_s, fields_hp, b_pk: torch.Tensor, *, tol: float = 1e-10,
+                     maxiter: int = 5000, inner_tol: float = 1e-5,
+                     solver: str = "cg") -> SolveResult:
+    """Certified solve on a LatticeMesh (tpuqcd/solve.py:169): op a
+    parallel.sharded operator, fields_s and fields_hp its sloppy and
+    float64 operands (HaloGauge.to; the iteration runs in fields_s's
+    dtype), b_pk this rank's shard of the source
+    (two parities leading, or [2(fl), 2(par), ...] for the doublet).
+    Every rank calls it; x is this rank's shard, relres the global one."""
+    with reductions.over(op.lmesh):
+        b_hp = b_pk.to(torch.float64)
+        bhat = op.prepare(fields_hp, b_hp)
+        x_e, relres, iters, nref = _refined_solve(
+            op, fields_s, fields_hp, bhat, sdt=fields_s.u.dtype, tol=tol, maxiter=maxiter,
+            inner_tol=inner_tol, solver=solver)
+        return SolveResult(x=op.reconstruct(fields_hp, x_e, b_hp), relres=relres,
+                           iters=iters, refinements=nref)
+
+
+def solve_ndeg_tm_sharded(op, fields_s, fields_hp, b_pk: torch.Tensor, *,
+                          tol: float = 1e-10, maxiter: int = 5000,
+                          inner_tol: float = 1e-5) -> SolveResult:
+    """The doublet on a LatticeMesh: solve_tm_sharded with CG (Mhat_nd is
+    g5 tau1-Hermitian, not Hermitian); op a ShardedNdegTMOperatorPC."""
+    return solve_tm_sharded(op, fields_s, fields_hp, b_pk, tol=tol, maxiter=maxiter,
+                            inner_tol=inner_tol, solver="cg")
+
+
+def ndeg_full_relres(u_pk: torch.Tensor, b_pk: torch.Tensor, x_pk: torch.Tensor,
+                     lat: Lattice, *, kappa: float, mubar: float, epsbar: float) -> float:
+    """Float64 |b - M_nd x| / |b| of the two-parity doublet system, fields
+    [2(fl), 2(par), 2(ri), 4, 3, T, Z, S] and the 18-real gauge
+    (tpuqcd/cli/run_invert.py:221-246)."""
+    pc = PackedNdegTMOperatorPC(lat, kappa=kappa, mubar=mubar, epsbar=epsbar)
+    b64 = b_pk.to(torch.float64)
+    r = b64 - pc.apply_full(u_pk.to(torch.float64).contiguous(), x_pk.to(torch.float64))
+    return (norm2(r).item() / max(norm2(b64).item(), 1e-300)) ** 0.5
 
 
 def full_system_relres(u_pk: torch.Tensor, b_pk: torch.Tensor, x_pk: torch.Tensor,

@@ -3,10 +3,43 @@
 Counterpart of ``tpuqcd/solvers/reductions.py``.  The H100 has native
 f64, so the sums simply run in float64; results are 0-d float64
 tensors on the field's device (no host sync until a caller asks).
+
+On a LatticeMesh the fields are local shards: inside ``over(lmesh)``
+every reduction all-reduces its float64 partial sum over the ranks (the
+psum XLA inserts on tpuqcd's sharded arrays, tpuqcd/parallel/mesh.py:7-8),
+so the solvers run unchanged on shards:
+
+    with reductions.over(lmesh):
+        x, relres, k, nref = _refined_solve(op, ...)
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+import torch.distributed as dist
+
+#: the mesh whose ranks a reduction sums over (None: the field is whole)
+_MESH: contextvars.ContextVar = contextvars.ContextVar("tpuqcd_torch_reduce_mesh",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def over(lmesh):
+    """Reductions inside the block sum over the ranks of ``lmesh``."""
+    token = _MESH.set(lmesh)
+    try:
+        yield
+    finally:
+        _MESH.reset(token)
+
+
+def _summed(s: torch.Tensor) -> torch.Tensor:
+    lmesh = _MESH.get()
+    if lmesh is not None and lmesh.size > 1:
+        dist.all_reduce(s)
+    return s
 
 
 def _f64(x: torch.Tensor) -> torch.Tensor:
@@ -18,18 +51,20 @@ def norm2(x: torch.Tensor) -> torch.Tensor:
     if x.is_complex():
         return norm2(torch.view_as_real(x))
     v = _f64(x)
-    return torch.dot(v, v)
+    return _summed(torch.dot(v, v))
 
 
 def redot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Re <x, y> = Re sum conj(x) y as a float64 0-d tensor."""
     if x.is_complex():
         return redot(torch.view_as_real(x), torch.view_as_real(y))
-    return torch.dot(_f64(x), _f64(y))
+    return _summed(torch.dot(_f64(x), _f64(y)))
 
 
 def cdot(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """<x, y> = sum conj(x) y of complex fields as a (re, im) float64 pair."""
     xr, xi = _f64(x.real), _f64(x.imag)
     yr, yi = _f64(y.real), _f64(y.imag)
-    return torch.dot(xr, yr) + torch.dot(xi, yi), torch.dot(xr, yi) - torch.dot(xi, yr)
+    s = _summed(torch.stack([torch.dot(xr, yr) + torch.dot(xi, yi),
+                             torch.dot(xr, yi) - torch.dot(xi, yr)]))
+    return s[0], s[1]

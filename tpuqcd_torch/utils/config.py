@@ -2,9 +2,10 @@
 ``examples/``.
 
 Counterpart of ``tpuqcd/utils/config.py`` for the parameter groups the
-port runs: gauge (random or heatbath), action, solver, mg (every key of
-tpuqcd's MGParamsCfg, with the named presets), and the switches of the
-parts not ported yet (mesh, ensembles), which
+port runs: gauge (random or heatbath), action (with the non-degenerate
+doublet's mubar and epsbar), solver, mg (every key of tpuqcd's
+MGParamsCfg, with the named presets), mesh, and the switches of the
+parts not ported yet (ensembles, mass sweeps), which
 ``cli/common.check_in_slice`` refuses.  Keys of other groups (physics)
 and of unported options are ignored, so every existing YAML loads.
 """
@@ -38,6 +39,9 @@ class ActionParams:
     kappa: float = 0.12
     mu: float = 0.05
     csw: float = 0.0
+    #: non-degenerate (heavy s/c) doublet: epsbar != 0 selects M_nd = 1 +
+    #: 2 i kappa mubar g5 tau3 + 2 kappa epsbar tau1 - kappa D
+    mubar: float = 0.0
     epsbar: float = 0.0
     mu_list: tuple = ()
 
@@ -52,6 +56,10 @@ class SolverParams:
     #: parsed so that tpuqcd's YAMLs load; the port's tensor device picks
     #: the kernel or the plain version
     backend: str = "pallas"              # pallas | xla
+    #: multi-device hop: "fused" (face exchange + halo-mode kernel) is the
+    #: port's one engine, and "auto" selects it; "overlap" (the
+    #: interior/exterior split) is not ported (check_in_slice)
+    comm_policy: str = "auto"            # auto | fused | overlap
 
 
 @dataclass(frozen=True)
@@ -127,6 +135,9 @@ def validate_config(cfg: RunConfig) -> None:
     if cfg.solver.backend not in ("pallas", "xla"):
         raise ConfigError(f"solver.backend must be pallas | xla, "
                           f"got {cfg.solver.backend!r}")
+    if cfg.solver.comm_policy not in ("auto", "fused", "overlap"):
+        raise ConfigError(f"solver.comm_policy must be auto | fused | overlap, "
+                          f"got {cfg.solver.comm_policy!r}")
     for fld in ("smoother_dtype", "coarse_dtype", "gcr_dtype", "vec_dtype"):
         v = getattr(cfg.mg, fld)
         if v not in ("float32", "bfloat16"):
@@ -151,6 +162,38 @@ def validate_config(cfg: RunConfig) -> None:
         raise ConfigError(f"solver.tol must be in (0, 1), got {cfg.solver.tol}")
     if cfg.solver.maxiter <= 0:
         raise ConfigError(f"solver.maxiter must be positive, got {cfg.solver.maxiter}")
+    a = cfg.action
+    if a.epsbar != 0.0:
+        t, e = 2.0 * a.kappa * a.mubar, 2.0 * a.kappa * a.epsbar
+        if 1.0 + t * t - e * e <= 0.0:
+            raise ConfigError(f"ndeg doublet needs 1 + (2 k mubar)^2 > (2 k epsbar)^2 for the "
+                              f"site-term inverse; got mubar={a.mubar}, epsbar={a.epsbar}")
+        if cfg.mg.enabled or cfg.solver.solver == "eigcg" or a.csw != 0.0:
+            raise ConfigError("the ndeg doublet path (action.epsbar != 0) supports the plain "
+                              "mixed-precision CG solver only (no mg/eigcg/csw yet)")
+    _validate_mesh(cfg.mesh, dims, cfg.solver.comm_policy)
+
+
+def _validate_mesh(mesh: MeshParams, dims, comm_policy: str) -> None:
+    """tpuqcd's mesh checks: every split extent divides and stays even
+    (the eo masks are per shard); ny > 1 needs the overlap engine."""
+    nt, nz, ny = mesh.nt, mesh.nz, mesh.ny
+    _, ly, lz, lt = dims
+    if nt < 1 or nz < 1 or ny < 1:
+        raise ConfigError(f"mesh.nt/nz/ny must be >= 1, got ({nt}, {nz}, {ny})")
+    if nt * nz * ny == 1:
+        return
+    if lt % nt or (lt // nt) % 2:
+        raise ConfigError(f"mesh.nt = {nt} must divide Lt = {lt} with an even local extent "
+                          f"(eo parity masks are per-shard)")
+    if lz % nz or (nz > 1 and (lz // nz) % 2):
+        raise ConfigError(f"mesh.nz = {nz} must divide Lz = {lz} with an even local extent")
+    if ly % ny or (ny > 1 and (ly // ny) % 2):
+        raise ConfigError(f"mesh.ny = {ny} must divide Ly = {ly} with an even local extent")
+    if ny > 1 and comm_policy == "fused":
+        raise ConfigError("mesh.ny > 1 needs the interior/exterior overlap engine: set "
+                          "solver.comm_policy to overlap or auto (there is no fused halo_y "
+                          "kernel mode)")
 
 
 def _validate_mg(mg: MGParamsCfg, dims) -> None:

@@ -34,14 +34,16 @@ def packed_from_numpy(arr: np.ndarray, lat: Lattice, device=None) -> torch.Tenso
     ``device`` of the same dtype (float32, float64, or bfloat16 as numpy
     carries it for jax).  Layouts:
 
-        spinor       [2, 4, 3, T, Z, S]
-        full system  [2, 2, 4, 3, T, Z, S]
-        gauge        [4, 2, 3, 3, 2, T, Z, S] or reconstruct-12 [4, 2, 2, 3, 2, T, Z, S]
+        spinor          [2, 4, 3, T, Z, S]
+        full system     [2, 2, 4, 3, T, Z, S] (also a one-parity doublet
+                        [2(fl), 2(ri), 4, 3, T, Z, S])
+        doublet system  [2(fl), 2(par), 2, 4, 3, T, Z, S]
+        gauge           [4, 2, 3, 3, 2, T, Z, S] or reconstruct-12 [4, 2, 2, 3, 2, T, Z, S]
     """
     arr = np.asarray(arr)
     sites = lat.site_shape
-    layouts = [(2, 4, 3, *sites), (2, 2, 4, 3, *sites), (4, 2, 3, 3, 2, *sites),
-               (4, 2, 2, 3, 2, *sites)]
+    layouts = [(2, 4, 3, *sites), (2, 2, 4, 3, *sites), (2, 2, 2, 4, 3, *sites),
+               (4, 2, 3, 3, 2, *sites), (4, 2, 2, 3, 2, *sites)]
     if arr.shape not in layouts:
         raise ValueError(f"shape {arr.shape} is not a packed layout of {lat.dims}: "
                          f"{layouts}")
