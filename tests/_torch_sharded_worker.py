@@ -10,12 +10,10 @@ gathers each result and writes them to --out:
     tm_<prec>_<method>, ndeg_<prec>_<method>   prec f32 (reconstruct-12
         float32 operator) or f64; method apply, apply_dagger, prepare,
         reconstruct
-    tm_f64_apply_full_faces                     apply with halo_half=False
     solve_x, solve_relres, solve_iters          solve_ndeg_tm_sharded to 1e-12
     faces_err                                   max |exchange_faces - cut_halo|
 """
 import argparse
-import dataclasses
 
 import numpy as np
 import torch
@@ -62,11 +60,6 @@ def main():
             keep(f"{name}_{prec}_apply_dagger", op.apply_dagger(fl, x))
             keep(f"{name}_{prec}_prepare", op.prepare(fl, b))
             keep(f"{name}_{prec}_reconstruct", op.reconstruct(fl, x, b))
-    # full-spinor faces (halo_half=False) give the same operator
-    tm_full = dataclasses.replace(tm, halo_half=False)
-    keep("tm_f64_apply_full_faces",
-         tm_full.apply(fields["f64"], local_shard(torch.from_numpy(inp["psi"]), lmesh)))
-
     bd = local_shard(torch.from_numpy(inp["bd"]), lmesh)
     res = solve_ndeg_tm_sharded(nd, fields["f32"], fields["f64"], bd, tol=1e-12)
     keep("solve_x", res.x)

@@ -183,8 +183,6 @@ def test_sharded_operator_matches_tpuqcd(ranks, op_name, prec, method):
     out, inp = ranks
     got = out[f"{op_name}_{prec}_{method}"]
     np.testing.assert_allclose(got, _reference(op_name, method, inp), atol=TOL[prec], rtol=0)
-    if (op_name, prec, method) == ("tm", "f64", "apply"):     # full-spinor faces
-        np.testing.assert_allclose(out["tm_f64_apply_full_faces"], got, atol=1e-14, rtol=0)
 
 
 def test_sharded_ndeg_solve(ranks):

@@ -9,14 +9,16 @@ and launches the Dslash kernel in halo mode (ops/dslash_cuda, K6), which
 reads them where a leg steps past the local edge.  The gauge faces are
 exchanged once per gauge (extend_gauge).
 
-Faces travel as half-spinors (halo_half=True, tpuqcd's default): only
+Faces travel as half-spinors (tpuqcd's default): only
 (1 -+ gamma_mu) psi enters a leg and the projector has rank 2, so a face
 site is 12 reals instead of 24, projected with the tables the launch
 uses (swapped under dagger).  The kernel takes the projected spins as
 they are, so the hop equals the one on full faces: the projection is
 exact in float32 and float64.  bfloat16 faces travel as full spinors: a
 projected bfloat16 face would need one more rounding, and its 24 bf16
-reals are the 48 B a float32 half-spinor would take.
+reals are the 48 B a float32 half-spinor would take.  The operators always
+ship half-spinor faces; exchange_faces and cut_halo take ``half=False``
+for the tests of the kernel's full-face mode.
 
 Not ported yet (ROADMAP Queue 1 item 13): the interior/exterior overlap
 engine (parallel/overlap.py), a y-sharded mesh, ShardedTMCloverOperatorPC.
@@ -173,10 +175,10 @@ def _check_mesh(lmesh: LatticeMesh | None):
 
 
 def sharded_hop(lmesh: LatticeMesh, ug: HaloGauge, psi: torch.Tensor, parity: int,
-                dagger: bool = False, half: bool = True, **kw) -> torch.Tensor:
-    """One face exchange and one halo-mode launch on a shard; ``kw`` are
-    dslash_eo's epilogue arguments."""
-    t_m, t_p, z_m, z_p = exchange_faces(lmesh, psi, dagger, half)
+                dagger: bool = False, **kw) -> torch.Tensor:
+    """One face exchange (half-spinor faces) and one halo-mode launch on a
+    shard; ``kw`` are dslash_eo's epilogue arguments."""
+    t_m, t_p, z_m, z_p = exchange_faces(lmesh, psi, dagger)
     halo = Halo(t_m, t_p, z_m, z_p, ug.u_t[parity], ug.u_z[parity], lmesh.t_offset,
                 lmesh.lat.Lt)
     return dslash_eo(ug.u, psi, parity, lmesh.local_lat, dagger=dagger, halo=halo, **kw)
@@ -190,7 +192,6 @@ class ShardedTMOperatorPC(PackedTMOperatorPC):
     a HaloGauge (extend_gauge); the same class serves the sloppy operator
     (reconstruct-12 rows, float32) and the float64 certification one."""
     lmesh: LatticeMesh | None = None
-    halo_half: bool = True
 
     def __post_init__(self):
         _check_mesh(self.lmesh)
@@ -200,8 +201,8 @@ class ShardedTMOperatorPC(PackedTMOperatorPC):
 
     def _hop(self, u, psi, parity, dagger=False, epilogue="none", flavor=None, psi0=None,
              xpay_scale=None):
-        return sharded_hop(self.lmesh, u, psi, parity, dagger, self.halo_half,
-                           epilogue=epilogue, kappa=self.kappa, mu=self.mu,
+        return sharded_hop(self.lmesh, u, psi, parity, dagger, epilogue=epilogue,
+                           kappa=self.kappa, mu=self.mu,
                            flavor=self.flavor if flavor is None else flavor, psi0=psi0,
                            t_boundary=self.t_boundary, xpay_scale=xpay_scale)
 
@@ -212,7 +213,6 @@ class ShardedNdegTMOperatorPC(PackedNdegTMOperatorPC):
     flavor-diagonal hop goes through sharded_hop, one launch per flavor;
     the flavor-mixing site terms are site-local and need no exchange."""
     lmesh: LatticeMesh | None = None
-    halo_half: bool = True
 
     def __post_init__(self):
         _check_mesh(self.lmesh)
@@ -221,5 +221,5 @@ class ShardedNdegTMOperatorPC(PackedNdegTMOperatorPC):
         return extend_gauge(self.lmesh, u_loc)
 
     def _hop(self, u, chi, parity, dagger):
-        return torch.stack([sharded_hop(self.lmesh, u, chi[f], parity, dagger, self.halo_half,
+        return torch.stack([sharded_hop(self.lmesh, u, chi[f], parity, dagger,
                                         t_boundary=self.t_boundary) for f in (0, 1)])

@@ -20,10 +20,10 @@ full_system_relres applies.
 
 The non-degenerate doublet (solve_ndeg_tm, b and x [2(fl), 2(par), 2(ri),
 4, 3, T, Z, S]) runs the same loop with CG.  On a LatticeMesh,
-solve_tm_sharded and solve_ndeg_tm_sharded run it on the local shards
-with every reduction summed over the ranks; the same sharded operator
-certifies in float64 (tpuqcd needs an XLA twin there, its kernel being
-float32 only).
+solve_ndeg_tm_sharded runs it on the local shards with every reduction
+summed over the ranks; the same sharded operator certifies in float64
+(tpuqcd needs an XLA twin there, its kernel being float32 only).  The
+sharded twisted-mass solve comes with make_solver's mesh branch.
 """
 from __future__ import annotations
 
@@ -86,6 +86,19 @@ def _refined_solve(pc, u_s, u_hp, bhat, *, sdt, tol, maxiter, inner_tol, solver,
     return x, (rsq / max(bsq, 1e-300)) ** 0.5, k, nref
 
 
+def _certified(pc, u_s, u_hp, b_pk, *, sdt, tol, maxiter, inner_tol, solver,
+               x0=None) -> SolveResult:
+    """The certified two-parity solve on pc: prepare in float64, the
+    defect correction on the even-odd system, reconstruct in float64."""
+    b_hp = b_pk.to(torch.float64)
+    bhat = pc.prepare(u_hp, b_hp)
+    x_e, relres, iters, nref = _refined_solve(
+        pc, u_s, u_hp, bhat, sdt=sdt, tol=tol, maxiter=maxiter, inner_tol=inner_tol,
+        solver=solver, x0=x0)
+    return SolveResult(x=pc.reconstruct(u_hp, x_e, b_hp), relres=relres, iters=iters,
+                       refinements=nref)
+
+
 def clover_pk_from_gauge(u_pk: torch.Tensor, lat: Lattice, *, kappa: float,
                          csw: float) -> torch.Tensor:
     """The packed A blocks of both parities, [2(par), 2(ri), 2(chir), 6, 6,
@@ -144,13 +157,8 @@ def solve_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: flo
     else:
         pc = PackedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor,
                                 t_boundary=t_boundary)
-    b_hp = b_pk.to(torch.float64)
-    bhat = pc.prepare(u_hp, b_hp)
-    x_e, relres, iters, nref = _refined_solve(
-        pc, u_s, u_hp, bhat, sdt=sloppy_dtype, tol=tol, maxiter=maxiter,
-        inner_tol=inner_tol, solver=solver, x0=x0_e)
-    return SolveResult(x=pc.reconstruct(u_hp, x_e, b_hp), relres=relres, iters=iters,
-                       refinements=nref)
+    return _certified(pc, u_s, u_hp, b_pk, sdt=sloppy_dtype, tol=tol, maxiter=maxiter,
+                      inner_tol=inner_tol, solver=solver, x0=x0_e)
 
 
 def solve_ndeg_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: float,
@@ -167,42 +175,22 @@ def solve_ndeg_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa
     pc = PackedNdegTMOperatorPC(lat, kappa=kappa, mubar=mubar, epsbar=epsbar,
                                 t_boundary=t_boundary)
     u_s = u_pk[:, :, :2].to(sloppy_dtype).contiguous()
-    u_hp = u_pk.to(torch.float64).contiguous()
-    b_hp = b_pk.to(torch.float64)
-    bhat = pc.prepare(u_hp, b_hp)
-    x_e, relres, iters, nref = _refined_solve(
-        pc, u_s, u_hp, bhat, sdt=sloppy_dtype, tol=tol, maxiter=maxiter,
-        inner_tol=inner_tol, solver="cg")
-    return SolveResult(x=pc.reconstruct(u_hp, x_e, b_hp), relres=relres, iters=iters,
-                       refinements=nref)
-
-
-def solve_tm_sharded(op, fields_s, fields_hp, b_pk: torch.Tensor, *, tol: float = 1e-10,
-                     maxiter: int = 5000, inner_tol: float = 1e-5,
-                     solver: str = "cg") -> SolveResult:
-    """Certified solve on a LatticeMesh (tpuqcd/solve.py:169): op a
-    parallel.sharded operator, fields_s and fields_hp its sloppy and
-    float64 operands (HaloGauge.to; the iteration runs in fields_s's
-    dtype), b_pk this rank's shard of the source
-    (two parities leading, or [2(fl), 2(par), ...] for the doublet).
-    Every rank calls it; x is this rank's shard, relres the global one."""
-    with reductions.over(op.lmesh):
-        b_hp = b_pk.to(torch.float64)
-        bhat = op.prepare(fields_hp, b_hp)
-        x_e, relres, iters, nref = _refined_solve(
-            op, fields_s, fields_hp, bhat, sdt=fields_s.u.dtype, tol=tol, maxiter=maxiter,
-            inner_tol=inner_tol, solver=solver)
-        return SolveResult(x=op.reconstruct(fields_hp, x_e, b_hp), relres=relres,
-                           iters=iters, refinements=nref)
+    return _certified(pc, u_s, u_pk.to(torch.float64).contiguous(), b_pk, sdt=sloppy_dtype,
+                      tol=tol, maxiter=maxiter, inner_tol=inner_tol, solver="cg")
 
 
 def solve_ndeg_tm_sharded(op, fields_s, fields_hp, b_pk: torch.Tensor, *,
                           tol: float = 1e-10, maxiter: int = 5000,
                           inner_tol: float = 1e-5) -> SolveResult:
-    """The doublet on a LatticeMesh: solve_tm_sharded with CG (Mhat_nd is
-    g5 tau1-Hermitian, not Hermitian); op a ShardedNdegTMOperatorPC."""
-    return solve_tm_sharded(op, fields_s, fields_hp, b_pk, tol=tol, maxiter=maxiter,
-                            inner_tol=inner_tol, solver="cg")
+    """The doublet on a LatticeMesh (tpuqcd/solve.py:169-213), by CG
+    (Mhat_nd is g5 tau1-Hermitian, not Hermitian): op a
+    ShardedNdegTMOperatorPC, fields_s and fields_hp its sloppy and float64
+    operands (HaloGauge.to; the iteration runs in fields_s's dtype), b_pk
+    this rank's shard of the doublet [2(fl), 2(par), ...].  Every rank
+    calls it; x is this rank's shard, relres the global one."""
+    with reductions.over(op.lmesh):
+        return _certified(op, fields_s, fields_hp, b_pk, sdt=fields_s.u.dtype, tol=tol,
+                          maxiter=maxiter, inner_tol=inner_tol, solver="cg")
 
 
 def ndeg_full_relres(u_pk: torch.Tensor, b_pk: torch.Tensor, x_pk: torch.Tensor,
