@@ -6,8 +6,9 @@ Phases, each of which exits non-zero on failure:
 
 1. the card: its name and power limit from nvidia-smi, and
    torch.cuda.get_device_name;
-2. the build of tpuqcd_torch/csrc/dslash_eo.cu with nvcc for sm_90a, and
-   its seconds;
+2. the build of tpuqcd_torch/csrc/ with nvcc for sm_90a (dslash_eo_inst.cu
+   once per storage type, arithmetic type and link format, side by side,
+   linked with dslash_eo.cu), its seconds, ptxas' registers and spills;
 3. the Dslash kernel against its plain PyTorch version on the card, at
    8^3x16 and 32^3x64, in every mode the solves run (epilogues none,
    twist_inv, xpay and xpay with the kappa scale; both source parities;
@@ -26,7 +27,17 @@ Phases, each of which exits non-zero on failure:
    with its own t_offset (epilogues none, twist_inv, xpay; both parities;
    dagger off and on; half-spinor and full faces; float64 and float32
    18-real, float32 and bfloat16 reconstruct-12 links), against the plain
-   version and, stitched, against the unsharded kernel;
+   version and, stitched, against the unsharded kernel; then the batch
+   axis (N = 1, 3 and 12 right-hand sides in one launch: equal bit for
+   bit to N single launches, within the limits of the plain version;
+   every epilogue with clover, both parities, dagger, each storage type,
+   and into the parity views of a batched MG field), reconstruct-8 (K5:
+   every summed epilogue, both parities, dagger, antiperiodic and
+   periodic t, each storage type, batched, in halo mode on the (2, 2)
+   shards, and against the 18-real kernel on the same links) and
+   compute="bf16" (none, twist_inv, xpay, clover:
+   against its plain version and against float32 arithmetic, 5% of the
+   largest value);
 4. the main paths, each with the kernel's launch counts set to 0 just
    before it and read just after, the certified residual, and an
    independent float64 residual of the solution through the plain
@@ -55,11 +66,31 @@ Phases, each of which exits non-zero on failure:
    g. with more than one card only: torchrun of run_invert's doublet path
       on a mesh nt = 2 or 4 over NCCL, its x held against 4e's (with one
       card it says so and is no pass);
+   h. tpuqcd_torch.cli.run_twop.measure at 32^3x64 on 4b's heatbath gauge,
+      direct branch: kappa 0.150, mu 0.005, CG, float32 sloppy, rhs_batch
+      12, tol 1e-10, the physics block of examples/twop_mg_24cube.yaml (APE
+      0.5 x 5, Gauss 4.0 x 20, source at the origin, momenta (0,0,0) and
+      (1,0,0), P+, pion): all 24 columns certified by the solver, one
+      column per solver call also by the plain float64 operator, the
+      correlators finite, the pion at p = 0 real and positive, the neutron
+      the proton with the propagators swapped; where h5py imports, the
+      file is written and read back;
+   i. four point-source columns through solve_tm_mg_batch on 4b's
+      hierarchy (lockstep GCR), each certified, one held to the plain
+      float64 operator, beside the seconds of the same four one by one;
+   j. the modes no program of tpuqcd or of the port calls, each through a
+      function a user would call: 4a's system by solve_tm with
+      sloppy_links=8 (K5 as the sloppy operator), and the MG smoother (4
+      MR steps on 4b's gauge) on a bfloat16 fine level with
+      compute="bf16", beside float32 arithmetic;
 5. times at 32^3x64: the kernel per launch for each epilogue and storage
    type the solves use and for the legs_out and dirs modes, and halo mode
    on the one-rank mesh and at the (2, 2) shard size beside the plain hop
    on the same volume, beside the plain version, with GFLOP/s, effective
-   GB/s and the bound (compulsory bytes at 3.35 TB/s).
+   GB/s and the bound (compulsory bytes at 3.35 TB/s); the batched launch
+   at N = 1, 2, 4, 12; reconstruct-8 beside reconstruct-12 and 18-real;
+   compute="bf16" beside float32 arithmetic; the lockstep CG step at N =
+   1, 2, 4, 12.
 
 The line before the last is the JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -106,6 +137,17 @@ HALO_STORAGE = STORAGE[:1] + (("f32_18", torch.float32, 3, 1e-5),) + STORAGE[1:]
 #: max |x(4f) - x(4e)| / max |x(4e)|: the same system, certified to 1e-10
 #: by two solves whose sloppy operators differ only in summation order
 X_AGREE = 1e-8
+#: cell 4h: a light quark on the beta = 6.0 heatbath gauge, away from kappa_c
+TWOP_KAPPA, TWOP_MU = 0.150, 0.005
+#: compute="bf16" against float32 arithmetic and its plain version: 5% of
+#: the largest value (tpuqcd/tests/test_dslash_pallas.py:269)
+BF16C_TOL = 0.05
+#: reconstruct-8, (against the plain version, against the 18-real kernel on
+#: the rebuilt links): the plain version rebuilds from the same stored
+#: reals, so STORAGE's limits hold but for float64 (1e-12: sincos and two
+#: square roots a link); the 18-real copy of a bfloat16 link rounds once
+#: more (measured at 32^3x64: 4.7e-3 and 5.3e-3; at 8^3x16 6.8e-3)
+RECON8_TOL = {"f64": (1e-12, 1e-12), "f32": (1e-5, 1e-5), "bf16": (1e-2, 2e-2)}
 FLOP_PER_SITE = 1320
 CLOVER_FLOP_PER_SITE = 552   # two 6x6 complex mat-vecs
 RELRES_MAX = 1e-10
@@ -113,6 +155,14 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet, at the 700 W limit
 #: peak rates outside the tensor cores (H100 SXM data sheet): bfloat16
 #: storage computes in float32
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12, torch.bfloat16: 67e12}
+
+
+T0 = time.perf_counter()
+
+
+def say(msg: str) -> None:
+    """A phase heading, with the seconds since the script started."""
+    print(f"{msg} [at {time.perf_counter() - T0:.0f} s]", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -242,21 +292,27 @@ def clover_blocks_of(u_pk, lat, kappa, csw) -> torch.Tensor:
     return clover_pk_from_gauge(u_pk, lat, kappa=kappa, csw=csw)
 
 
+def clover_operands(u64, lat, dtype=torch.float64) -> dict:
+    """The clover operands of the kernel compares, by epilogue and parity:
+    A at csw 1.2 from the float64 gauge (clover_xpay) and its twisted
+    inverse (clover_inv), packed [2(par), 2(ri), 2(chir), 6, 6, T, Z, S]."""
+    from tpuqcd_torch.ops.clover import clover_twist_inverse
+    from tpuqcd_torch.utils.packed import pack_clover
+    a_pk = clover_blocks_of(u64, lat, CL_KAPPA, CL_CSW)
+    a = torch.complex(a_pk[:, 0], a_pk[:, 1])
+    return {"clover_xpay": a_pk.to(dtype),
+            "clover_inv": torch.stack([pack_clover(clover_twist_inverse(
+                a, CL_KAPPA, CL_MU, 1, par), dtype) for par in (0, 1)])}
+
+
 def compare_clover(dims, dev) -> dict:
     """The clover epilogues (K3) against the plain version, with A built
     from the random gauge at csw 1.2 (clover_xpay) and its twisted inverse
     (clover_inv) at the output parity; returns {(storage, epilogue): max
     abs err}."""
-    from tpuqcd_torch.ops.clover import clover_twist_inverse
     from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
-    from tpuqcd_torch.utils.packed import pack_clover
     lat, gauges, psi64, psi064 = problem(dims, dev, seed=5)
-    a_pk = clover_blocks_of(gauges["f64"], lat, CL_KAPPA, CL_CSW)
-    a = torch.complex(a_pk[:, 0], a_pk[:, 1])
-    blocks = {"clover_xpay": a_pk.double(),
-              "clover_inv": torch.stack([pack_clover(clover_twist_inverse(
-                  a, CL_KAPPA, CL_MU, 1, par), torch.float64) for par in (0, 1)])}
-    del a
+    blocks = clover_operands(gauges["f64"], lat)
     max_abs = {}
     for name, dt, _, tol in STORAGE:
         u, psi, psi0 = gauges[name], psi64.to(dt), psi064.to(dt)
@@ -386,6 +442,212 @@ def compare_halo(dims, dev) -> dict:
                 if not ok:
                     fail(f"halo mode disagrees: {dims} {name} {mode} grid {grid}")
     return max_abs
+
+
+def _agree(k, p, what, tol, bitwise=False) -> tuple[float, float]:
+    """(max abs err, max abs err / max|p|) of k against p; fails on a
+    non-finite k, on more than tol, or (bitwise) on any difference."""
+    k, p = k.double(), p.double()
+    torch.cuda.synchronize()
+    if not torch.isfinite(k).all():
+        fail(f"{what}: non-finite kernel output")
+    err = (k - p).abs().max().item()
+    rel = err / p.abs().max().item()
+    if (bitwise and err != 0.0) or rel > tol:
+        fail(f"{what}: max rel err {rel:.3e} (limit {'bit for bit' if bitwise else tol})")
+    return err, rel
+
+
+def compare_batch(dims, dev) -> dict:
+    """The batch axis: N = 1, 3 and 12 right-hand sides in one launch
+    against N single launches (bit for bit) and against the plain version
+    on the batch, every epilogue with the clover ones, both parities,
+    dagger off and on, each storage type; psi, psi0 and out the parity
+    views of a batched MG field [N, 2(ri), 2(par), ...]; returns
+    {storage: max abs err against the plain version}."""
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    lat, gauges, _, _ = problem(dims, dev, seed=8)
+    blocks = clover_operands(gauges["f64"], lat)
+    gen = torch.Generator().manual_seed(18)
+    max_abs = {}
+    # the whole matrix at the small size; at full size 12 columns, with
+    # dagger on at source parity 1 only
+    full = dims == SMALL
+    for name, dt, _, tol in STORAGE:
+        u = gauges[name]
+        max_abs[name] = 0.0
+        worst = 0.0
+        for n in (1, 3, 12) if full else (12,):
+            field = torch.randn((n, 2, 2, 4, 3, *lat.site_shape), generator=gen,
+                                dtype=torch.float64).to(dev).to(dt)
+            field0 = field.flip(0).roll(1, 2)
+            for parity in (0, 1):
+                psi, psi0 = field[:, :, parity], field0[:, :, 1 - parity]
+                for dagger in (False, True) if full else (parity == 1,):
+                    for mode, epi, scale in MODES + CLOVER_MODES[:2]:
+                        cl = (blocks[epi][1 - parity].to(dt).contiguous()
+                              if epi in blocks else None)
+                        kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU,
+                                  xpay_scale=scale, clover=cl)
+                        need0 = epi.endswith("xpay")
+                        what = f"{dims} {name} batch N={n} {mode} p{parity} dagger={dagger}"
+                        out = torch.zeros_like(field)
+                        k = dslash_eo(u, psi, parity, lat, psi0=psi0 if need0 else None,
+                                      out=out[:, :, 1 - parity], **kw)
+                        for i in range(n):
+                            single = dslash_eo(u, psi[i], parity, lat,
+                                               psi0=psi0[i] if need0 else None, **kw)
+                            _agree(k[i], single, what + " against single launches", 0.0,
+                                   bitwise=True)
+                        del single
+                        # the plain version on the whole batch, or at full
+                        # size on 3 columns at a time (its temporaries are
+                        # some twenty fields a column)
+                        err = rel = 0.0
+                        for lo in range(0, n, n if full else 3):
+                            cols = slice(lo, lo + (n if full else 3))
+                            p = dslash_eo_plain(u, psi[cols], parity, lat,
+                                                psi0=psi0[cols] if need0 else None, **kw)
+                            e, r = _agree(k[cols], p, what + " against plain", tol)
+                            err, rel = max(err, e), max(rel, r)
+                            del p
+                        if out[:, :, parity].abs().max().item() != 0.0:
+                            fail(what + ": wrote outside its parity view")
+                        del out, k
+                        max_abs[name], worst = max(max_abs[name], err), max(worst, rel)
+        print(f"  {'x'.join(map(str, dims))} {name:4s} batch N={'1,3,12' if full else '12'}, 6 "
+              f"epilogues, parities, {'daggers' if full else 'dagger at parity 1'}: equal to "
+              f"single launches bit for bit; max rel err against plain "
+              f"{worst:.3e} (tol {tol:.0e}) ok")
+    return max_abs
+
+
+def gauges8(gauges) -> dict:
+    """The reconstruct-8 copies of problem()'s float64 18-real gauge, by
+    storage name."""
+    from tpuqcd_torch.utils.packed import pack_gauge8, unpack_gauge
+    uc = unpack_gauge(gauges["f64"])
+    return {name: pack_gauge8(uc, dt) for name, dt, _, _ in STORAGE}
+
+
+def compare_recon8(dims, dev) -> dict:
+    """Reconstruct-8 (K5) against the plain version and against the
+    18-real kernel on the same links (the rebuilt link of the stored 8
+    reals, utils.packed.unpack_gauge8 with the boundary phase put back):
+    every summed epilogue, both parities, dagger off and on, antiperiodic
+    and periodic t, each storage type, also a batch of 3, and in halo mode
+    on an emulated (2, 2) decomposition (the boundary phase by each shard's
+    t_offset; against the plain version and, stitched, bit for bit against
+    the unsharded reconstruct-8 kernel); returns {storage: max abs err
+    against the plain version}."""
+    from tpuqcd_torch import su3
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.parallel.sharded import cut_halo
+    from tpuqcd_torch.utils.convert import gauge_from_full
+    from tpuqcd_torch.utils.packed import pack_gauge, pack_gauge8, unpack_gauge, unpack_gauge8
+    lat = Lattice(dims)
+    shards = [LatticeMesh(lat, 2, 2, 1, r) for r in range(4)]
+    gen = torch.Generator().manual_seed(9)
+    u_full = su3.random_gauge(lat, gen, dev, torch.complex128)
+    shape = (3, 2, 4, 3, *lat.site_shape)
+    psi64 = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
+    psi064 = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
+    max_abs = {}
+    for name, dt, _, _ in STORAGE:
+        tol, tol18 = RECON8_TOL[name]
+        max_abs[name] = 0.0
+        worst, worst18 = 0.0, 0.0
+        for tb in (-1, 1):
+            u64 = gauge_from_full(u_full, lat, tb == -1, torch.float64, dev)
+            u8 = pack_gauge8(unpack_gauge(u64), dt)
+            # the links the 8 stored reals stand for, as an 18-real gauge
+            u18 = unpack_gauge8(u8)
+            if tb == -1:
+                u18[3, :, 2, :, lat.Lt - 1] *= -1
+            u18 = pack_gauge(u18, dt).contiguous()
+            psi, psi0 = psi64.to(dt), psi064.to(dt)
+            for mode, epi, scale in MODES:
+                for parity in (0, 1):
+                    # every pairing at the small size; at full size dagger
+                    # on at source parity 1 only
+                    for dagger in (False, True) if dims == SMALL else (parity == 1,):
+                        kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU,
+                                  xpay_scale=scale, t_boundary=tb)
+                        p0 = psi0 if epi == "xpay" else None
+                        what = f"{dims} {name} recon-8 {mode} p{parity} dagger={dagger} tb={tb}"
+                        k = dslash_eo(u8, psi, parity, lat, psi0=p0, **kw)
+                        p = dslash_eo_plain(u8, psi, parity, lat, psi0=p0, **kw)
+                        err, rel = _agree(k, p, what + " against plain", tol)
+                        k18 = dslash_eo(u18, psi, parity, lat, psi0=p0, **kw)
+                        _, rel18 = _agree(k, k18, what + " against the 18-real kernel", tol18)
+                        k1 = dslash_eo(u8, psi[1], parity, lat,
+                                       psi0=None if p0 is None else p0[1], **kw)
+                        _agree(k[1], k1, what + " batch against a single launch", 0.0, True)
+                        max_abs[name] = max(max_abs[name], err)
+                        worst, worst18 = max(worst, rel), max(worst18, rel18)
+            for parity in (0, 1):
+                whole = dslash_eo(u8, psi[0], parity, lat, t_boundary=tb)
+                for m in shards:
+                    what = f"{dims} {name} recon-8 halo p{parity} tb={tb} shard {m.coords}"
+                    ul, pl, halo = cut_halo(m, u8, psi[0], parity)
+                    k = dslash_eo(ul, pl, parity, m.local_lat, halo=halo, t_boundary=tb)
+                    p = dslash_eo_plain(ul, pl, parity, m.local_lat, halo=halo, t_boundary=tb)
+                    err, rel = _agree(k, p, what + " against plain", tol)
+                    _agree(k, m.shard(whole), what + " against the unsharded kernel", 0.0, True)
+                    max_abs[name], worst = max(max_abs[name], err), max(worst, rel)
+        print(f"  {'x'.join(map(str, dims))} {name:4s} recon-8, 4 epilogues, parities, daggers, "
+              f"t_boundary -1 and +1, batch of 3, (2, 2) halo shards: max rel err {worst:.3e} "
+              f"against plain, "
+              f"{worst18:.3e} against the 18-real kernel on the same links (tol {tol:.0e}, "
+              f"{tol18:.0e}) ok")
+    return max_abs
+
+
+def compare_bf16c(dims, dev) -> float:
+    """compute="bf16" against its plain version and against the kernel's
+    float32 arithmetic on the same bfloat16 operands, 5% of max|ref|:
+    none, twist_inv, xpay and the clover epilogues, both parities, dagger,
+    single and a batch of 3; returns the max abs err against plain."""
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    lat, gauges, _, _ = problem(dims, dev, seed=10)
+    blocks = clover_operands(gauges["f64"], lat, torch.float32)
+    gen = torch.Generator().manual_seed(20)
+    shape = (3, 2, 4, 3, *lat.site_shape)
+    psi = torch.randn(shape, generator=gen).to(dev).bfloat16()
+    psi0 = torch.randn(shape, generator=gen).to(dev).bfloat16()
+    u = gauges["bf16"]
+    max_abs = 0.0
+    for mode, epi, scale in MODES[:3] + CLOVER_MODES[:2]:
+        worst_p, worst_f = 0.0, 0.0
+        for parity in (0, 1):
+            cl = blocks[epi][1 - parity].bfloat16().contiguous() if epi in blocks else None
+            for dagger in (False, True) if dims == SMALL else (parity == 1,):
+                kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU, clover=cl,
+                          psi0=psi0 if epi.endswith("xpay") else None)
+                what = f"{dims} compute=bf16 {mode} p{parity} dagger={dagger}"
+                k = dslash_eo(u, psi, parity, lat, compute="bf16", **kw)
+                p = dslash_eo_plain(u, psi, parity, lat, compute="bf16", **kw)
+                f = dslash_eo(u, psi, parity, lat, **kw)
+                err, rel_p = _agree(k, p, what + " against plain", BF16C_TOL)
+                _, rel_f = _agree(k, f, what + " against float32 arithmetic", BF16C_TOL)
+                k1 = dslash_eo(u, psi[1], parity, lat, compute="bf16",
+                               **{**kw, "psi0": None if kw["psi0"] is None else psi0[1]})
+                _agree(k[1], k1, what + " batch against a single launch", 0.0, True)
+                max_abs, worst_p, worst_f = max(max_abs, err), max(worst_p, rel_p), max(worst_f, rel_f)
+        print(f"  {'x'.join(map(str, dims))} compute=bf16 {mode:11s} max rel err {worst_p:.3e} "
+              f"against plain, {worst_f:.3e} against float32 arithmetic (tol {BF16C_TOL}) ok")
+    for dt in (torch.float32, torch.float64):
+        refused = False
+        try:
+            dslash_eo(gauges["f32"].to(dt), psi[0].to(dt), 0, lat, compute="bf16")
+        except ValueError:
+            refused = True
+        if not refused:
+            fail(f"compute='bf16' with {dt} storage did not raise")
+    return max_abs
+
 
 
 def plain_full_relres(u64, b, x, lat, kappa=KAPPA, mu=MU, a64=None) -> float:
@@ -682,6 +944,240 @@ def mg_path(dev, gauge, clover: bool = False):
     return res, counts
 
 
+def twop_config(output: str):
+    from tpuqcd_torch.utils.config import config_from_dict
+    return config_from_dict({
+        "gauge": {"dims": list(LARGE), "heatbath_beta": MG_BETA,
+                  "heatbath_sweeps": MG_SWEEPS, "random_seed": 0},
+        "action": {"kappa": TWOP_KAPPA, "mu": TWOP_MU},
+        "solver": {"solver": "cg", "sloppy_dtype": "float32", "rhs_batch": 12,
+                   "tol": RELRES_MAX},
+        "physics": {"source_positions": [[0, 0, 0, 0]], "momenta": [[0, 0, 0], [1, 0, 0]],
+                    "smear_alpha_ape": 0.5, "smear_n_ape": 5, "smear_alpha_gauss": 4.0,
+                    "smear_n_gauss": 20, "projectors": ["P+"], "meson_channels": ["pion"],
+                    "output": output}})
+
+
+def twop_path(dev, gauge, have_h5py: bool):
+    """4h: run_twop.measure at 32^3x64 on the heatbath gauge, direct branch;
+    returns (result, counts)."""
+    from tpuqcd_torch.cli import run_twop
+    from tpuqcd_torch.gammas import PROJECTORS
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.ops import dslash_cuda
+    from tpuqcd_torch.phys.contract_dev import proton_2pt_dev
+    lat = Lattice(LARGE)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = twop_config(os.path.join(tmp, "twop.h5"))
+        torch.cuda.synchronize()
+        dslash_cuda.reset_counts()
+        res = run_twop.measure(cfg, dev, gauge, keep_fields=True)
+        torch.cuda.synchronize()
+        counts = dict(dslash_cuda.counts)
+        print(f"  launches during the run: {counts}")
+        if counts.get("plain", 0) != 0:
+            fail(f"the two-point path called the plain version {counts['plain']} times")
+        need_launches(counts, ("float32:batch", "float64:batch", "float32", "float64"))
+        print("  seconds by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items()))
+        # every column certified by the solver, one per call by the plain operator
+        tag = run_twop.source_tag((0, 0, 0, 0))
+        u64, b = res.u_pk.double(), res.fields[tag]["b"]
+        n_cols = 0
+        for rec in res.solves:
+            n_cols += rec["columns"]
+            worst = max(rec["relres"])
+            rel = plain_full_relres(u64, b[rec["first_column"]].double(), rec["x_first"], lat,
+                                    TWOP_KAPPA, TWOP_MU * rec["flavor"])
+            gate = (f", batch gate {'re-chunked' if rec['gate_rechunked'] else 'kept the batch'}"
+                    if "gate_rechunked" in rec else "")
+            print(f"  flavor {rec['flavor']:+d} columns {rec['first_column']}-"
+                  f"{rec['first_column'] + rec['columns'] - 1}: certified relres <= {worst:.3e}, "
+                  f"matvecs {min(rec['iters'])}-{max(rec['iters'])}; column "
+                  f"{rec['first_column']} plain-operator relres {rel:.3e}{gate}")
+            if not (worst <= RELRES_MAX and rel <= RELRES_MAX):
+                fail(f"a two-point column is not certified: solver {worst:.3e}, plain {rel:.3e}")
+        if n_cols != 24:
+            fail(f"{n_cols} columns solved, not 24")
+        # the correlators
+        T = LARGE[3]
+        for group, corr in res.correlators.items():
+            ok = corr.shape == (2, T) and bool(torch.isfinite(torch.from_numpy(corr)).all())
+            if not ok:
+                fail(f"{group}: shape {corr.shape} or non-finite values")
+        pion = res.correlators[f"twop/pion/{tag}"][0]
+        print(f"  pion p=0: C(0) {pion[0].real:.6e}, C(T/2) {pion[T // 2].real:.6e}, min Re "
+              f"{pion.real.min():.3e}, max |Im| / |Re| {abs(pion.imag / pion.real).max():.2e}")
+        if not (pion.real.min() > 0 and abs(pion.imag / pion.real).max() < 1e-6):
+            fail("the pion correlator at p = 0 is not real and positive on every timeslice")
+        f = res.fields[tag]
+        momenta, src = res.momenta, (0, 0, 0, 0)
+        for who, (a, c) in (("proton", (f["u"], f["d"])), ("neutron", (f["d"], f["u"]))):
+            again = proton_2pt_dev(a, c, lat, momenta, src_pos=src,
+                                   proj=PROJECTORS["P+"]).cpu().numpy()
+            have = res.correlators[f"twop/{who}/P+/{tag}"]
+            if not (again == have).all():
+                fail(f"the {who} is not the proton contraction of its propagators")
+        prot, neut = (res.correlators[f"twop/{w}/P+/{tag}"][0] for w in ("proton", "neutron"))
+        print(f"  proton p=0 C(0) {prot[0]:.6e}, C(T/4) {prot[T // 4]:.6e}; the neutron is the proton "
+              f"contraction with u and d swapped (max |n - p| / |p| "
+              f"{abs((neut - prot) / prot).max():.2e})")
+        if have_h5py:
+            from tpuqcd_torch.io.hdf5io import read_dataset
+            run_twop.write(cfg, res)
+            for group, corr in res.correlators.items():
+                for i, mom in enumerate(res.momenta):
+                    back = read_dataset(cfg.physics.output,
+                                        f"{group}/mom_{mom[0]}_{mom[1]}_{mom[2]}")
+                    if not (back == corr[i]).all():
+                        fail(f"{group} read back from HDF5 differs")
+            print(f"  HDF5: {len(res.correlators)} groups written and read back")
+        else:
+            print("  HDF5: h5py does not import here, the file is not written (the writer is "
+                  "held by tests/test_torch_twop.py)")
+    return res, counts
+
+
+def point_columns(lat, dev, n: int) -> torch.Tensor:
+    """The first n point-source columns at the origin, packed float32
+    [n, 2(par), 2(ri), 4, 3, T, Z, S]."""
+    from tpuqcd_torch.phys.propagator import full_to_packed
+    cols = []
+    for i in range(n):
+        src = torch.zeros((*lat.full_shape, 4, 3), dtype=torch.complex64, device=dev)
+        src[0, 0, 0, 0, i // 3, i % 3] = 1.0
+        cols.append(full_to_packed(src, lat))
+    return torch.stack(cols)
+
+
+def mg_batch_path(dev, mg, u_pk):
+    """4i: four point-source columns through solve_tm_mg_batch on 4b's
+    hierarchy, then the same four one by one; returns (batch seconds,
+    single seconds, iterations, counts)."""
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.ops import dslash_cuda
+    from tpuqcd_torch.solve import solve_tm_mg, solve_tm_mg_batch
+    lat = Lattice(LARGE)
+    b = point_columns(lat, dev, 4)
+    print(f"  the GCR basis and work fields of 4 columns: {mg.batch_bytes(4) / 2**30:.1f} GiB "
+          f"(12 columns: {mg.batch_bytes(12) / 2**30:.1f} GiB, refused by the memory check)")
+    torch.cuda.synchronize()
+    dslash_cuda.reset_counts()
+    t0 = time.perf_counter()
+    res = solve_tm_mg_batch(mg, b, tol=RELRES_MAX, inner_tol=1e-7)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    counts = dict(dslash_cuda.counts)
+    print(f"  launches during the run: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail("the batched MG path called the plain version")
+    need_launches(counts, ("float32:batch", "bfloat16:batch", "float64:batch"))
+    rel = plain_full_relres(u_pk.double(), b[0].double(), res.x[0], lat, MG_KAPPA, MG_MU)
+    print(f"  4 columns in lockstep: certified relres {', '.join(f'{r:.3e}' for r in res.relres)}"
+          f"; column 0 plain-operator relres {rel:.3e}; {res.iters[0]} inner iterations, "
+          f"{res.refinements[0]} refinements, {t_batch:.2f} s")
+    if not (max(res.relres) <= RELRES_MAX and rel <= RELRES_MAX):
+        fail("a lockstep MG column is not certified")
+    x_batch = res.x
+    del res
+    t0 = time.perf_counter()
+    singles = [solve_tm_mg(mg, b[i], tol=RELRES_MAX, inner_tol=1e-7) for i in range(4)]
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    agree = max(((x_batch[i] - r.x).abs().max() / r.x.abs().max()).item()
+                for i, r in enumerate(singles))
+    print(f"  the same 4 columns one by one: {t_single:.2f} s, inner iterations "
+          f"{[r.iters for r in singles]}, relres <= {max(r.relres for r in singles):.3e}; "
+          f"max |x - x(lockstep)| / |x| {agree:.3e} (limit {X_AGREE:.0e}); lockstep is "
+          f"{t_single / t_batch:.2f}x faster")
+    if not (max(r.relres for r in singles) <= RELRES_MAX and agree <= X_AGREE):
+        fail("the single MG solves are not certified or do not agree with the lockstep ones")
+    refused = False
+    try:
+        mg._check_batch_fits(64)
+    except MemoryError as e:
+        refused = True
+        print(f"  memory check: {e}")
+    if not refused:
+        fail("the memory check let 64 columns through")
+    return t_batch, t_single, [r.iters for r in singles], counts
+
+
+def rare_modes_path(dev, res4a, gauge):
+    """4j: reconstruct-8 as the sloppy operator of 4a's solve, and
+    compute="bf16" as the arithmetic of the MG smoother; returns (recon-8
+    counts, compute-bf16 counts)."""
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.mg.device import DeviceFineLevel
+    from tpuqcd_torch.ops import dslash_cuda
+    from tpuqcd_torch.solve import solve_tm
+    from tpuqcd_torch.solvers.krylov_pk import mr_smoother_pk
+    lat = Lattice(LARGE)
+    torch.cuda.synchronize()
+    dslash_cuda.reset_counts()
+    t0 = time.perf_counter()
+    r8 = solve_tm(res4a.u_pk, res4a.b_pk, lat, kappa=KAPPA, mu=MU, tol=RELRES_MAX,
+                  sloppy_links=8)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    r8_counts = dict(dslash_cuda.counts)
+    rel = plain_full_relres(res4a.u_pk.double(), res4a.b_pk.double(), r8.x, lat)
+    agree = ((r8.x - res4a.x).abs().max() / res4a.x.abs().max()).item()
+    print(f"  4a's system with reconstruct-8 sloppy links: launches {r8_counts}; certified "
+          f"relres {r8.relres:.3e}, plain-operator relres {rel:.3e}, {r8.iters} matvecs (4a: "
+          f"{res4a.iters}), {seconds:.3f} s with the packing; max |x - x(4a)| / |x| {agree:.3e}")
+    if r8_counts.get("plain", 0) != 0:
+        fail("the reconstruct-8 solve called the plain version")
+    need_launches(r8_counts, ("float32:recon8", "float64"))
+    if not (r8.relres <= RELRES_MAX and rel <= RELRES_MAX and agree <= X_AGREE):
+        fail("the reconstruct-8 solve is not certified or does not agree with 4a")
+    # the smoother: 4 MR steps on a normalized random residual
+    level = DeviceFineLevel(lat, gauge.u_pk, MG_KAPPA, MG_MU)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    r = level.random_field(gen)
+    r = r / r.square().sum().sqrt()
+    out = {}
+    for compute in ("f32", "bf16"):
+        twin = level.sloppy(torch.bfloat16, compute=compute)
+        torch.cuda.synchronize()
+        dslash_cuda.reset_counts()
+        x = mr_smoother_pk(twin.apply, r.bfloat16(), iters=4).float()
+        torch.cuda.synchronize()
+        out[compute] = (dict(dslash_cuda.counts), (r - level.apply(x)).square().sum().sqrt().item())
+    (c32, res32), (cbf, resbf) = out["f32"], out["bf16"]
+    print(f"  MG smoother (4 MR steps, bfloat16 level): |r - M x| / |r| = {resbf:.4f} with "
+          f"compute=bf16 (launches {cbf}), {res32:.4f} with float32 arithmetic (launches {c32})")
+    need_launches(cbf, ("bfloat16:compute_bf16",))
+    if cbf.get("plain", 0) != 0 or not (resbf < 1.0 and resbf <= 1.5 * res32):
+        fail("the compute=bf16 smoother does not reduce the residual as the float32 one does")
+    return r8_counts, cbf
+
+
+def slim(result):
+    """An InvertResult without its fields and hierarchy, to free the card."""
+    import dataclasses
+    out = dataclasses.replace(result, x=None, u_pk=None, b_pk=None, mg=None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def new_compares(dev):
+    """Phase 3 of the two-point slice: the batch axis, reconstruct-8 and
+    compute="bf16" against their plain versions at 8^3x16 and 32^3x64;
+    returns their max abs errors at 32^3x64."""
+    say("phase 3: the batch axis against single launches and the plain version")
+    torch.cuda.empty_cache()
+    compare_batch(SMALL, dev)
+    batch_abs = compare_batch(LARGE, dev)
+    say("phase 3: reconstruct-8 (K5) against the plain version and the 18-real kernel")
+    compare_recon8(SMALL, dev)
+    r8_abs = compare_recon8(LARGE, dev)
+    say('phase 3: compute="bf16" against its plain version and float32 arithmetic')
+    compare_bf16c(SMALL, dev)
+    bf16c_abs = compare_bf16c(LARGE, dev)
+    torch.cuda.empty_cache()
+    return batch_abs, r8_abs, bf16c_abs
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -808,6 +1304,101 @@ def halo_timings(dev, card_tag) -> dict:
     return out
 
 
+def new_timings(dev, card_tag) -> dict:
+    """The modes of the two-point slice at 32^3x64, per launch: the batched
+    launch at N = 1, 2, 4, 12 (f32 xpay, bf16 and f64 xpay_full),
+    reconstruct-8 beside reconstruct-12 and 18-real (f32 and f64, none and
+    xpay), compute="bf16" beside float32 arithmetic, and the lockstep CG
+    step.  The bound of a batch reads the links once for its N columns.
+    Returns {(storage, tag): (kernel ms, plain ms, bound ms, bound by)}."""
+    from tpuqcd_torch.operators import PackedTMOperatorPC
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    from tpuqcd_torch.solvers.cg import _cg_cycle_cols
+    lat, gauges, _, _ = problem(LARGE, dev, seed=12)
+    sites = lat.half_volume
+    dims = "x".join(map(str, LARGE))
+    gen = torch.Generator().manual_seed(22)
+    out = {}
+
+    def fields(n, dt):
+        shape = (n, 2, 4, 3, *lat.site_shape)
+        return (torch.randn(shape, generator=gen).to(dev).to(dt),
+                torch.randn(shape, generator=gen).to(dev).to(dt))
+
+    def report(name, tag, label, k_ms, p_ms, byts, flops, dt):
+        b_ms, b_by = bound(byts, flops, dt)
+        print(f"  {dims} {label} kernel {k_ms:.4f} ms ({byts / (k_ms * 1e-3) / 1e9:.1f} GB/s "
+              f"compulsory = {byts / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; bound "
+              f"{b_ms:.4f} ms by {b_by}, {b_ms / k_ms:.1%} of it reached)"
+              + (f" | plain {p_ms:.3f} ms" if p_ms is not None else "") + f" | {card_tag}")
+        out[(name, tag)] = (k_ms, p_ms, b_ms, b_by)
+
+    # the batch axis
+    for name, (mode, epi, scale) in (("f32", MODES[2]), ("bf16", MODES[3]), ("f64", MODES[3])):
+        dt, rows = next((d, r) for n_, d, r, _ in STORAGE if n_ == name)
+        u = gauges[name]
+        item = u.element_size()
+        for n in (1, 2, 4, 12):
+            psi, psi0 = fields(n, dt)
+            kw = dict(epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale, psi0=psi0)
+            k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, **kw), reps=20)
+            p_ms = (time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw), reps=2, warmup=1)
+                    if n in (4, 12) else None)
+            byts = (n * 3 * 24 + 8 * rows * 6) * item * sites
+            report(name, f"{mode}_b{n}", f"{name} recon-{rows * 6} {mode} batch N={n:2d} "
+                   f"({k_ms / n:.4f} ms a column)", k_ms, p_ms, byts, FLOP_PER_SITE * sites * n,
+                   dt)
+            del psi, psi0
+    # reconstruct-8 beside reconstruct-12 and 18-real
+    g8 = gauges8(gauges)
+    for name in ("f32", "f64"):
+        dt = gauges[name].dtype
+        links = {8: g8[name], 12: gauges["f64"][:, :, :2].to(dt).contiguous(),
+                 18: gauges["f64"].to(dt)}
+        (psi,), (psi0,) = fields(1, dt)
+        item = psi.element_size()
+        for mode, epi, scale in (MODES[0], MODES[2]):
+            xpay = epi == "xpay"
+            for reals, u in links.items():
+                kw = dict(epilogue=epi, kappa=KAPPA, mu=MU, psi0=psi0 if xpay else None)
+                k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, **kw), reps=50)
+                p_ms = (time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw), reps=3, warmup=1)
+                        if reals == 8 else None)
+                byts = ((3 if xpay else 2) * 24 + 8 * reals) * item * sites
+                report(name, f"{mode}_r{reals}", f"{name} {reals}-real links {mode}", k_ms, p_ms,
+                       byts, FLOP_PER_SITE * sites, dt)
+    # compute="bf16" beside bfloat16 storage with float32 arithmetic
+    u = gauges["bf16"]
+    (psi,), (psi0,) = fields(1, torch.bfloat16)
+    for mode, epi, scale in (MODES[0], MODES[3]):
+        xpay = epi == "xpay"
+        kw = dict(epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale, psi0=psi0 if xpay else None)
+        byts = ((3 if xpay else 2) * 24 + 8 * 12) * 2 * sites
+        for compute in ("f32", "bf16"):
+            k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, compute=compute, **kw), reps=50)
+            p_ms = time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, compute=compute, **kw),
+                           reps=3, warmup=1)
+            report("bf16", f"{mode}_c{compute}", f"bf16 recon-12 {mode} compute={compute}", k_ms,
+                   p_ms, byts, FLOP_PER_SITE * sites, torch.bfloat16)
+    # the lockstep CG step: the normal operator on N columns, 20 steps
+    pc = PackedTMOperatorPC(lat, kappa=KAPPA, mu=MU)
+    u = gauges["f32"]
+    for n in (1, 2, 4, 12):
+        b, _ = fields(n, torch.float32)
+        never = torch.zeros(n, dtype=torch.float64, device=dev)
+        budget = torch.full((n,), 20, dtype=torch.int64, device=dev)
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+
+        def steps():
+            _cg_cycle_cols(lambda v: pc.normal(u, v), b, never, budget, live)
+
+        ms = time_ms(steps, reps=2, warmup=1) / 20
+        print(f"  {dims} lockstep CG step (f32 normal operator, 4 batched launches) N={n:2d}: "
+              f"{ms:.3f} ms a step, {ms / n:.3f} ms a column | {card_tag}")
+        out[("f32", f"cg_step_b{n}")] = (ms, None, None, None)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", flush=True)
@@ -821,41 +1412,44 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    have_h5py = subprocess.run([sys.executable, "-c", "import h5py"],
+                               capture_output=True).returncode == 0
 
-    print("phase 1: card", flush=True)
+    say("phase 1: card")
     smi, name = card()
     card_tag = f"[{smi}]"
     print(f"  nvidia-smi: {smi}; torch: {name}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    print("phase 2: build", flush=True)
+    say("phase 2: build")
     t0 = time.perf_counter()
     secs = build()
-    print(f"  built tpuqcd_torch/csrc/dslash_eo.cu in {secs:.1f} s "
-          f"(load {time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"  built tpuqcd_torch/csrc/ (13 translation units side by side, one link) in "
+          f"{secs:.1f} s (load {time.perf_counter() - t0:.1f} s); h5py "
+          f"{'imports' if have_h5py else 'does not import'} here", flush=True)
 
-    print("phase 3: kernel against plain version", flush=True)
+    say("phase 3: kernel against plain version")
     compare(SMALL, dev)
     max_abs = compare(LARGE, dev)
-    print("phase 3: leg modes (K4) against plain version", flush=True)
+    say("phase 3: leg modes (K4) against plain version")
     compare_legs(SMALL, dev)
     legs_abs, dirs_abs = compare_legs(LARGE, dev)
-    print("phase 3: clover epilogues (K3) against plain version", flush=True)
+    say("phase 3: clover epilogues (K3) against plain version")
     compare_clover(SMALL, dev)
     clover_abs = compare_clover(LARGE, dev)
-    print("phase 3: MG fine applies against plain version", flush=True)
+    say("phase 3: MG fine applies against plain version")
     compare_fine_apply(SMALL, dev)
     fine_abs = compare_fine_apply(LARGE, dev)
     compare_fine_apply(SMALL, dev, clover=True)
     fine_cl_abs = compare_fine_apply(LARGE, dev, clover=True)
-    print("phase 3: halo mode (K6) on a one-rank mesh and an emulated (2, 2) decomposition",
-          flush=True)
+    say("phase 3: halo mode (K6) on a one-rank mesh and an emulated (2, 2) decomposition")
     compare_halo(SMALL, dev)
     halo_abs = compare_halo(LARGE, dev)
+    batch_abs, r8_abs, bf16c_abs = new_compares(dev)
 
-    print("phase 4a: main path, tpuqcd_torch.cli.run_invert (CG) at 32^3x64", flush=True)
+    say("phase 4a: main path, tpuqcd_torch.cli.run_invert (CG) at 32^3x64")
     res, counts = main_path(dev)
-    print("phase 4b: main path, tpuqcd_torch.cli.run_invert (MG) at 32^3x64", flush=True)
+    say("phase 4b: main path, tpuqcd_torch.cli.run_invert (MG) at 32^3x64")
     from tpuqcd_torch.cli.common import setup_gauge
     gauge = setup_gauge(mg_config(MG_KAPPA, MG_MU), dev)
     print(f"  heatbath beta {MG_BETA}, {MG_SWEEPS} compound sweeps: plaquette "
@@ -865,23 +1459,34 @@ def main() -> None:
     if abs(gauge.plaquette - PLAQ_BETA6) > PLAQ_TOL:
         fail(f"plaquette {gauge.plaquette:.6f} is not within {PLAQ_TOL} of {PLAQ_BETA6}")
     mg_res, mg_counts = mg_path(dev, gauge)
-    print("phase 4b: the same coarse operator by per-leg probing", flush=True)
+    say("phase 4b: the same coarse operator by per-leg probing")
     pl_counts = per_leg_probing(mg_res)
-    print("phase 4c: main path, run_invert (twisted clover, BiCGStab bf16) at 32^3x64",
-          flush=True)
+    say("phase 4i: four point-source columns in lockstep on 4b's hierarchy "
+          "(solve_tm_mg_batch)")
+    mgb_batch_s, mgb_single_s, _, mgb_counts = mg_batch_path(dev, mg_res.mg, gauge.u_pk)
+    mg_res = slim(mg_res)
+    say("phase 4c: main path, run_invert (twisted clover, BiCGStab bf16) at 32^3x64")
     cl_res, cl_counts = clover_path(dev)
-    print("phase 4d: main path, run_invert (twisted clover, MG) at 32^3x64", flush=True)
+    say("phase 4d: main path, run_invert (twisted clover, MG) at 32^3x64")
     mgc_res, mgc_counts = mg_path(dev, gauge, clover=True)
-    print("phase 4e: main path, run_invert (non-degenerate doublet, CG) at 32^3x64",
-          flush=True)
+    say("phase 4e: main path, run_invert (non-degenerate doublet, CG) at 32^3x64")
     nd_res, nd_counts = ndeg_path(dev)
-    print("phase 4f: the doublet solve on a one-rank LatticeMesh (halo mode) at 32^3x64",
-          flush=True)
+    say("phase 4f: the doublet solve on a one-rank LatticeMesh (halo mode) at 32^3x64")
     sh_seconds, sh_counts = sharded_path(dev, nd_res)
-    print("phase 4g: run_invert's doublet path on a mesh of cards (torchrun, NCCL)", flush=True)
+    say("phase 4g: run_invert's doublet path on a mesh of cards (torchrun, NCCL)")
     multi_card_path(nd_res)
+    nd_res, mgc_res, cl_res = slim(nd_res), slim(mgc_res), slim(cl_res)
+    say("phase 4h: main path, tpuqcd_torch.cli.run_twop.measure (direct, 12-column batches) "
+          "at 32^3x64")
+    tw_res, tw_counts = twop_path(dev, gauge, have_h5py)
+    tw_seconds = tw_res.seconds
+    del tw_res
+    torch.cuda.empty_cache()
+    say("phase 4j: reconstruct-8 as a sloppy operator, compute=bf16 as the smoother's "
+          "arithmetic")
+    r8_counts, bf16c_counts = rare_modes_path(dev, res, gauge)
 
-    print(f"phase 5: times {card_tag}", flush=True)
+    say(f"phase 5: times {card_tag}")
     t = timings(dev, card_tag)
     print(f"  CG solve: {res.seconds:.3f} s wallclock, {res.iters} sloppy matvecs, "
           f"{res.gflops:.1f} GFLOP/s (solve_flops accounting) {card_tag}")
@@ -895,10 +1500,14 @@ def main() -> None:
     print(f"  doublet CG solve: {nd_res.seconds:.3f} s wallclock, {nd_res.iters} sloppy "
           f"matvecs, {nd_res.refinements} refinements; on the one-rank mesh {sh_seconds:.3f} s "
           f"{card_tag}")
+    t.update(new_timings(dev, card_tag))
+    print("  two-point run (4h) seconds by stage: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tw_seconds.items()) + f" {card_tag}")
+    print(f"  MG, 4 point-source columns (4i): lockstep {mgb_batch_s:.2f} s, one by one "
+          f"{mgb_single_s:.2f} s {card_tag}")
     print(f"  smoke run {time.perf_counter() - t_start:.1f} s so far", flush=True)
 
-    from tpuqcd_torch.ops.dslash_cuda import SOURCE
-    src = "tpuqcd_torch/csrc/" + SOURCE.name
+    src = "tpuqcd_torch/csrc/dslash_eo.cuh"
 
     def entry(name, launches, err, timed, replaces="tpuqcd/ops/dslash_pallas.py:514"):
         k_ms, p_ms, b_ms, b_by = t[timed]
@@ -906,6 +1515,7 @@ def main() -> None:
                 "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
+    vmap = "tpuqcd/ops/dslash_pallas.py:733"   # the call jax.vmap adds a grid axis to
     k3 = "tpuqcd/ops/dslash_pallas.py:461"
     k6 = "tpuqcd/ops/dslash_pallas.py:583"
     kernels = [
@@ -953,6 +1563,27 @@ def main() -> None:
         entry("dslash_eo<double> 18-real halo (K6, sharded ndeg certification operator), none "
               "timed on the one-rank mesh", sh_counts["float64:halo"], halo_abs["f64"],
               ("f64", "halo_none"), k6),
+        entry("dslash_eo<float> reconstruct-12 batch axis (two-point sloppy operator, 11 or 12 "
+              "columns a launch), xpay N=12 timed", tw_counts["float32:batch"],
+              batch_abs["f32"], ("f32", "xpay_b12"), vmap),
+        entry("dslash_eo<double> 18-real batch axis (two-point certification operator), "
+              "xpay_full N=12 timed", tw_counts["float64:batch"], batch_abs["f64"],
+              ("f64", "xpay_full_b12"), vmap),
+        entry("dslash_eo<float> reconstruct-12 batch axis (lockstep MG fine operator, 4 "
+              "columns), xpay N=4 timed", mgb_counts["float32:batch"], batch_abs["f32"],
+              ("f32", "xpay_b4"), vmap),
+        entry("dslash_eo<bf16> reconstruct-12 batch axis (lockstep MG smoother, 4 columns), "
+              "xpay_full N=4 timed", mgb_counts["bfloat16:batch"], batch_abs["bf16"],
+              ("bf16", "xpay_full_b4"), vmap),
+        entry("dslash_eo<double> 18-real batch axis (lockstep MG certification operator, 4 "
+              "columns), xpay_full N=4 timed", mgb_counts["float64:batch"], batch_abs["f64"],
+              ("f64", "xpay_full_b4"), vmap),
+        entry("dslash_eo<float> reconstruct-8 (K5, sloppy operator of 4j's solve_tm), xpay "
+              "timed", r8_counts["float32:recon8"], r8_abs["f32"], ("f32", "xpay_r8"),
+              "tpuqcd/ops/dslash_pallas.py:247"),
+        entry("dslash_eo<bf16, compute bf16> reconstruct-12 (4j's MG smoother arithmetic), "
+              "xpay_full timed", bf16c_counts["bfloat16:compute_bf16"], bf16c_abs,
+              ("bf16", "xpay_full_cbf16"), "tpuqcd/ops/dslash_pallas.py:705"),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,10 @@
 (phase 3 of chip_smoke.py), in the summed modes (K1, K2), the leg modes
 of MG probing (K4: dirs, legs_out), the clover epilogues (K3:
 clover_inv, clover_xpay), the MG fine operators' xpay and clover_xpay
-on parity views, and halo mode (K6) on emulated shards of a (2, 2) grid,
-with the doublet solve through it.  Marked ``gpu``; skips without CUDA.
+on parity views, halo mode (K6) on emulated shards of a (2, 2) grid with
+the doublet solve through it, the batch axis, reconstruct-8 links (K5),
+compute="bf16", and the two-point run through them.  Marked ``gpu``;
+skips without CUDA.
 
 It imports neither jax nor tpuqcd, so it runs on a machine that has only
 the port's dependencies:
@@ -12,7 +14,11 @@ the port's dependencies:
 
 Tolerances, on max|kernel - plain| / max|plain|: float64 1e-13, float32
 1e-5, bfloat16 storage 1e-2 (about 2 bf16 ulp: both round a float32
-result whose summation order differs)."""
+result whose summation order differs); a batched launch equals its single
+launches bit for bit; reconstruct-8 1e-12 / 1e-5 / 1e-2, and for bfloat16
+2e-2 against the 18-real kernel, whose copy of the rebuilt link rounds once
+more; compute="bf16" 5% of max|ref| against its plain version and against
+float32 arithmetic."""
 import pytest
 import torch
 
@@ -331,3 +337,144 @@ def test_run_invert_ndeg_and_one_rank_mesh_go_through_the_kernel(cuda):
     assert dslash_cuda.counts["float32:halo"] > 0 and dslash_cuda.counts["float64:halo"] > 0
     assert dslash_cuda.counts["plain"] == 0 and dslash_cuda.counts["float32"] == 0
     assert ((sh.x - res.x).abs().max() / res.x.abs().max()).item() <= 1e-8
+
+
+# --- the batch axis, reconstruct-8, compute="bf16" ----------------------------
+
+@pytest.mark.parametrize("mode", sorted(MODES) + ["clover_inv", "clover_xpay"])
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("n_rhs", [1, 3, 12])
+def test_batched_launch_equals_single_launches_and_plain(cuda, n_rhs, storage, mode):
+    """psi, psi0 and out are parity views of a batched MG field
+    [N, 2(ri), 2(par), ...]."""
+    dt, rows, tol = STORAGE[storage]
+    epi, scale = {**MODES, **CLOVER_MODES}[mode]
+    lat, u64, _, _ = _problem((8, 8, 8, 16), cuda)
+    u = (u64 if rows == 3 else u64[:, :, :2]).to(dt).contiguous()
+    gen = torch.Generator().manual_seed(1)
+    field = torch.randn((n_rhs, 2, 2, 4, 3, *lat.site_shape), generator=gen,
+                        dtype=torch.float64).to(cuda).to(dt)
+    field0 = field.flip(0).roll(1, 2)
+    a_pk = clover_pk_from_gauge(u64, lat, kappa=KAPPA, csw=CSW)
+    for parity in (0, 1):
+        cl = None
+        if epi == "clover_xpay":
+            cl = a_pk[1 - parity].to(dt).contiguous()
+        elif epi == "clover_inv":
+            a = torch.complex(a_pk[:, 0], a_pk[:, 1])
+            cl = pack_clover(clover_twist_inverse(a, KAPPA, MU, 1, 1 - parity), dt)
+        psi, psi0 = field[:, :, parity], field0[:, :, 1 - parity]
+        for dagger in (False, True):
+            kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale,
+                      clover=cl)
+            p0 = psi0 if epi.endswith("xpay") else None
+            out = torch.zeros_like(field)
+            dslash_cuda.reset_counts()
+            k = dslash_eo(u, psi, parity, lat, psi0=p0, out=out[:, :, 1 - parity], **kw)
+            assert sum(dslash_cuda.counts.values()) == 1
+            assert next(iter(dslash_cuda.counts)).endswith(":batch")
+            singles = torch.stack([dslash_eo(u, psi[i], parity, lat,
+                                             psi0=None if p0 is None else p0[i], **kw)
+                                   for i in range(n_rhs)])
+            assert torch.equal(k, singles)
+            assert out[:, :, parity].abs().max().item() == 0.0
+            p = dslash_eo_plain(u, psi, parity, lat, psi0=p0, **kw).double()
+            assert (k.double() - p).abs().max().item() <= tol * p.abs().max().item()
+
+
+@pytest.mark.parametrize("t_boundary", [-1, 1])
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("storage", sorted(STORAGE))
+@pytest.mark.parametrize("dims", [(8, 8, 8, 16), (32, 32, 32, 64)], ids=["8c16", "32c64"])
+def test_reconstruct8_matches_plain_and_the_18_real_kernel(cuda, dims, storage, mode,
+                                                           t_boundary):
+    from tpuqcd_torch.utils.packed import pack_gauge, pack_gauge8, unpack_gauge8
+    dt = STORAGE[storage][0]
+    tol, tol18 = {"f64": (1e-12, 1e-12), "f32": (1e-5, 1e-5), "bf16": (1e-2, 2e-2)}[storage]
+    epi, scale = MODES[mode]
+    lat = Lattice(dims)
+    gen = torch.Generator().manual_seed(2)
+    u_full = su3.random_gauge(lat, gen, cuda, torch.complex128)
+    u64 = gauge_from_full(u_full, lat, t_boundary == -1, torch.float64, cuda)
+    u8 = pack_gauge8(torch.complex(u64[:, :, :, :, 0], u64[:, :, :, :, 1]), dt)
+    assert tuple(u8.shape) == (4, 2, 4, 1, 2, *lat.site_shape)
+    u18 = unpack_gauge8(u8)
+    if t_boundary == -1:
+        u18[3, :, 2, :, lat.Lt - 1] *= -1
+    u18 = pack_gauge(u18, dt).contiguous()
+    shape = (2, 2, 4, 3, *lat.site_shape)
+    psi = torch.randn(shape, generator=gen, dtype=torch.float64).to(cuda).to(dt)
+    psi0 = torch.randn(shape, generator=gen, dtype=torch.float64).to(cuda).to(dt)
+    for parity in (0, 1):
+        for dagger in (False, True):
+            kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale,
+                      t_boundary=t_boundary, psi0=psi0 if epi == "xpay" else None)
+            dslash_cuda.reset_counts()
+            k = dslash_eo(u8, psi, parity, lat, **kw).double()
+            assert list(dslash_cuda.counts) == [f"{str(dt).removeprefix('torch.')}:recon8:batch"]
+            p = dslash_eo_plain(u8, psi, parity, lat, **kw).double()
+            k18 = dslash_eo(u18, psi, parity, lat, **kw).double()
+            assert torch.isfinite(k).all()
+            assert (k - p).abs().max().item() <= tol * p.abs().max().item()
+            assert (k - k18).abs().max().item() <= tol18 * k18.abs().max().item()
+    # halo mode on an emulated (2, 2) decomposition, the phase by each t_offset
+    for parity in (0, 1) if mode == "none" else ():
+        whole = dslash_eo(u8, psi[0], parity, lat, t_boundary=t_boundary)
+        for rank in range(4):
+            m = LatticeMesh(lat, 2, 2, 1, rank)
+            ul, pl, halo = cut_halo(m, u8, psi[0], parity)
+            k = dslash_eo(ul, pl, parity, m.local_lat, halo=halo, t_boundary=t_boundary)
+            p = dslash_eo_plain(ul, pl, parity, m.local_lat, halo=halo,
+                                t_boundary=t_boundary).double()
+            assert torch.equal(k, m.shard(whole))
+            assert (k.double() - p).abs().max().item() <= tol * p.abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["none", "twist_inv", "xpay", "clover_inv", "clover_xpay"])
+@pytest.mark.parametrize("dims", [(8, 8, 8, 16), (32, 32, 32, 64)], ids=["8c16", "32c64"])
+def test_compute_bf16_matches_plain_and_float32_arithmetic(cuda, dims, mode):
+    epi, _ = {**MODES, **CLOVER_MODES}[mode]
+    lat, u64, psi, psi0 = _problem(dims, cuda)
+    u = u64[:, :, :2].bfloat16().contiguous()
+    psi, psi0 = psi.bfloat16(), psi0.bfloat16()
+    a_pk = clover_pk_from_gauge(u64, lat, kappa=KAPPA, csw=CSW)
+    for parity in (0, 1):
+        cl = None
+        if epi == "clover_xpay":
+            cl = a_pk[1 - parity].bfloat16().contiguous()
+        elif epi == "clover_inv":
+            a = torch.complex(a_pk[:, 0], a_pk[:, 1])
+            cl = pack_clover(clover_twist_inverse(a, KAPPA, MU, 1, 1 - parity), torch.bfloat16)
+        for dagger in (False, True):
+            kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU, clover=cl,
+                      psi0=psi0 if epi.endswith("xpay") else None)
+            dslash_cuda.reset_counts()
+            k = dslash_eo(u, psi, parity, lat, compute="bf16", **kw).double()
+            assert any(key.startswith("bfloat16:compute_bf16") for key in dslash_cuda.counts)
+            p = dslash_eo_plain(u, psi, parity, lat, compute="bf16", **kw).double()
+            f = dslash_eo(u, psi, parity, lat, **kw).double()
+            assert torch.isfinite(k).all()
+            for ref in (p, f):
+                assert (k - ref).abs().max().item() <= 0.05 * ref.abs().max().item()
+    with pytest.raises(ValueError, match="bfloat16"):
+        dslash_eo(u.float(), psi.float(), 0, lat, compute="bf16")
+
+
+def test_run_twop_goes_through_the_batched_kernel(cuda):
+    """run_twop.measure at 8^3x16 on the card: batched float32 and float64
+    launches, no plain call, every column certified."""
+    from tpuqcd_torch.cli import run_twop
+    cfg = config_from_dict({
+        "gauge": {"dims": [8, 8, 8, 16], "random_seed": 2},
+        "action": {"kappa": KAPPA, "mu": MU}, "solver": {"tol": 1e-10},
+        "physics": {"momenta": [[0, 0, 0], [1, 0, 0]], "smear_n_ape": 2, "smear_n_gauss": 4,
+                    "smear_alpha_gauss": 1.0}})
+    dslash_cuda.reset_counts()
+    res = run_twop.measure(cfg, cuda)
+    counts = dict(dslash_cuda.counts)
+    assert counts.get("plain", 0) == 0
+    assert counts["float32:batch"] > 0 and counts["float64:batch"] > 0
+    assert sum(r["columns"] for r in res.solves) == 24
+    assert all(max(r["relres"]) <= 1e-10 for r in res.solves)
+    pion = res.correlators["twop/pion/sx0sy0sz0st0"][0]
+    assert pion.real.min() > 0 and abs(pion.imag).max() <= 1e-6 * pion.real.max()

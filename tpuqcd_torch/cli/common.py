@@ -1,7 +1,7 @@
 """Shared CLI plumbing: arguments, device, scope checks, gauge setup,
 the solver.
 
-Counterpart of ``tpuqcd/cli/common.py:21-77, :183-275, :298-426``.  The
+Counterpart of ``tpuqcd/cli/common.py:21-77, :183-295, :298-781``.  The
 device is explicit: ``--device`` defaults to ``cuda`` and raises when
 CUDA is missing; ``--device cpu`` runs the plain PyTorch versions.
 Under torchrun every rank joins the process group first (NCCL for cuda,
@@ -25,7 +25,7 @@ from ..ops.layout import gauge_to_device
 from ..parallel.dist import init_distributed
 from ..phys.propagator import full_to_packed
 from ..utils.config import RunConfig, load_config
-from ..utils.packed import pack_gauge
+from ..utils.packed import pack_gauge, unpack_gauge
 from ..utils.profile import sync
 
 log = logging.getLogger("tpuqcd_torch")
@@ -137,6 +137,25 @@ def setup_gauge(cfg: RunConfig, device: torch.device) -> Gauge:
     return Gauge(lat, pack_gauge(u_dev, torch.float32).contiguous(), plaq, seconds)
 
 
+def smeared_gauge(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor) -> torch.Tensor:
+    """The APE- or stout-smeared links of the Gaussian smearing
+    (physics.smear_type, smear_n_ape steps, spatial links over spatial
+    staples), packed float32 [4, 2, 3, 3, 2, T, Z, S] without a boundary
+    phase, from the run's packed gauge (whose phase is taken off first)."""
+    ph = cfg.physics
+    u_dev = apply_boundary_phase(unpack_gauge(u_pk), lat, "device", cfg.gauge.antiperiodic_t)
+    if ph.smear_n_ape > 0 and ph.smear_type == "stout":
+        from ..ops.gauge_tools import stout_smear
+        log.info("stout smearing: rho=%.3f n=%d", ph.smear_rho_stout, ph.smear_n_ape)
+        u_dev = stout_smear(u_dev, lat, rho=ph.smear_rho_stout, n_steps=ph.smear_n_ape,
+                            spatial_only=True)
+    elif ph.smear_n_ape > 0:
+        from ..ops.gauge_tools import ape_smear
+        log.info("APE smearing: alpha=%.3f n=%d", ph.smear_alpha_ape, ph.smear_n_ape)
+        u_dev = ape_smear(u_dev, lat, alpha=ph.smear_alpha_ape, n_steps=ph.smear_n_ape)
+    return pack_gauge(u_dev, torch.float32).contiguous()
+
+
 def _mg_fine_level(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor, flavor: int):
     """The twisted-mass or, with action.csw, the twisted-clover fine level
     of the action config; the A blocks come from the float32 gauge."""
@@ -201,6 +220,141 @@ class MGSolver:
         log.info("  mg solve: relres=%.2e iters=%d refinements=%d", res.relres, res.iters,
                  res.refinements)
         return res
+
+    def solve_batch(self, b_pks: torch.Tensor, flavor: int = +1):
+        """The columns b_pks [n, 2(par), 2(ri), ...] in lockstep
+        (solve.solve_tm_mg_batch)."""
+        from ..solve import solve_tm_mg_batch
+        res = solve_tm_mg_batch(self.setup(flavor), b_pks, tol=self.cfg.solver.tol,
+                                inner_tol=self.cfg.solver.inner_tol)
+        log.info("  mg batch solve (%d rhs): max relres=%.2e iters=%d", b_pks.shape[0],
+                 max(res.relres), res.iters[0])
+        return res
+
+
+class Solver:
+    """tpuqcd's make_solver for one card (cli/common.py:329-781): the
+    solves of the two-point run on packed fields of the run's device.
+
+        solve = make_solver(cfg, lat, u_pk)
+        x = solve.packed_src(b_pk, flavor=+1)          # [2(par), 2(ri), ...] float32
+        xs = solve.packed_src_batch(b_pks, flavor=-1)  # [n, 2(par), 2(ri), ...] float32
+        x = solve.packed(b_full)                       # from a full-layout source
+        x_full = solve(b_full)                         # complex128 [T, Z, Y, X, 4, 3]
+
+    With mg.enabled the MG branch (MGSolver; the batch in chunks of
+    solver.rhs_batch columns in lockstep), else the direct even-odd
+    branch: solve_tm and solve_tm_batch, the clover fields built once,
+    and the batch gate of solver.rhs_batch_gate_iters.  ``records`` keeps
+    one entry per solver call: flavor, first_column (its index in the
+    batch handed to packed_src_batch), columns, the certified relres and
+    the count of every column, whether the gate re-chunked, and, with
+    ``keep_first``, the float64 solution of its first column as
+    ``x_first`` (for an independent residual)."""
+
+    lmesh = None
+    keep_first = False
+
+    def __init__(self, cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor):
+        self.cfg, self.lat, self.u_pk = cfg, lat, u_pk
+        self.rhs_batch = max(1, int(cfg.solver.rhs_batch))
+        self.records: list[dict] = []
+        self.mg = MGSolver(cfg, lat, u_pk) if cfg.mg.enabled else None
+        self.clover = None
+        if self.mg is None and cfg.action.csw != 0.0:
+            from ..solve import make_clover_fields
+            self.clover = make_clover_fields(u_pk, lat, kappa=cfg.action.kappa,
+                                             mu=cfg.action.mu, csw=cfg.action.csw)
+
+    def put(self, arr: torch.Tensor) -> torch.Tensor:
+        """A packed array onto the solver's device."""
+        return arr.to(self.u_pk.device)
+
+    def _kw(self, flavor: int) -> dict:
+        c = self.cfg
+        return dict(kappa=c.action.kappa, mu=c.action.mu, flavor=int(flavor),
+                    tol=c.solver.tol, maxiter=c.solver.maxiter, inner_tol=c.solver.inner_tol,
+                    solver=c.solver.solver,
+                    sloppy_dtype=(torch.bfloat16 if c.solver.sloppy_dtype == "bfloat16"
+                                  else torch.float32),
+                    t_boundary=-1 if c.gauge.antiperiodic_t else 1, csw=c.action.csw,
+                    clover=self.clover)
+
+    def _record(self, flavor, res, first_column=0, **more):
+        one = not isinstance(res.relres, list)
+        rec = dict(flavor=int(flavor), first_column=first_column,
+                   relres=[res.relres] if one else list(res.relres),
+                   iters=[res.iters] if one else list(res.iters), **more)
+        rec["columns"] = len(rec["relres"])
+        if self.keep_first:
+            rec["x_first"] = res.x if one else res.x[0]
+        self.records.append(rec)
+
+    def packed_src(self, b_pk: torch.Tensor, flavor: int = +1, probe: bool = False):
+        """One packed source -> the packed float32 solution (probe: it is
+        the batch gate's first column)."""
+        b_pk = self.put(b_pk)
+        if self.mg is not None:
+            res = self.mg(b_pk, flavor)
+        else:
+            from ..solve import solve_tm
+            res = solve_tm(self.u_pk, b_pk, self.lat, **self._kw(flavor))
+            log.info("  solve: relres=%.2e iters=%d%s", res.relres, res.iters,
+                     " (batch-gate probe)" if probe else "")
+        self._record(flavor, res, probe=probe)
+        return res.x.to(torch.float32)
+
+    def _batch(self, b_pks: torch.Tensor, flavor: int, first_column: int):
+        if self.mg is not None:
+            res = self.mg.solve_batch(b_pks, flavor)
+        else:
+            from ..solve import solve_tm_batch
+            res = solve_tm_batch(self.u_pk, b_pks, self.lat, **self._kw(flavor))
+            log.info("  batch solve (%d rhs): max relres=%.2e iters<=%d", b_pks.shape[0],
+                     max(res.relres), max(res.iters))
+        self._record(flavor, res, first_column)
+        return res.x.to(torch.float32)
+
+    def packed_src_batch(self, b_pks: torch.Tensor, flavor: int = +1) -> torch.Tensor:
+        """Packed sources [n, 2(par), 2(ri), ...] -> packed float32 solutions,
+        in batches of solver.rhs_batch columns.  On the direct branch the
+        first column is solved alone, and if it took more than
+        solver.rhs_batch_gate_iters matvecs the others run in batches of
+        solver.rhs_batch_gate_chunk (tpuqcd/cli/common.py:728-774)."""
+        b_pks = self.put(b_pks)
+        n, batch_n, lead = b_pks.shape[0], self.rhs_batch, None
+        gate = int(self.cfg.solver.rhs_batch_gate_iters)
+        gate_chunk = int(self.cfg.solver.rhs_batch_gate_chunk)
+        if self.mg is None and n > 1 and self.rhs_batch > gate_chunk and gate > 0:
+            lead = self.packed_src(b_pks[0], flavor, probe=True)
+            it0 = self.records[-1]["iters"][0]
+            self.records[-1]["gate_rechunked"] = it0 > gate
+            if it0 > gate:
+                log.info("  batch gate: %d iters > %d: the remaining %d columns run in "
+                         "batches of %d", it0, gate, n - 1, gate_chunk)
+                batch_n = gate_chunk
+        outs = [] if lead is None else [lead[None]]
+        for lo in range(len(outs), n, batch_n):
+            outs.append(self._batch(b_pks[lo:lo + batch_n], flavor, lo))
+        return torch.cat(outs)
+
+    def packed(self, b_full: torch.Tensor, flavor: int = +1) -> torch.Tensor:
+        """A full-layout source complex [T, Z, Y, X, 4, 3] -> packed solution."""
+        return self.packed_src(full_to_packed(self.put(b_full), self.lat), flavor)
+
+    def __call__(self, b_full: torch.Tensor, flavor: int = +1) -> torch.Tensor:
+        from ..phys.propagator import packed_to_full
+        return packed_to_full(self.packed(b_full, flavor), self.lat)
+
+
+def make_solver(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor) -> Solver:
+    """The solver of the physics programs (see Solver); refuses what the
+    port does not run yet."""
+    check_in_slice(cfg)
+    if cfg.action.epsbar != 0.0:
+        raise NotImplementedError("make_solver solves the light (degenerate) twisted-mass "
+                                  "quark; action.epsbar selects run_invert's doublet solve")
+    return Solver(cfg, lat, u_pk)
 
 
 def random_source(lat: Lattice, device: torch.device, seed: int = 99,

@@ -1,0 +1,576 @@
+// Even-odd Wilson hop D_{q<-p} psi with the twisted-mass site-term
+// epilogues, for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel tpuqcd/ops/dslash_pallas.py::_kernel (launched
+// by dslash_eo_pallas through the pl.pallas_call at :733), and in its
+// double instantiation the XLA certification operator
+// tpuqcd/ops/dslash_xla.py::dslash_eo_dev_ri.  Plain PyTorch version and
+// binding: tpuqcd_torch/ops/dslash_cuda.py.
+//
+// What bounds it on the card: device-memory bandwidth.  The hop does 1320
+// flop per output site; the naive traffic for float storage with
+// reconstruct-12 links is about 1344 B per site (8 neighbour spinors of
+// 96 B, 8 links of 48 B, the 96 B store, and the 96 B site-term read of
+// the xpay epilogue), about 1 flop per byte, far below the H100's
+// ~20 flop/byte ridge for fp32 outside the tensor cores.  Each spinor is a
+// neighbour of 8 output sites, and the L1/L2 caches serve most of those
+// re-reads, so the compulsory traffic is about 672 B per site (each
+// spinor and link read once).  The design does what bandwidth asks and
+// no more, as a first, simple version:
+//   - one thread per output site of parity q = 1 - p; the layouts keep
+//     the site index minor ([2(ri), 4, 3, T, Z, S] spinors,
+//     [4, 2, R, 3, 2(ri), T, Z, S] links), so every component load of a
+//     warp is one coalesced 128-byte line;
+//   - reconstruct-12 rebuilds row 2 = phase * conj(row0 x row1) in
+//     registers (phase = t_boundary on t-links at global t = T-1), which
+//     cuts link traffic by a third;
+//   - the 24 output reals accumulate in registers; the epilogue
+//     (none | twist_inv | xpay | clover_inv | clover_xpay) is fused before
+//     the single store, so one Schur-operator apply is exactly two launches;
+//   - storage is templated (float, __nv_bfloat16 with float arithmetic,
+//     double); the spin tables are compile-time constants.
+// Reuse of neighbour spinors through shared memory, TMA and wider loads
+// are later work; a Dslash has no product of tensor-core size.
+//
+// Leg filter and per-leg output (the TPU kernel's `dirs` and `legs_out`,
+// dslash_pallas.py:341-354, :428-432, :670-680), for MG Galerkin probing:
+//   - leg_mask: bit 2*mu + (sign < 0) selects the hop legs computed; the
+//     8 legs are tested in the kernel's textual order (mu-major, forward
+//     before backward), a uniform branch for the whole grid;
+//   - legs_out: each selected leg's reconstructed contribution is stored
+//     to its own output slot, in that textual order, right after it is
+//     computed (the slot's 24 reals are the only extra registers), and no
+//     epilogue runs.  A legs_out launch at 32^3x64 f32 recon-12 reads
+//     about 480 B/site (one spinor and 8 links, compulsory) and writes
+//     768 B/site (8 spinors), so it is store-bound where the summed hop is
+//     read-bound.
+// Clover epilogues (the TPU kernel's clover_inv and clover_xpay,
+// dslash_pallas.py:461-501), for the twisted-clover operators: a clover
+// operand cl [2(ri), 2(chir), 6, 6, T, Z, S] at the output parity (two
+// Hermitian 6x6 blocks per site, row/column 3 * spin-in-chirality +
+// colour; chirality c holds spins 2c, 2c + 1, gamma5 = +1, -1):
+//   - clover_inv:  out = cl . D psi  (cl the twisted inverse
+//     (A + i tw g5)^{-1}; one Schur apply is clover_inv then clover_xpay);
+//   - clover_xpay: out = cl . psi0 + i tw g5 psi0 - k2 . D psi  (cl = A).
+// The block is the largest operand per site (144 reals against the
+// spinor's 24), every entry read once, coalesced (site index minor): a
+// clover launch at 32^3x64 f32 recon-12 reads and writes about
+// 1152 (clover_inv) or 1248 (clover_xpay) compulsory B/site, so it stays
+// bandwidth-bound (about 2 flop per byte).  The design streams the
+// block: per chirality the 6 inputs (D psi, or psi0) are held in
+// registers and each output row is summed from 6 entries loaded just
+// before use, so at most 12 extra reals are live beside the 24 of the
+// accumulator.  CLOVER is a template flag, so the other modes compile as
+// before.
+// Halo mode (the TPU kernel's K6: halo_t, halo_z, local_dims and
+// t_offset, dslash_pallas.py:522-528, :548-556, :565-616, :640-656), for
+// one shard of a (t, z) decomposition: the launch's T and Z are the
+// shard's, and a t or z leg that steps past the local edge reads a face
+// operand instead of psi and u:
+//   - spinor faces t-1, t+1 [2(ri), ns, 3, Z, S] and z-1, z+1
+//     [2(ri), ns, 3, T, S], the neighbour shards' boundary slices; ns = 4
+//     (full spinors) or 2 (half-spinors, already projected with this
+//     launch's tables, so the leg skips its own projection);
+//   - the mu=3 links of the t-1 face [R, 3, 2(ri), Z, S] and the mu=2
+//     links of the z-1 face [R, 3, 2(ri), T, S], both of source parity p
+//     (the only links a backward leg reads across an edge);
+//   - t_offset, the shard's global t, and t_global, the global extent:
+//     the reconstruct-12 phase goes on the rebuilt row at global t = T-1
+//     (outside halo mode t_offset = 0 and t_global = T).
+// The checkerboard uses local coordinates, which is right because every
+// shard offset is even.  The faces add 2 x 12 (half) or 2 x 24 reals a
+// boundary site, a surface term; HALO is a template flag, so the other
+// modes keep their registers.
+// Spinor operands may be views whose re/im planes are a stride apart
+// (psi_rs, psi0_rs, out_rs: elements from the re to the im plane; 12*n
+// when contiguous) and per-leg outputs a stride out_ls apart, so that
+// the MG layout [2(ri), 2(par), 4, 3, T, Z, S] is read and written per
+// parity in place.  Inside a plane the layout is [4, 3, T, Z, S].
+//
+// Batch axis (the TPU kernel under jax.vmap: the batching rule of the
+// pl.pallas_call at dslash_pallas.py:733 adds a grid axis over the
+// right-hand sides and reads the unbatched gauge once per program): psi,
+// psi0 and out may hold n_batch fields psi_bs, psi0_bs and out_bs elements
+// apart; blockIdx.y is the right-hand side, u and the clover operand are
+// shared.  A run-time argument, so it adds no instantiation.  The columns
+// of one site run in different blocks, so a link is read (and rebuilt)
+// once per column: f32 reconstruct-12 `none` moves 192 + 384 B per column
+// and site where a kernel that kept the link for its N columns would move
+// 192 + 384/N; the L2 cache serves part of the re-reads.
+// Reconstruct-8 (the TPU kernel's K5, dslash_pallas.py:247-303): NROW = 4
+// reads 8 reals a link, [4(pair), 1, 2(ri)] = (u01, u02, (theta00, alpha),
+// (beta, gamma)) of utils/packed.pack_gauge8: |u00| from the unit norm of
+// row 0, row 1 = cos(a) e^{ib} v1 + sin(a) e^{ig} v2 in an orthonormal
+// basis {v1, v2} of row 0's complement, row 2 as reconstruct-12.  v1
+// pivots on the larger of |u01|^2, |u02|^2, compared with separately
+// rounded products and sums (no fused multiply-add), which is bit for bit
+// the comparison the packer and the plain version make on the stored
+// values.  sincosf/sincos, never the fast intrinsics.
+// Arithmetic types: S the storage, R the arithmetic of the projection,
+// mat-vec, accumulation and epilogue, G that of the link reconstruction.
+// R = float for float and __nv_bfloat16 storage, double for double; the
+// TPU kernel's compute="bf16" (dslash_pallas.py:705-711) is S = R =
+// __nv_bfloat16.  G = double for double storage, else float (a unitarity
+// constraint needs more than 8 bits; dslash_pallas.py:312-327).
+// One translation unit per (S, R, NROW), dslash_eo_inst.cu compiled with
+// -DTQ_STORAGE, -DTQ_COMPUTE, -DTQ_NROW, -DTQ_NAME, all built side by side
+// and linked with the entries of dslash_eo.cu.
+//
+// Spin-projection tables (DeGrand-Rossi; tpuqcd/gammas.py).  For
+// (1 - gamma_mu):  h_a = psi_a + P(mu,a) psi_{partner(mu,a)},  a = 0, 1
+//                  out_a = h_a,  out_b = Q(mu,b) h_{src(mu,b)},  b = 2, 3
+// and (1 + gamma_mu) negates every P and Q.  P and Q are 0, +-1 or +-i.
+// The daggered hop swaps the two projectors.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+#include <type_traits>
+
+// the arguments of a launch, shared by every entry point
+#define TQ_PARAMS                                                                             \
+  const void *u, const void *psi, const void *psi0, const void *clov, void *out, int T, int Z, \
+      int Y, int Xh, int nrow, int src_parity, int dagger, int epilogue, double tw, double k2, \
+      int t_boundary, int leg_mask, int legs_out, int64_t psi_rs, int64_t psi0_rs,            \
+      int64_t out_rs, int64_t out_ls, int64_t psi_bs, int64_t psi0_bs, int64_t out_bs,        \
+      int n_batch, const void *f_tm, const void *f_tp, const void *f_zm, const void *f_zp,    \
+      const void *u_tm, const void *u_zm, int halo, int face_spins, int t_offset,             \
+      int t_global, int device, void *stream
+#define TQ_ARGS                                                                               \
+  u, psi, psi0, clov, out, T, Z, Y, Xh, nrow, src_parity, dagger, epilogue, tw, k2,           \
+      t_boundary, leg_mask, legs_out, psi_rs, psi0_rs, out_rs, out_ls, psi_bs, psi0_bs,       \
+      out_bs, n_batch, f_tm, f_tp, f_zm, f_zp, u_tm, u_zm, halo, face_spins, t_offset,        \
+      t_global, device, stream
+
+#ifndef TQ_NO_KERNELS  // dslash_eo.cu takes the argument lists only
+
+namespace {
+
+// the link-reconstruction arithmetic of a storage type
+template <typename S> struct ReconOf { using type = float; };
+template <> struct ReconOf<double> { using type = double; };
+
+// value conversion between the storage and arithmetic types
+template <typename To, typename From>
+__device__ __forceinline__ To conv(From v) {
+  if constexpr (std::is_same<To, From>::value) {
+    return v;
+  } else if constexpr (std::is_same<From, __nv_bfloat16>::value) {
+    return To(__bfloat162float(v));
+  } else if constexpr (std::is_same<To, __nv_bfloat16>::value) {
+    return __float2bfloat16_rn((float)v);
+  } else {
+    return To(v);
+  }
+}
+
+template <typename S, typename R>
+__device__ __forceinline__ void store(S* p, R v) { *p = conv<S>(v); }
+
+// math of the reconstruct-8 rebuild, float and double
+__device__ __forceinline__ float sqrt_(float v) { return sqrtf(v); }
+__device__ __forceinline__ double sqrt_(double v) { return sqrt(v); }
+__device__ __forceinline__ void sincos_(float a, float* s, float* c) { sincosf(a, s, c); }
+__device__ __forceinline__ void sincos_(double a, double* s, double* c) { sincos(a, s, c); }
+// x0^2 + x1^2 with each product and the sum rounded on its own
+__device__ __forceinline__ float mag2(float a, float b) {
+  return __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b));
+}
+__device__ __forceinline__ double mag2(double a, double b) {
+  return __dadd_rn(__dmul_rn(a, a), __dmul_rn(b, b));
+}
+
+template <typename R> struct cpx { R re, im; };
+
+template <typename R>
+__device__ __forceinline__ cpx<R> cadd(cpx<R> a, cpx<R> b) { return {a.re + b.re, a.im + b.im}; }
+template <typename R>
+__device__ __forceinline__ cpx<R> cmul(cpx<R> a, cpx<R> b) {
+  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
+}
+template <typename R>  // conj(a) * b
+__device__ __forceinline__ cpx<R> cmulc(cpx<R> a, cpx<R> b) {
+  return {a.re * b.re + a.im * b.im, a.re * b.im - a.im * b.re};
+}
+
+// (cr + i ci) * z for a table coefficient: exactly one of cr, ci is
+// nonzero and it is +-1, known at compile time after unrolling
+template <typename R>
+__device__ __forceinline__ cpx<R> coef_mul(int cr, int ci, cpx<R> z) {
+  if (cr != 0) return {cr > 0 ? z.re : -z.re, cr > 0 ? z.im : -z.im};
+  return {ci > 0 ? -z.im : z.im, ci > 0 ? z.re : -z.re};
+}
+
+__host__ __device__ constexpr int partner(int mu, int a) { return mu < 2 ? 3 - a : 2 + a; }
+__host__ __device__ constexpr int proj_re(int mu, int a) {
+  return mu == 1 ? (a == 0 ? 1 : -1) : (mu == 3 ? -1 : 0);
+}
+__host__ __device__ constexpr int proj_im(int mu, int a) {
+  return mu == 0 ? -1 : (mu == 2 ? (a == 0 ? -1 : 1) : 0);
+}
+__host__ __device__ constexpr int recon_src(int mu, int b) { return mu < 2 ? 3 - b : b - 2; }
+__host__ __device__ constexpr int recon_re(int mu, int b) {
+  return mu == 1 ? (b == 2 ? -1 : 1) : (mu == 3 ? -1 : 0);
+}
+__host__ __device__ constexpr int recon_im(int mu, int b) {
+  return mu == 0 ? 1 : (mu == 2 ? (b == 2 ? 1 : -1) : 0);
+}
+
+// Rows 0 and 1 of a reconstruct-8 link from its 8 stored reals
+// (tpuqcd/ops/dslash_pallas.py:247-303, utils/packed.pack_gauge8).
+template <typename G>
+__device__ __forceinline__ void recon8_rows(const G (&x)[8], cpx<G> (&U)[3][3]) {
+  const G m1 = mag2(x[0], x[1]), m2 = mag2(x[2], x[3]);
+  const G a00sq = fmax(G(1) - (m1 + m2), G(0));
+  const G a00 = sqrt_(a00sq);
+  G s, c;
+  sincos_(x[4], &s, &c);
+  const cpx<G> u00 = {a00 * c, a00 * s}, u01 = {x[0], x[1]}, u02 = {x[2], x[3]};
+  // the basis pivots on the larger of |u01|, |u02|: the packer's branch
+  const bool use1 = m1 >= m2;
+  const G inv = G(1) / sqrt_(fmax(a00sq + (use1 ? m1 : m2), G(1e-30)));
+  const cpx<G> zero = {G(0), G(0)};
+  cpx<G> v1[3], v2[3];
+  v1[0] = use1 ? cpx<G>{-u01.re * inv, u01.im * inv} : cpx<G>{u02.re * inv, -u02.im * inv};
+  v1[1] = use1 ? cpx<G>{u00.re * inv, -u00.im * inv} : zero;
+  v1[2] = use1 ? zero : cpx<G>{-u00.re * inv, u00.im * inv};
+  U[0][0] = u00, U[0][1] = u01, U[0][2] = u02;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {  // v2 = conj(row0 x v1)
+    const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
+    cpx<G> a = cmul(U[0][j1], v1[j2]);
+    cpx<G> b = cmul(U[0][j2], v1[j1]);
+    v2[j] = {a.re - b.re, -(a.im - b.im)};
+  }
+  G sa, ca, sb, cb, sg, cg;
+  sincos_(x[5], &sa, &ca);
+  sincos_(x[6], &sb, &cb);
+  sincos_(x[7], &sg, &cg);
+  const cpx<G> c1 = {ca * cb, ca * sb}, c2 = {sa * cg, sa * sg};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) U[1][j] = cadd(cmul(c1, v1[j]), cmul(c2, v2[j]));
+}
+
+// One hop leg: acc += (1 -+ gamma_mu) U psi(nb), with U = link or its
+// adjoint.  sgn = +1 takes the (1 - gamma) tables, -1 the (1 + gamma).
+// psi points at the neighbour's (spin 0, colour 0, re) element, spin-colour
+// components psi_ss apart and re/im psi_rs apart; half: it holds the two
+// projected spins.  ul points at the link's first element, elements u_ss
+// apart.  The link is rebuilt in G and used in R.
+template <int MU, int NROW, bool ADJ, typename S, typename R, typename G>
+__device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict__ psi,
+                                        int64_t psi_rs, int64_t psi_ss, bool half,
+                                        const S* __restrict__ ul, int64_t u_ss, int sgn,
+                                        G phase) {
+  // half-spinor projection at the neighbour
+  cpx<R> h[2][3];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int b = partner(MU, a);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const S* pa_ = psi + (a * 3 + c) * psi_ss;
+      cpx<R> pa = {conv<R>(pa_[0]), conv<R>(pa_[psi_rs])};
+      if (half) {
+        h[a][c] = pa;
+        continue;
+      }
+      const S* pb_ = psi + (b * 3 + c) * psi_ss;
+      cpx<R> pb = {conv<R>(pb_[0]), conv<R>(pb_[psi_rs])};
+      cpx<R> t = coef_mul(proj_re(MU, a), proj_im(MU, a), pb);
+      h[a][c] = sgn > 0 ? cadd(pa, t) : cpx<R>{pa.re - t.re, pa.im - t.im};
+    }
+  }
+  // the link, rebuilt to 3x3 from reconstruct-12 or reconstruct-8 if needed
+  cpx<G> Ug[3][3];
+  if (NROW == 4) {
+    G x[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = conv<G>(ul[k * u_ss]);
+    recon8_rows(x, Ug);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NROW; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        Ug[i][j] = {conv<G>(ul[((i * 3 + j) * 2 + 0) * u_ss]),
+                    conv<G>(ul[((i * 3 + j) * 2 + 1) * u_ss])};
+  }
+  if (NROW != 3) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
+      cpx<G> a = cmul(Ug[0][j1], Ug[1][j2]);
+      cpx<G> b = cmul(Ug[0][j2], Ug[1][j1]);
+      Ug[2][j] = {phase * (a.re - b.re), -phase * (a.im - b.im)};
+    }
+  }
+  cpx<R> U[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) U[i][j] = {conv<R>(Ug[i][j].re), conv<R>(Ug[i][j].im)};
+  // SU(3) mat-vec on both half spinors, then reconstruct and accumulate
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    cpx<R> w[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      cpx<R> s = {conv<R>(0.f), conv<R>(0.f)};
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        s = cadd(s, ADJ ? cmulc(U[j][i], h[a][j]) : cmul(U[i][j], h[a][j]));
+      w[i] = s;
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) acc[a][i] = cadd(acc[a][i], w[i]);
+#pragma unroll
+    for (int b = 2; b < 4; ++b) {
+      if (recon_src(MU, b) != a) continue;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        cpx<R> t = coef_mul(recon_re(MU, b), recon_im(MU, b), w[i]);
+        acc[b][i] = sgn > 0 ? cadd(acc[b][i], t)
+                            : cpx<R>{acc[b][i].re - t.re, acc[b][i].im - t.im};
+      }
+    }
+  }
+}
+
+// Zero an accumulator.
+template <typename R>
+__device__ __forceinline__ void zero(cpx<R> (&acc)[4][3]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[a][c] = {conv<R>(0.f), conv<R>(0.f)};
+}
+
+// Store a spinor's 24 reals at site n of an output with re/im planes rs apart.
+template <typename S, typename R>
+__device__ __forceinline__ void store_spinor(S* __restrict__ out, int64_t rs, int64_t n_sites,
+                                             int64_t n, const cpx<R> (&acc)[4][3]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      S* o = out + (a * 3 + c) * n_sites + n;
+      store(o, acc[a][c].re);
+      store(o + rs, acc[a][c].im);
+    }
+}
+
+// reals a stored link holds
+__host__ __device__ constexpr int link_reals(int nrow) { return nrow == 4 ? 8 : nrow * 6; }
+
+template <typename S, typename R, int NROW, bool DAGGER, bool LEGS_OUT, bool CLOVER, bool HALO>
+__global__ void __launch_bounds__(128)
+dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
+                 const S* __restrict__ psi0, const S* __restrict__ clov,
+                 S* __restrict__ out, int T, int Z, int Y,
+                 int Xh, int p, int epilogue, double tw_d, double k2_d, int t_boundary,
+                 int leg_mask, int64_t psi_rs, int64_t psi0_rs, int64_t out_rs,
+                 int64_t out_ls, int64_t psi_bs, int64_t psi0_bs, int64_t out_bs,
+                 const S* __restrict__ f_tm, const S* __restrict__ f_tp,
+                 const S* __restrict__ f_zm, const S* __restrict__ f_zp,
+                 const S* __restrict__ u_tm, const S* __restrict__ u_zm, int face_spins,
+                 int t_offset, int t_global) {
+  using G = typename ReconOf<S>::type;
+  const int64_t n_sites = (int64_t)T * Z * Y * Xh;
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= n_sites) return;
+  // the right-hand side of a batch
+  psi += blockIdx.y * psi_bs;
+  if (psi0 != nullptr) psi0 += blockIdx.y * psi0_bs;
+  out += blockIdx.y * out_bs;
+  const int xh = (int)(n % Xh);
+  const int y = (int)((n / Xh) % Y);
+  const int z = (int)((n / ((int64_t)Xh * Y)) % Z);
+  const int t = (int)(n / ((int64_t)Xh * Y * Z));
+  const int q = 1 - p;
+  // x offset of the source-parity rows (tpuqcd/ops/dslash_pallas.py:106)
+  const bool o_p = ((t + z + y + p) & 1) == 1;
+  auto site = [=](int t_, int z_, int y_, int xh_) -> int64_t {
+    return (((int64_t)t_ * Z + z_) * Y + y_) * Xh + xh_;
+  };
+  // the links of direction mu and parity par, one element a site
+  auto links = [=](int mu, int par) -> const S* {
+    return u + (int64_t)(mu * 2 + par) * link_reals(NROW) * n_sites;
+  };
+  const int xf = o_p ? xh : (xh + 1 == Xh ? 0 : xh + 1);
+  const int xb = o_p ? (xh == 0 ? Xh - 1 : xh - 1) : xh;
+  const int yf = y + 1 == Y ? 0 : y + 1, yb = y == 0 ? Y - 1 : y - 1;
+  const int zf = z + 1 == Z ? 0 : z + 1, zb = z == 0 ? Z - 1 : z - 1;
+  const int tf = t + 1 == T ? 0 : t + 1, tb = t == 0 ? T - 1 : t - 1;
+  // phase of a rebuilt row 2 (reconstruct-12 and -8) of a t-link at global
+  // t = T-1: the forward leg's link at global t_offset + t, the backward
+  // leg's one slice below
+  const G one = G(1);
+  const int tg = t_offset + t;
+  const G ph_f = (NROW != 3 && tg == t_global - 1) ? G(t_boundary) : one;
+  const G ph_b = (NROW != 3 && tg == 0) ? G(t_boundary) : one;
+  // forward legs take (1 - gamma), backward legs (1 + gamma); dagger swaps
+  const int sf = DAGGER ? -1 : 1;
+  const int sb = -sf;
+  // halo mode: the legs that step past the local t or z edge, and the
+  // site's index in a t face ([Z, S]) and in a z face ([T, S])
+  const bool at_tf = HALO && t == T - 1, at_tb = HALO && t == 0;
+  const bool at_zf = HALO && z == Z - 1, at_zb = HALO && z == 0;
+  const int64_t n_ts = (int64_t)Z * Y * Xh, n_zs = (int64_t)T * Y * Xh;
+  const int64_t i_t = n % n_ts, i_z = (int64_t)t * Y * Xh + n % ((int64_t)Y * Xh);
+  const bool half = face_spins == 2;
+  const int64_t frs_t = (int64_t)face_spins * 3 * n_ts, frs_z = (int64_t)face_spins * 3 * n_zs;
+
+  cpx<R> acc[4][3];
+  zero(acc);
+  S* slot = out;
+
+  // forward: U_mu(x)|q psi(x + mu);  backward: U_mu(x - mu)|p^dag psi(x - mu).
+  // A selected leg accumulates, or (LEGS_OUT) is stored to the next slot.
+#define TQ_LEG(BIT, MU, ADJ, PSI, PSI_RS, PSI_SS, HALF, UL, U_SS, SGN, PHASE)               \
+  if (leg_mask & (1 << (BIT))) {                                                           \
+    if (LEGS_OUT) zero(acc);                                                               \
+    hop_leg<MU, NROW, ADJ>(acc, PSI, PSI_RS, PSI_SS, HALF, UL, U_SS, SGN, PHASE);           \
+    if (LEGS_OUT) {                                                                        \
+      store_spinor(slot, out_rs, n_sites, n, acc);                                         \
+      slot += out_ls;                                                                      \
+    }                                                                                      \
+  }
+  TQ_LEG(0, 0, false, psi + site(t, z, y, xf), psi_rs, n_sites, false, links(0, q) + n,
+         n_sites, sf, one)
+  TQ_LEG(1, 0, true, psi + site(t, z, y, xb), psi_rs, n_sites, false,
+         links(0, p) + site(t, z, y, xb), n_sites, sb, one)
+  TQ_LEG(2, 1, false, psi + site(t, z, yf, xh), psi_rs, n_sites, false, links(1, q) + n,
+         n_sites, sf, one)
+  TQ_LEG(3, 1, true, psi + site(t, z, yb, xh), psi_rs, n_sites, false,
+         links(1, p) + site(t, z, yb, xh), n_sites, sb, one)
+  TQ_LEG(4, 2, false, at_zf ? f_zp + i_z : psi + site(t, zf, y, xh), at_zf ? frs_z : psi_rs,
+         at_zf ? n_zs : n_sites, at_zf && half, links(2, q) + n, n_sites, sf, one)
+  TQ_LEG(5, 2, true, at_zb ? f_zm + i_z : psi + site(t, zb, y, xh), at_zb ? frs_z : psi_rs,
+         at_zb ? n_zs : n_sites, at_zb && half,
+         at_zb ? u_zm + i_z : links(2, p) + site(t, zb, y, xh), at_zb ? n_zs : n_sites, sb, one)
+  TQ_LEG(6, 3, false, at_tf ? f_tp + i_t : psi + site(tf, z, y, xh), at_tf ? frs_t : psi_rs,
+         at_tf ? n_ts : n_sites, at_tf && half, links(3, q) + n, n_sites, sf, ph_f)
+  TQ_LEG(7, 3, true, at_tb ? f_tm + i_t : psi + site(tb, z, y, xh), at_tb ? frs_t : psi_rs,
+         at_tb ? n_ts : n_sites, at_tb && half,
+         at_tb ? u_tm + i_t : links(3, p) + site(tb, z, y, xh), at_tb ? n_ts : n_sites, sb,
+         ph_b)
+#undef TQ_LEG
+  if (LEGS_OUT) return;
+
+  const R tw = conv<R>(tw_d), k2 = conv<R>(k2_d);
+  const R r_one = conv<R>(1.f), r_mone = conv<R>(-1.f);
+  if (CLOVER) {
+    // clover epilogue (tpuqcd/ops/dslash_pallas.py:461-501): per chirality,
+    // the block row by row over the 6 inputs; an output row overwrites
+    // only its own accumulator entry, which it alone reads
+    const int64_t cl_rs = 72 * n_sites;  // re -> im plane of the clover operand
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const R g5 = c == 0 ? r_one : r_mone;
+      cpx<R> x[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        if (epilogue == 3) {
+          x[k] = acc[2 * c + k / 3][k % 3];
+        } else {
+          const S* p0 = psi0 + ((2 * c + k / 3) * 3 + k % 3) * n_sites + n;
+          x[k] = {conv<R>(p0[0]), conv<R>(p0[psi0_rs])};
+        }
+      }
+      const S* blk = clov + (int64_t)c * 36 * n_sites + n;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        cpx<R> row = {conv<R>(0.f), conv<R>(0.f)};
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          const S* m = blk + (int64_t)(i * 6 + k) * n_sites;
+          row = cadd(row, cmul(cpx<R>{conv<R>(m[0]), conv<R>(m[cl_rs])}, x[k]));
+        }
+        cpx<R>& o = acc[2 * c + i / 3][i % 3];
+        if (epilogue == 4)  // (A + i tw g5) psi0 - k2 . D psi
+          row = {row.re - tw * g5 * x[i].im - k2 * o.re, row.im + tw * g5 * x[i].re - k2 * o.im};
+        o = row;
+      }
+    }
+    store_spinor(out, out_rs, n_sites, n, acc);
+    return;
+  }
+
+  // fused site-term epilogue (tpuqcd/ops/dslash_pallas.py:446-460)
+  const R den = r_one / (r_one + tw * tw);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const R g5 = a < 2 ? r_one : r_mone;  // gamma5 = diag(1, 1, -1, -1)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      R rr = acc[a][c].re, ri = acc[a][c].im;
+      if (epilogue == 1) {  // (1 - i tw g5) / (1 + tw^2) . D psi
+        const R dr = rr, di = ri;
+        rr = den * dr + (tw * den) * g5 * di;
+        ri = den * di - (tw * den) * g5 * dr;
+      } else if (epilogue == 2) {  // (1 + i tw g5) psi0 - k2 . D psi
+        const S* p0 = psi0 + (a * 3 + c) * n_sites + n;
+        const R p0r = conv<R>(p0[0]), p0i = conv<R>(p0[psi0_rs]);
+        const R dr = rr, di = ri;
+        rr = p0r - tw * g5 * p0i - k2 * dr;
+        ri = p0i + tw * g5 * p0r - k2 * di;
+      }
+      acc[a][c] = {rr, ri};
+    }
+  }
+  store_spinor(out, out_rs, n_sites, n, acc);
+}
+
+template <typename S, typename R, int NROW>
+int launch(TQ_PARAMS) {
+  // epilogues: 0 none, 1 twist_inv, 2 xpay, 3 clover_inv, 4 clover_xpay
+  const bool clover = epilogue >= 3;
+  if (nrow != NROW || (src_parity != 0 && src_parity != 1) || epilogue < 0 || epilogue > 4 ||
+      ((epilogue == 2 || epilogue == 4) && psi0 == nullptr) || (clover && clov == nullptr) ||
+      T <= 0 || Z <= 0 || Y <= 0 || Xh <= 0 || leg_mask <= 0 || leg_mask > 255 ||
+      (legs_out && epilogue != 0) || n_batch < 1 || n_batch > 65535 ||
+      (n_batch > 1 && (legs_out || halo)))
+    return (int)cudaErrorInvalidValue;
+  if (halo && (legs_out || f_tm == nullptr || f_tp == nullptr || f_zm == nullptr ||
+               f_zp == nullptr || u_tm == nullptr || u_zm == nullptr ||
+               (face_spins != 2 && face_spins != 4) || t_offset < 0 ||
+               t_offset + T > t_global))
+    return (int)cudaErrorInvalidValue;
+  if (!halo) t_offset = 0, t_global = T;
+  // this library links its own CUDA runtime, whose current device is not
+  // PyTorch's: select the tensors' device before launching on its stream
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  const int64_t n_sites = (int64_t)T * Z * Y * Xh;
+  const int threads = 128;
+  const dim3 blocks((unsigned)((n_sites + threads - 1) / threads), (unsigned)n_batch);
+  cudaStream_t s = (cudaStream_t)stream;
+  const S* u_ = (const S*)u;
+  const S* psi_ = (const S*)psi;
+  const S* psi0_ = (const S*)psi0;
+  const S* clov_ = (const S*)clov;
+  S* out_ = (S*)out;
+#define TQ_LAUNCH(DG, LO, CL, HA)                                                           \
+  dslash_eo_kernel<S, R, NROW, DG, LO, CL, HA><<<blocks, threads, 0, s>>>(                  \
+      u_, psi_, psi0_, clov_, out_, T, Z, Y, Xh, src_parity, epilogue, tw, k2, t_boundary,  \
+      leg_mask, psi_rs, psi0_rs, out_rs, out_ls, psi_bs, psi0_bs, out_bs, (const S*)f_tm,   \
+      (const S*)f_tp, (const S*)f_zm, (const S*)f_zp, (const S*)u_tm, (const S*)u_zm,       \
+      face_spins, t_offset, t_global)
+#define TQ_LAUNCH_LO(DG)                                     \
+  if (legs_out) TQ_LAUNCH(DG, true, false, false);           \
+  else if (halo && clover) TQ_LAUNCH(DG, false, true, true);  \
+  else if (halo) TQ_LAUNCH(DG, false, false, true);          \
+  else if (clover) TQ_LAUNCH(DG, false, true, false);        \
+  else TQ_LAUNCH(DG, false, false, false);
+  if (dagger) { TQ_LAUNCH_LO(true) } else { TQ_LAUNCH_LO(false) }
+#undef TQ_LAUNCH_LO
+#undef TQ_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#endif  // TQ_NO_KERNELS

@@ -7,6 +7,8 @@ says the opposite signs).  Each Wilson projector (1 -+ gamma_mu) has rank 2
 and factors as recon[4, 2] @ proj[2, 4]; every table entry is 0, +-1 or
 +-i.  The CUDA kernel (csrc/dslash_eo.cu) hard-codes the same tables.
 SIGMA_MUNU[mu, nu] = (i/2)[gamma_mu, gamma_nu] feeds the clover term.
+The contraction tables (CGAMMA5, the projectors, EPS3, the meson
+channels) are products of the same four matrices.
 """
 from __future__ import annotations
 
@@ -58,3 +60,45 @@ HALF_RECON_PLUS = torch.stack([
     _c([[1, 0], [0, 1], [-_i, 0], [0, _i]]),
     _c([[1, 0], [0, 1], [1, 0], [0, 1]]),
 ])
+
+# --- contraction tables (tpuqcd/gammas.py:107-162) ---------------------------
+GAMMA_X, GAMMA_Y, GAMMA_Z, GAMMA_T = GAMMA[0], GAMMA[1], GAMMA[2], GAMMA[3]
+ID4 = torch.eye(4, dtype=torch.complex128)
+#: charge conjugation C = gamma_y gamma_t; C gamma5 is the diquark vertex
+#: of the nucleon interpolating operator
+CMAT = GAMMA_Y @ GAMMA_T
+CGAMMA5 = CMAT @ GAMMA5
+
+#: parity projectors (1 +- gamma_t) / 2 of the baryon two-point function
+PARITY_PLUS = 0.5 * (ID4 + GAMMA_T)
+PARITY_MINUS = 0.5 * (ID4 - GAMMA_T)
+#: baryon spin projectors: unpolarized, and P5k = (1 + gamma_t)/2 . i g5 g_k
+PROJECTORS = {
+    "P+": PARITY_PLUS,
+    "P-": PARITY_MINUS,
+    "P5x": PARITY_PLUS @ (1j * GAMMA5 @ GAMMA_X),
+    "P5y": PARITY_PLUS @ (1j * GAMMA5 @ GAMMA_Y),
+    "P5z": PARITY_PLUS @ (1j * GAMMA5 @ GAMMA_Z),
+}
+
+#: Levi-Civita epsilon_{abc} of the colour contractions, from its definition
+EPS3 = torch.tensor([[[(a - b) * (b - c) * (c - a) / 2 for c in range(3)]
+                      for b in range(3)] for a in range(3)], dtype=torch.float64)
+
+#: meson interpolators: the correlator is -Tr[Gamma S Gammabar g5 S^dag g5]
+#: with the same Gamma at source and sink
+MESON_CHANNELS = {
+    "a0": ID4,
+    "pion": GAMMA5,
+    "pion_g4": GAMMA_T @ GAMMA5,
+    "b0": GAMMA_T,
+    "rho_x": GAMMA_X, "rho_y": GAMMA_Y, "rho_z": GAMMA_Z,
+    "a1_x": GAMMA5 @ GAMMA_X,
+    "a1_y": GAMMA5 @ GAMMA_Y,
+    "a1_z": GAMMA5 @ GAMMA_Z,
+}
+
+
+def gbar(g: torch.Tensor) -> torch.Tensor:
+    """gamma_t g^dag gamma_t, the vertex at the source."""
+    return GAMMA_T @ g.mH @ GAMMA_T

@@ -52,6 +52,11 @@ if tuple(G5_DIAG) != (1.0, 1.0, -1.0, -1.0):
     raise ImportError(f"the transfers assume g5 = diag(1, 1, -1, -1), got {G5_DIAG}")
 
 
+def _par(v: torch.Tensor, p: int) -> torch.Tensor:
+    """Parity p of a fine field [..., 2(ri), 2(par), 4, 3, T, Z, S] as a view."""
+    return v.select(-6, p)
+
+
 # --------------------------------------------------------------------------
 # fine level
 
@@ -59,7 +64,7 @@ class _FineHops:
     """What the twisted-mass and twisted-clover fine levels share: the
     gauge (u_pk, its reconstruct-12 copy u12), the clover-free hops and
     the field shape.  Subclasses are frozen dataclasses with the fields
-    lat, u_pk, kappa, mu, flavor, t_boundary and u12."""
+    lat, u_pk, kappa, mu, flavor, t_boundary, u12 and compute."""
 
     def __post_init__(self):
         if self.u12 is None and self.u_pk.dtype != torch.float64:
@@ -79,10 +84,11 @@ class _FineHops:
         return self.u_pk if self.u12 is None else self.u12
 
     def _dslash(self, v, p, out, **kw):
-        """The hop into parity p of ``out`` from parity 1 - p of v."""
-        return dslash_eo(self._u, v[:, 1 - p], 1 - p, self.lat, kappa=self.kappa,
+        """The hop into parity p of ``out`` from parity 1 - p of v (a fine
+        field, or a batch [N, 2(ri), 2(par), ...] in one launch)."""
+        return dslash_eo(self._u, _par(v, 1 - p), 1 - p, self.lat, kappa=self.kappa,
                          mu=self.mu, flavor=self.flavor, t_boundary=self.t_boundary,
-                         out=out, **kw)
+                         out=out, compute=self.compute, **kw)
 
     def apply_hop(self, v: torch.Tensor, mu: int, sign: int) -> torch.Tensor:
         """One hop term of M (including the -kappa), both parities."""
@@ -121,12 +127,15 @@ class DeviceFineLevel(_FineHops):
     flavor: int = +1
     t_boundary: int = -1
     u12: torch.Tensor | None = None
+    #: the kernel's arithmetic: "f32", or "bf16" on a bfloat16 twin
+    compute: str = "f32"
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
-        """M v: one xpay launch per parity, (1 + i tw g5) v_p - kappa D v_{1-p}."""
-        out = torch.empty_like(v)
+        """M v: one xpay launch per parity, (1 + i tw g5) v_p - kappa D v_{1-p};
+        v a fine field or a batch [N, 2(ri), 2(par), ...]."""
+        out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
         for p in (0, 1):
-            self._dslash(v, p, out[:, p], epilogue="xpay", psi0=v[:, p],
+            self._dslash(v, p, _par(out, p), epilogue="xpay", psi0=_par(v, p),
                          xpay_scale=self.kappa)
         return out
 
@@ -135,9 +144,11 @@ class DeviceFineLevel(_FineHops):
         residuals (float32 links are exact in float64)."""
         return dataclasses.replace(self, u_pk=self.u_pk.to(torch.float64), u12=None)
 
-    def sloppy(self, dtype: torch.dtype = torch.bfloat16) -> "DeviceFineLevel":
-        """The smoother's twin with reconstruct-12 links stored in dtype."""
-        return dataclasses.replace(self, u12=self.u12.to(dtype))
+    def sloppy(self, dtype: torch.dtype = torch.bfloat16,
+               compute: str = "f32") -> "DeviceFineLevel":
+        """The smoother's twin with reconstruct-12 links stored in dtype;
+        compute="bf16" also runs the kernel's arithmetic in bfloat16."""
+        return dataclasses.replace(self, u12=self.u12.to(dtype), compute=compute)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,13 +170,14 @@ class DeviceFineCloverLevel(_FineHops):
     flavor: int = +1
     t_boundary: int = -1
     u12: torch.Tensor | None = None
+    compute: str = "f32"
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
         """M v: one clover_xpay launch per parity,
-        (A + i tw g5) v_p - kappa D v_{1-p}."""
-        out = torch.empty_like(v)
+        (A + i tw g5) v_p - kappa D v_{1-p}; v a fine field or a batch."""
+        out = torch.empty(v.shape, dtype=v.dtype, device=v.device)
         for p in (0, 1):
-            self._dslash(v, p, out[:, p], epilogue="clover_xpay", psi0=v[:, p],
+            self._dslash(v, p, _par(out, p), epilogue="clover_xpay", psi0=_par(v, p),
                          xpay_scale=self.kappa, clover=self.clover_pk[p])
         return out
 
@@ -269,6 +281,13 @@ class DeviceCoarseLevel:
         return torch.stack([c.real, c.imag])
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
+        """A v on a coarse field [2, N, Vc], or on a batch [B, 2, N, Vc] as
+        one batched product with B columns."""
+        if v.ndim == 4:
+            B = v.shape[0]
+            g = torch.complex(v[:, 0], v[:, 1]).permute(2, 1, 0)[self.nbr]   # [Vc, 9, N, B]
+            out = torch.bmm(self.links_c, g.reshape(self.Vc, 9 * self.n, B)).permute(2, 1, 0)
+            return torch.stack([out.real, out.imag], dim=1)
         g = self._sites(v)[self.nbr]                        # [Vc, 9, N]
         out = torch.bmm(self.links_c, g.reshape(self.Vc, 9 * self.n, 1))
         return self._packed(out[..., 0])
@@ -351,10 +370,13 @@ class _Transfer:
         return out[0] if single else out
 
     def prolong(self, xc: torch.Tensor) -> torch.Tensor:
-        """[2, N, Vc] -> fine field."""
-        c = torch.complex(xc[0], xc[1]).reshape(2, self.n_vec, self.Vc).permute(0, 2, 1)
-        tmp = self.linv.mH @ c[..., None]                      # [2, Nagg, n, 1]
-        return self._from_agg(self.v @ tmp)[0]
+        """[(B,) 2, N, Vc] -> fine field (or the batch [B, ...] of them)."""
+        single = xc.ndim == 3
+        xb = xc[None] if single else xc
+        c = torch.complex(xb[:, 0], xb[:, 1]).reshape(-1, 2, self.n_vec, self.Vc)
+        tmp = self.linv.mH @ c.permute(1, 3, 2, 0)             # [2, Nagg, n, B]
+        out = self._from_agg(self.v @ tmp)
+        return out[0] if single else out
 
     def linv_pk(self) -> torch.Tensor:
         """tpuqcd's packed Linv [2(ri), 2(chir), n, n, Tc, Zc, Yc*Xc]."""

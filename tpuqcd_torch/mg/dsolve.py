@@ -1,10 +1,18 @@
 """Adaptive multigrid on the device: setup, V-cycle, certified solve.
 
-Counterpart of ``tpuqcd/mg/dsolve.py`` (single right-hand side, float64
-certification).  The MG-preconditioned flexible GCR runs on the device;
-the host reads the residual norm once per restart cycle (tpuqcd's
-``lax.while_loop`` condition), and an outer defect-correction loop
-against the float64 operator certifies the true residual.
+Counterpart of ``tpuqcd/mg/dsolve.py`` (float64 certification).  The
+MG-preconditioned flexible GCR runs on the device; the host reads the
+residual norm once per restart cycle (tpuqcd's ``lax.while_loop``
+condition), and an outer defect-correction loop against the float64
+operator certifies the true residual.
+
+``solve_batch`` and ``solve_certified_batch`` run N right-hand sides
+[N, 2(ri), 2(par), 4, 3, T, Z, S] as one GCR stream in lockstep (tpuqcd
+vmaps the cycle, mg/dsolve.py:316-428): every fine apply is one batched
+kernel launch, every transfer and coarse apply one batched product, with
+one scalar per column (utils/pkalg.batched).  Columns that have converged
+keep polishing until every column meets the tolerance, and the iteration
+count is the common one.
 """
 from __future__ import annotations
 
@@ -164,30 +172,129 @@ class DeviceMG:
 
     # --- the cycle -----------------------------------------------------------
 
-    def _vcycle(self, depth: int, b: torch.Tensor) -> torch.Tensor:
+    def _vcycle(self, depth: int, b: torch.Tensor, on=lambda f: f) -> torch.Tensor:
+        """One V-cycle from level ``depth`` down.  ``on`` adapts a level's
+        or transfer's function to the fields the cycle carries: the
+        identity for one field, _on_batch for the views of a batch."""
         p = self.params
         lv = self.levels[depth]
         if depth == len(self.levels) - 1:
-            return gcr_fixed_pk(lv.apply, b, iters=p.coarse_iters, restart=p.restart)
+            return gcr_fixed_pk(on(lv.apply), b, iters=p.coarse_iters, restart=p.restart)
 
         def smooth(rhs):
             if depth == 0 and self.sloppy_fine is not None:
-                xs = mr_smoother_pk(self.sloppy_fine.apply, rhs.to(torch.bfloat16),
+                xs = mr_smoother_pk(on(self.sloppy_fine.apply), rhs.to(torch.bfloat16),
                                     iters=p.smoother_iters)
                 return xs.to(torch.float32)
-            return mr_smoother_pk(lv.apply, rhs, iters=p.smoother_iters)
+            return mr_smoother_pk(on(lv.apply), rhs, iters=p.smoother_iters)
 
         tr = self.transfers[depth]
+        apply = on(lv.apply)
         x = smooth(b)
-        r = pk.caxpy(-1.0, 0.0, lv.apply(x), b)
-        xc = self._vcycle(depth + 1, tr.restrict(r))
-        x = x + tr.prolong(xc)
-        r = pk.caxpy(-1.0, 0.0, lv.apply(x), b)
+        r = pk.caxpy(-1.0, 0.0, apply(x), b)
+        xc = self._vcycle(depth + 1, on(tr.restrict)(r), on)
+        x = x + on(tr.prolong)(xc)
+        r = pk.caxpy(-1.0, 0.0, apply(x), b)
         return x + smooth(r)
 
     def precondition(self, r: torch.Tensor) -> torch.Tensor:
         """One V-cycle ~ M^{-1} r."""
         return self._vcycle(0, r)
+
+    # --- N right-hand sides in lockstep ---------------------------------------
+
+    def batch_bytes(self, n_rhs: int) -> int:
+        """Device memory solve_certified_batch holds at its peak for n_rhs
+        columns: the GCR basis (Z and V, 2 restart fields a column), and
+        about 10 more float32 fields a column for the iterate, residual,
+        V-cycle temporaries and the float64 iterate, source and residual."""
+        field = 4 * 2 * 2 * 12 * self.levels[0].lat.half_volume
+        return n_rhs * (2 * self.params.restart + 10) * field
+
+    def _check_batch_fits(self, n_rhs: int) -> None:
+        dev = self.levels[0].device
+        if dev.type != "cuda":
+            return
+        free, _ = torch.cuda.mem_get_info(dev)
+        # blocks PyTorch's allocator holds but does not use are free for the solve
+        free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+        need = self.batch_bytes(n_rhs)
+        if need > free:
+            raise MemoryError(
+                f"a batched MG solve of {n_rhs} right-hand sides needs about "
+                f"{need / 2**30:.1f} GiB ({n_rhs} x (2 x restart {self.params.restart} + 10) "
+                f"float32 fine fields of {need / n_rhs / (2 * self.params.restart + 10) / 2**20:.0f}"
+                f" MiB) and {free / 2**30:.1f} GiB are free on {dev}: lower solver.rhs_batch")
+
+    def solve_batch(self, b: torch.Tensor, tol: float = 1e-6,
+                    maxiter: int = 200) -> GCRResultPk:
+        """MG-preconditioned flexible GCR on N fine systems at once, b
+        [N, 2(ri), 2(par), 4, 3, T, Z, S] float32, until every column meets
+        tol (tpuqcd/mg/dsolve.py:349).  relres is a list, one per column;
+        iters the common count.  A zero column stays zero."""
+        with pk.batched():
+            bv = pk.ri_major(b)
+            bsq = pk.norm2(bv)
+            live = bsq > 0
+            bnorm = torch.sqrt(torch.where(live, bsq, torch.ones_like(bsq)))
+            bv = bv / bnorm
+            apply = _on_batch(self.levels[0].apply)
+
+            def precond(r):
+                return self._vcycle(0, r, _on_batch)
+
+            x, r = torch.zeros_like(bv), bv
+            tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
+            rsq, it = pk.norm2(r), 0
+            while rsq.max().item() > tol2 and it < maxiter:
+                x, r = _gcr_cycle(apply, precond, x, r, self.params.restart)
+                rsq = pk.norm2(r)
+                it += self.params.restart
+            relres = torch.sqrt(torch.where(live, rsq, torch.zeros_like(rsq))).flatten().tolist()
+            x = pk.ri_major(x * bnorm)
+        return GCRResultPk(x=x, relres=relres, iters=it,
+                           converged=all(rr <= tol for rr in relres))
+
+    def solve_certified_batch(self, b: torch.Tensor, *, tol: float = 1e-10,
+                              inner_tol: float | None = None, maxiter: int = 200,
+                              max_refine: int = 12, verbose: bool = False) -> CertifiedResult:
+        """solve_certified on N right-hand sides in lockstep, b [N, 2(ri),
+        2(par), 4, 3, T, Z, S]: per-column normalization and float64
+        certification (tpuqcd/mg/dsolve.py:377).  x is float64 in b's
+        layout, relres a list, iters the inner iterations (common to the
+        columns).  Raises MemoryError before allocating when the GCR basis
+        of N columns does not fit the card (batch_bytes)."""
+        self._check_batch_fits(b.shape[0])
+        if inner_tol is None:
+            inner_tol = self.params.inner_tol
+        if self._hp is None:
+            self._hp = self.levels[0].as_hp()
+        hp_level = self._hp
+        cols = (-1, *([1] * (b.ndim - 1)))
+
+        def colnorm(x64):
+            return torch.sqrt(torch.linalg.vecdot(x64.flatten(1), x64.flatten(1)))
+
+        b64 = b.to(torch.float64)
+        bnorm = colnorm(b64)
+        live = bnorm > 0
+        bnorm = torch.where(live, bnorm, torch.ones_like(bnorm)).reshape(cols)
+        b64 = b64 / bnorm
+        x = torch.zeros_like(b64)
+        total, nref = 0, 0
+        for it in range(max_refine + 1):
+            r64 = b64 - hp_level.apply(x)
+            rel = torch.where(live, colnorm(r64), torch.zeros_like(live, dtype=torch.float64))
+            rel = rel.tolist()
+            if verbose:
+                print(f"[mg] refine {it}: true relres max {max(rel):.3e} ({total} inner iters)")
+            if max(rel) <= tol or it == max_refine:
+                break
+            res = self.solve_batch(r64.to(torch.float32), tol=inner_tol, maxiter=maxiter)
+            total += res.iters
+            nref += 1
+            x += res.x.to(torch.float64)
+        return CertifiedResult(x * bnorm, rel, total, nref)
 
     def solve(self, b: torch.Tensor, tol: float = 1e-6, maxiter: int = 200) -> GCRResultPk:
         """MG-preconditioned flexible GCR on M x = b in float32.  The
@@ -253,6 +360,12 @@ class DeviceMG:
                       f"{t_res:.2f}s, inner {res.iters} iters "
                       f"{time.perf_counter() - t0:.2f}s)")
         return CertifiedResult(x * bnorm, rel, total, nref)
+
+
+def _on_batch(f):
+    """f on batches [N, 2(ri), ...] as a function of their re/im-major
+    views [2(ri), N, ...], the form utils/pkalg.batched computes on."""
+    return lambda xv: pk.ri_major(f(pk.ri_major(xv)))
 
 
 def _check_params(params: DeviceMGParams) -> None:

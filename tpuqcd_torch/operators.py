@@ -36,12 +36,24 @@ def _g5(x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(G5_DIAG, dtype=x.dtype, device=x.device).reshape(4, 1, 1, 1, 1)
 
 
+def _ri(psi_pk: torch.Tensor):
+    """(re, im, the ri axis) of a packed spinor or a batch [N, 2(ri), ...]."""
+    nb = psi_pk.ndim - 6
+    return psi_pk.select(nb, 0), psi_pk.select(nb, 1), nb
+
+
+def _parity(b_pk: torch.Tensor, par: int) -> torch.Tensor:
+    """One parity of a two-parity field [2(par), 2(ri), ...] or a batch
+    [N, 2(par), 2(ri), ...], contiguous within each field."""
+    return b_pk.select(b_pk.ndim - 7, par)
+
+
 def twist_apply_pk(psi_pk: torch.Tensor, kappa: float, mu: float,
                    flavor: int = 1) -> torch.Tensor:
-    """(1 + 2 i kappa mu g5 flavor) psi on a packed spinor."""
+    """(1 + 2 i kappa mu g5 flavor) psi on a packed spinor (or a batch)."""
     tg = 2.0 * kappa * mu * flavor * _g5(psi_pk)
-    re, im = psi_pk[0], psi_pk[1]
-    return torch.stack([re - tg * im, im + tg * re])
+    re, im, nb = _ri(psi_pk)
+    return torch.stack([re - tg * im, im + tg * re], dim=nb)
 
 
 def twist_inv_apply_pk(psi_pk: torch.Tensor, kappa: float, mu: float,
@@ -50,19 +62,21 @@ def twist_inv_apply_pk(psi_pk: torch.Tensor, kappa: float, mu: float,
     t = 2.0 * kappa * mu * flavor
     den = 1.0 / (1.0 + t * t)
     tg = t * _g5(psi_pk)
-    re, im = psi_pk[0], psi_pk[1]
-    return torch.stack([den * (re + tg * im), den * (im - tg * re)])
+    re, im, nb = _ri(psi_pk)
+    return torch.stack([den * (re + tg * im), den * (im - tg * re)], dim=nb)
 
 
 def gamma5_apply_pk(psi_pk: torch.Tensor) -> torch.Tensor:
-    return psi_pk * _g5(psi_pk)[None]
+    return psi_pk * _g5(psi_pk)
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedTMOperatorPC:
     """Even-odd twisted-mass operator on packed fields.
 
-    Spinors [2(ri), 4, 3, T, Z, S]; gauge [4, 2, 3, 3, 2, T, Z, S] or its
+    Spinors [2(ri), 4, 3, T, Z, S], or a batch [N, 2(ri), ...] of them
+    through every method (one batched launch per hop; two-parity fields
+    [N, 2(par), 2(ri), ...]); gauge [4, 2, 3, 3, 2, T, Z, S] or its
     reconstruct-12 copy, of the spinor's dtype.  The dagger uses
         Mhat^dag = A(-mu) - k^2 Ddag_eo A(-mu)^{-1} Ddag_oe
     (daggered hop and flipped flavor), so it costs no gamma5 passes.
@@ -98,24 +112,25 @@ class PackedTMOperatorPC:
 
     def prepare(self, u: torch.Tensor, b_pk: torch.Tensor) -> torch.Tensor:
         """b [2(par), 2(ri), 4, 3, T, Z, S] -> bhat_e = b_e + k D_eo A^{-1} b_o."""
-        t = twist_inv_apply_pk(b_pk[1], self.kappa, self.mu, self.flavor)
-        return b_pk[0] + self.kappa * self._hop(u, t.contiguous(), ODD)
+        t = twist_inv_apply_pk(_parity(b_pk, 1), self.kappa, self.mu, self.flavor)
+        return _parity(b_pk, 0) + self.kappa * self._hop(u, t.contiguous(), ODD)
 
     def reconstruct(self, u: torch.Tensor, x_e: torch.Tensor,
                     b_pk: torch.Tensor) -> torch.Tensor:
         """x_o = A^{-1} (b_o + k D_oe x_e); returns [2(par), ...]."""
-        t = b_pk[1] + self.kappa * self._hop(u, x_e, EVEN)
+        t = _parity(b_pk, 1) + self.kappa * self._hop(u, x_e, EVEN)
         x_o = twist_inv_apply_pk(t, self.kappa, self.mu, self.flavor)
-        return torch.stack([x_e, x_o])
+        return torch.stack([x_e, x_o], dim=x_e.ndim - 6)
 
     def apply_full(self, u: torch.Tensor, x_pk: torch.Tensor) -> torch.Tensor:
         """The unpreconditioned two-parity M x on [2(par), 2(ri), ...]:
         (A x_e - k D_eo x_o, A x_o - k D_oe x_e), two xpay launches with
         the k2 = kappa scale."""
-        x_e, x_o = x_pk[0].contiguous(), x_pk[1].contiguous()
+        x_e, x_o = _parity(x_pk, 0), _parity(x_pk, 1)
         return torch.stack([
             self._hop(u, x_o, ODD, epilogue="xpay", psi0=x_e, xpay_scale=self.kappa),
-            self._hop(u, x_e, EVEN, epilogue="xpay", psi0=x_o, xpay_scale=self.kappa)])
+            self._hop(u, x_e, EVEN, epilogue="xpay", psi0=x_o, xpay_scale=self.kappa)],
+            dim=x_pk.ndim - 7)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +146,8 @@ class PackedTMCloverOperatorPC:
                   clinv_plus,   odd twisted inverses [2(ri), 2(chir), 6, 6, T, Z, S]
                   clinv_minus)  of flavor +1 and -1
 
-    all of one dtype (solve.make_clover_fields builds them).  An apply is
+    all of one dtype (solve.make_clover_fields builds them); spinors may
+    be a batch as in PackedTMOperatorPC.  An apply is
     two launches, clover_inv with the inverse of flavor f, then
     clover_xpay with A_ee; the dagger takes daggered hops and f flipped,
     since (A + i t g5)^dag = A - i t g5.
@@ -170,13 +186,14 @@ class PackedTMCloverOperatorPC:
 
     def prepare(self, fields, b_pk: torch.Tensor) -> torch.Tensor:
         """bhat_e = b_e + k D_eo Atw_oo^{-1} b_o."""
-        t = clover_apply_pk(self._clinv(fields, self.flavor), b_pk[1])
-        return b_pk[0] + self.kappa * self._hop(fields[0], t, ODD)
+        t = clover_apply_pk(self._clinv(fields, self.flavor), _parity(b_pk, 1))
+        return _parity(b_pk, 0) + self.kappa * self._hop(fields[0], t, ODD)
 
     def reconstruct(self, fields, x_e: torch.Tensor, b_pk: torch.Tensor) -> torch.Tensor:
         """x_o = Atw_oo^{-1} (b_o + k D_oe x_e); returns [2(par), ...]."""
-        t = b_pk[1] + self.kappa * self._hop(fields[0], x_e, EVEN)
-        return torch.stack([x_e, clover_apply_pk(self._clinv(fields, self.flavor), t)])
+        t = _parity(b_pk, 1) + self.kappa * self._hop(fields[0], x_e, EVEN)
+        return torch.stack([x_e, clover_apply_pk(self._clinv(fields, self.flavor), t)],
+                           dim=x_e.ndim - 6)
 
 
 @dataclasses.dataclass(frozen=True)

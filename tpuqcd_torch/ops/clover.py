@@ -117,19 +117,23 @@ def clover_twist_inverse(a_blocks: torch.Tensor, kappa: float, mu: float, flavor
 
 def clover_mv(cl: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Complex chiral blocks cl [2(chir), 6, 6, *sites] times complex
-    spinors x [4, 3, *sites] -> [4, 3, *sites]."""
-    xs = x.reshape(2, 1, 6, *x.shape[2:])
-    return (cl * xs).sum(2).reshape(x.shape)
+    spinors x [..., 4, 3, *sites] -> [..., 4, 3, *sites] (any leading
+    batch dims)."""
+    sites = cl.shape[3:]
+    lead = x.shape[:x.ndim - 2 - len(sites)]
+    xs = x.reshape(*lead, 2, 1, 6, *sites)
+    return (cl * xs).sum(len(lead) + 2).reshape(x.shape)
 
 
 def clover_apply_pk(cl_pk: torch.Tensor, psi_pk: torch.Tensor) -> torch.Tensor:
     """Packed chiral blocks [2(ri), 2(chir), 6, 6, T, Z, S] applied to a
-    packed spinor [2(ri), 4, 3, T, Z, S]: a 6x6 complex mat-vec per
-    chirality.  Computes in float64 when either operand is float64 (float32
+    packed spinor [2(ri), 4, 3, T, Z, S] (or a batch [N, 2(ri), ...]): a
+    6x6 complex mat-vec per chirality.  Computes in float64 when either operand is float64 (float32
     entries promote exactly), else float32; returns the promoted dtype."""
     out_dt = torch.promote_types(cl_pk.dtype, psi_pk.dtype)
     rdt = torch.float64 if out_dt == torch.float64 else torch.float32
     cl = torch.complex(cl_pk[0].to(rdt), cl_pk[1].to(rdt))
-    x = torch.complex(psi_pk[0].to(rdt), psi_pk[1].to(rdt))
+    nb = psi_pk.ndim - 6
+    x = torch.complex(psi_pk.select(nb, 0).to(rdt), psi_pk.select(nb, 1).to(rdt))
     y = clover_mv(cl, x)
-    return torch.stack([y.real, y.imag]).to(out_dt)
+    return torch.stack([y.real, y.imag], dim=nb).to(out_dt)

@@ -4,9 +4,11 @@ CUDA kernel, its plain PyTorch version, and the dispatch between them.
 Counterpart of ``tpuqcd/ops/dslash_pallas.py::dslash_eo_pallas`` (the
 TPU kernel) and ``tpuqcd/ops/dslash_xla.py::dslash_eo_dev_ri`` (whose f64
 role, the certification operator, the double instantiation takes over).
-The kernel source is ``csrc/dslash_eo.cu``; it is compiled with nvcc for
-sm_90a at first use into ``tpuqcd_torch/_build/`` (rebuilt when the
-source changes) and loaded with ctypes.
+The kernel is ``csrc/dslash_eo.cuh``; ``csrc/dslash_eo_inst.cu`` is
+compiled once per storage type, arithmetic type and link format (twelve
+nvcc processes side by side, for sm_90a) and linked with the entries of
+``csrc/dslash_eo.cu`` at first use into ``tpuqcd_torch/_build/`` (rebuilt
+when a source changes); the library is loaded with ctypes.
 
 Dispatch has no fallback: a CUDA tensor launches the kernel or raises,
 a CPU tensor runs ``dslash_eo_plain``.
@@ -16,9 +18,20 @@ a CPU tensor runs ``dslash_eo_plain``.
     out = dslash_eo(u, t1, 1, lat, epilogue="xpay", kappa=k, mu=m, psi0=psi)
 
 Fields: psi, psi0 and the result [2(ri), 4, 3, T, Z, S]; u
-[4, 2, 3, 3, 2, T, Z, S] or reconstruct-12 [4, 2, 2, 3, 2, T, Z, S], of
-the same dtype as psi (float32, bfloat16 or float64; bfloat16 is storage
-only, the arithmetic is float32).  Epilogues, with tw = 2 kappa mu flavor:
+[4, 2, 3, 3, 2, T, Z, S], reconstruct-12 [4, 2, 2, 3, 2, T, Z, S] or
+reconstruct-8 [4, 2, 4, 1, 2, T, Z, S] (utils/packed.pack_gauge8; the TPU
+kernel's K5), of the same dtype as psi (float32, bfloat16 or float64).
+The format is read from the gauge's shape.  bfloat16 is storage only and
+the arithmetic float32, unless ``compute="bf16"``: then the projection,
+mat-vec, accumulation and epilogue run in bfloat16 (the link
+reconstruction stays float32); other storage raises.
+
+A batch: psi (and psi0, out) [N, 2(ri), 4, 3, T, Z, S] is N right-hand
+sides in one launch (the TPU kernel under ``jax.vmap``); u and clover are
+shared.  It composes with every epilogue, dagger, dirs and dtype, not
+with legs_out or halo mode.
+
+Epilogues, with tw = 2 kappa mu flavor:
 
     "none"       out = D psi
     "twist_inv"  out = (1 - i tw g5) / (1 + tw^2) . D psi
@@ -56,8 +69,9 @@ which the t and z legs read where they step past the local edge:
 
 Spinor operands may be views whose re/im planes are any stride apart
 (the parity halves of an MG field [2(ri), 2(par), 4, 3, T, Z, S]); each
-plane itself must be contiguous.  ``out=`` writes the result into such a
-view instead of a new tensor.
+plane itself must be contiguous, and the fields of a batch may be any
+stride apart.  ``out=`` writes the result into such a view instead of a
+new tensor.
 """
 from __future__ import annotations
 
@@ -77,12 +91,20 @@ import torch
 from ..gammas import (G5_DIAG, HALF_PROJ_MINUS, HALF_PROJ_PLUS,
                       HALF_RECON_MINUS, HALF_RECON_PLUS)
 from ..lattice import Lattice
+from ..utils.packed import recon8_rows
 
 PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCE = PKG_DIR / "csrc" / "dslash_eo.cu"
+CSRC = PKG_DIR / "csrc"
+#: the kernel, its one-instantiation-set translation unit and the entries
+SOURCES = (CSRC / "dslash_eo.cuh", CSRC / "dslash_eo_inst.cu", CSRC / "dslash_eo.cu")
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: entry suffix -> (storage type, arithmetic type) of an instantiation set
+_TYPES = {"f32": ("float", "float"), "bf16": ("__nv_bfloat16", "float"),
+          "f64": ("double", "double"), "bf16c": ("__nv_bfloat16", "__nv_bfloat16")}
+#: link rows of the gauge operand -> reals a link (18-real, reconstruct-12, -8)
+LINK_ROWS = {3: 18, 2: 12, 4: 8}
 
 EPILOGUES = {"none": 0, "twist_inv": 1, "xpay": 2, "clover_inv": 3, "clover_xpay": 4}
 CLOVER_EPILOGUES = ("clover_inv", "clover_xpay")
@@ -91,12 +113,17 @@ CLOVER_EPILOGUES = ("clover_inv", "clover_xpay")
 LEG_ORDER = tuple((mu, s) for mu in range(4) for s in (+1, -1))
 _ENTRY = {torch.float32: "tq_dslash_eo_f32", torch.bfloat16: "tq_dslash_eo_bf16",
           torch.float64: "tq_dslash_eo_f64"}
+_ENTRY_BF16C = "tq_dslash_eo_bf16c"
+COMPUTES = ("f32", "bf16")
 
 #: launches of the kernel, by storage dtype name ("float32"), with the
 #: leg modes, the clover epilogues and halo mode apart ("float32:dirs",
 #: "float32:legs_out", "float32:clover_inv", "float32:clover_xpay",
-#: "float32:halo", "float32:clover_xpay:halo"), and calls of the plain
-#: version under "plain".  Each kernel launch adds one; nothing else does.
+#: "float32:halo", "float32:clover_xpay:halo"), bfloat16 arithmetic under
+#: "bfloat16:compute_bf16", reconstruct-8 links under "float32:recon8" (the
+#: two right after the dtype), a batched launch with a last ":batch" (one
+#: count per launch whatever N), and calls of the plain version under
+#: "plain".  Each kernel launch adds one; nothing else does.
 counts: collections.Counter = collections.Counter()
 
 
@@ -140,17 +167,17 @@ class _Library:
             return self._lib
 
     def _load(self) -> ctypes.CDLL:
-        src = SOURCE.read_bytes()
+        src = b"".join(p.read_bytes() for p in SOURCES)
         tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         path = BUILD_DIR / f"dslash_eo-{tag}.so"
         if not path.exists():
             self._build(path)
         lib = ctypes.CDLL(str(path))
-        for name in _ENTRY.values():
+        for name in (*_ENTRY.values(), _ENTRY_BF16C):
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                            + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
-                           + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 6
+                           + [ctypes.c_int64] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 6
                            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.tq_error_string.argtypes = [ctypes.c_int]
@@ -159,23 +186,50 @@ class _Library:
         return lib
 
     def _build(self, path: Path) -> None:
+        """Every translation unit in an nvcc process of its own, all
+        started together, then one link."""
         nvcc = shutil.which("nvcc")
         if nvcc is None:
             cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
             nvcc = str(cand) if cand.exists() else None
         if nvcc is None:
             raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): cannot "
-                               f"build {SOURCE.name}")
+                               f"build {SOURCES[-1].name}")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        work = BUILD_DIR / f"{path.stem}.{os.getpid()}.obj"
+        work.mkdir(exist_ok=True)
+        units = [("entries", [str(SOURCES[2])])]
+        for sfx, (storage, compute) in _TYPES.items():
+            for rows in LINK_ROWS:
+                name = f"tq_dslash_eo_{sfx}_r{rows}"
+                units.append((name, [f"-DTQ_STORAGE={storage}", f"-DTQ_COMPUTE={compute}",
+                                     f"-DTQ_NROW={rows}", f"-DTQ_NAME={name}",
+                                     str(SOURCES[1])]))
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
+        procs = [(name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{name}.o"), *args],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for name, args in units]
+        logs, failed = [], []
+        for name, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *(str(work / f"{n}.o") for n, _ in units)],
+                capture_output=True, text=True)
+            logs.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
         self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        self.build_log = "".join(logs)
+        shutil.rmtree(work, ignore_errors=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{self.build_log}")
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{self.build_log}")
         os.replace(tmp, path)
 
 
@@ -225,9 +279,10 @@ def _check_halo(halo: Halo, u, psi, lat, legs_out):
     ns = halo.spins
     if ns not in (2, 4):
         raise ValueError(f"spinor faces hold 4 spins or 2 projected ones, got {ns}")
-    rows = u.shape[2]
+    rows, cols = u.shape[2:4]
     want = {"t_m": (2, ns, 3, Z, S), "t_p": (2, ns, 3, Z, S), "z_m": (2, ns, 3, T, S),
-            "z_p": (2, ns, 3, T, S), "u_t": (rows, 3, 2, Z, S), "u_z": (rows, 3, 2, T, S)}
+            "z_p": (2, ns, 3, T, S), "u_t": (rows, cols, 2, Z, S),
+            "u_z": (rows, cols, 2, T, S)}
     faces = []
     for name, shape in want.items():
         x = getattr(halo, name)
@@ -245,8 +300,8 @@ def _check_halo(halo: Halo, u, psi, lat, legs_out):
 
 
 def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, out=None,
-           clover=None, halo=None):
-    """Validate the operands; returns (leg mask, output shape)."""
+           clover=None, halo=None, compute="f32"):
+    """Validate the operands; returns (leg mask, output shape, batch dims)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {sorted(EPILOGUES)}, got {epilogue!r}")
     if legs_out and epilogue != "none":
@@ -256,19 +311,31 @@ def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, o
         raise ValueError(f"src_parity must be 0 or 1, got {src_parity!r}")
     if psi.dtype not in _ENTRY:
         raise ValueError(f"psi dtype {psi.dtype} is not float32, bfloat16 or float64")
+    if compute not in COMPUTES:
+        raise ValueError(f"compute must be one of {COMPUTES}, got {compute!r}")
+    if compute == "bf16" and psi.dtype != torch.bfloat16:
+        raise ValueError("compute='bf16' needs bfloat16 spinor storage")
     sites = lat.site_shape
-    if tuple(psi.shape) != (2, 4, 3, *sites):
-        raise ValueError(f"psi shape {tuple(psi.shape)} != {(2, 4, 3, *sites)}")
+    nb = psi.ndim - 6
+    if nb not in (0, 1) or tuple(psi.shape[nb:]) != (2, 4, 3, *sites):
+        raise ValueError(f"psi shape {tuple(psi.shape)} is neither {(2, 4, 3, *sites)} nor a "
+                         f"batch [N, 2, 4, 3, ...] of it")
+    if nb and (legs_out or halo is not None):
+        raise ValueError("a batch composes with the summed hop only, not legs_out or halo mode")
+    if nb and not 1 <= psi.shape[0] <= 65535:
+        raise ValueError(f"a batch holds 1 to 65535 fields, got {psi.shape[0]}")
     if u.dtype != psi.dtype:
         raise ValueError(f"gauge dtype {u.dtype} != spinor dtype {psi.dtype}")
-    if u.ndim != 8 or tuple(u.shape[:2]) != (4, 2) or u.shape[2] not in (2, 3) \
-            or tuple(u.shape[3:]) != (3, 2, *sites):
-        raise ValueError(f"gauge shape {tuple(u.shape)} is neither "
-                         f"{(4, 2, 3, 3, 2, *sites)} nor {(4, 2, 2, 3, 2, *sites)}")
+    if u.ndim != 8 or tuple(u.shape[:2]) != (4, 2) \
+            or tuple(u.shape[2:4]) not in ((3, 3), (2, 3), (4, 1)) \
+            or tuple(u.shape[4:]) != (2, *sites):
+        raise ValueError(f"gauge shape {tuple(u.shape)} is none of "
+                         f"{(4, 2, 3, 3, 2, *sites)}, {(4, 2, 2, 3, 2, *sites)} "
+                         f"(reconstruct-12), {(4, 2, 4, 1, 2, *sites)} (reconstruct-8)")
     if not u.is_contiguous():
         raise ValueError("u is not contiguous (a u[:, :, :2] view must be copied: "
                          "utils.packed.pack_gauge12)")
-    _ri_stride(psi, "psi")
+    _ri_stride(psi, "psi", lead=nb)
     tensors = [("psi", psi)]
     if epilogue in CLOVER_EPILOGUES:
         if clover is None:
@@ -286,7 +353,7 @@ def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, o
             raise ValueError(f"the {epilogue} epilogue needs psi0")
         if psi0.shape != psi.shape or psi0.dtype != psi.dtype:
             raise ValueError("psi0 must match psi in shape and dtype")
-        _ri_stride(psi0, "psi0")
+        _ri_stride(psi0, "psi0", lead=nb)
         tensors.append(("psi0", psi0))
     n_legs = bin(mask).count("1")
     shape = (n_legs, *psi.shape) if legs_out else tuple(psi.shape)
@@ -294,14 +361,14 @@ def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, o
         if tuple(out.shape) != shape or out.dtype != psi.dtype:
             raise ValueError(f"out must be {psi.dtype} {shape}, got {out.dtype} "
                              f"{tuple(out.shape)}")
-        _ri_stride(out, "out", lead=1 if legs_out else 0)
+        _ri_stride(out, "out", lead=1 if legs_out else nb)
         tensors.append(("out", out))
     if halo is not None:
         tensors += _check_halo(halo, u, psi, lat, legs_out)
     for name, x in tensors + [("u", u)]:
         if x.device != psi.device:
             raise ValueError(f"{name} is on {x.device}, psi on {psi.device}")
-    return mask, shape
+    return mask, shape, nb
 
 
 def _site_terms(kappa, mu, flavor, xpay_scale):
@@ -317,41 +384,50 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
               dirs: tuple | None = None, legs_out: bool = False,
               out: torch.Tensor | None = None,
               clover: torch.Tensor | None = None,
-              halo: Halo | None = None) -> torch.Tensor:
+              halo: Halo | None = None, compute: str = "f32") -> torch.Tensor:
     """D_{q<-p} psi with a fused epilogue; result at parity 1 - src_parity.
 
     t_boundary is the fermion T-boundary phase folded into the stored
-    links (-1 antiperiodic, +1 periodic); only reconstruct-12 reads it.
-    dirs, legs_out, out, clover and halo: see the module docstring.
+    links (-1 antiperiodic, +1 periodic); only reconstruct-12 and -8 read
+    it.  A batch, dirs, legs_out, out, clover, halo and compute: see the
+    module docstring.
     """
     kw = dict(dagger=dagger, epilogue=epilogue, kappa=kappa, mu=mu, flavor=flavor,
               psi0=psi0, t_boundary=t_boundary, xpay_scale=xpay_scale, dirs=dirs,
-              legs_out=legs_out, out=out, clover=clover, halo=halo)
-    mask, shape = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out, clover,
-                         halo)
+              legs_out=legs_out, out=out, clover=clover, halo=halo, compute=compute)
+    mask, shape, nb = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out,
+                             clover, halo, compute)
     if psi.device.type == "cpu":
         return dslash_eo_plain(u, psi, src_parity, lat, **kw)
     if psi.device.type != "cuda":
         raise ValueError(f"no Dslash for device {psi.device}")
     tw, k2 = _site_terms(kappa, mu, flavor, xpay_scale)
-    fn = getattr(library.get(), _ENTRY[psi.dtype])
+    fn = getattr(library.get(), _ENTRY_BF16C if compute == "bf16" else _ENTRY[psi.dtype])
     if out is None:
         out = torch.empty(shape, dtype=psi.dtype, device=psi.device)
-    lead = 1 if legs_out else 0
     T, Z, _ = lat.site_shape
     stream = torch.cuda.current_stream(psi.device).cuda_stream
     faces = ([x.data_ptr() for x in halo[:6]] + [1, halo.spins, halo.t_offset, halo.t_global]
              if halo is not None else [None] * 6 + [0, 4, 0, T])
+
+    def batch_stride(x):
+        return x.stride(0) if nb and x is not None else 0
+
     err = fn(u.data_ptr(), psi.data_ptr(), psi0.data_ptr() if psi0 is not None else None,
              clover.data_ptr() if clover is not None else None, out.data_ptr(), T, Z,
              lat.Ly, lat.Lx // 2, u.shape[2], src_parity, int(dagger), EPILOGUES[epilogue],
-             tw, k2, int(t_boundary), mask, int(legs_out), psi.stride(0),
-             psi0.stride(0) if psi0 is not None else 0, out.stride(lead),
-             out.stride(0) if legs_out else 0, *faces, psi.device.index, stream)
+             tw, k2, int(t_boundary), mask, int(legs_out), psi.stride(nb),
+             psi0.stride(nb) if psi0 is not None else 0, out.stride(1 if legs_out else nb),
+             out.stride(0) if legs_out else 0, batch_stride(psi), batch_stride(psi0),
+             batch_stride(out), psi.shape[0] if nb else 1, *faces, psi.device.index, stream)
     if err != 0:
         msg = library.get().tq_error_string(err).decode()
         raise RuntimeError(f"dslash_eo kernel launch failed: {msg} (CUDA error {err})")
     key = str(psi.dtype).removeprefix("torch.")
+    if compute == "bf16":
+        key += ":compute_bf16"
+    if u.shape[2] == 4:
+        key += ":recon8"
     if legs_out:
         key += ":legs_out"
     elif dirs is not None:
@@ -360,6 +436,8 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
         key += ":" + epilogue
     if halo is not None:
         key += ":halo"
+    if nb:
+        key += ":batch"
     counts[key] += 1
     return out
 
@@ -414,19 +492,24 @@ def _rebuild_row2(uc: torch.Tensor) -> torch.Tensor:
 
 def expand_links(u: torch.Tensor, lat: Lattice, t_boundary: int = -1, t_offset: int = 0,
                  t_global: int | None = None) -> torch.Tensor:
-    """Packed gauge -> complex [4, 2, 3, 3, T*Z*S] in the compute precision
-    (complex128 for f64 storage, complex64 otherwise).  Reconstruct-12
-    rebuilds row 2 = phase * conj(row0 x row1), phase = t_boundary on
-    t-links at global t = t_global - 1 (t_global defaults to T; a shard
-    at global t_offset has it at local t_global - 1 - t_offset): the
-    stored rows carry the phase, the bilinear cross product squares it
-    away."""
+    """Packed gauge -> complex [4, 2, 3, 3, T*Z*S] in the reconstruction
+    precision (complex128 for f64 storage, complex64 otherwise).
+    Reconstruct-12 and -8 rebuild row 2 = phase * conj(row0 x row1), phase
+    = t_boundary on t-links at global t = t_global - 1 (t_global defaults
+    to T; a shard at global t_offset has it at local t_global - 1 -
+    t_offset): the stored rows carry the phase, the bilinear cross product
+    squares it away.  Reconstruct-8 first rebuilds rows 0 and 1 from its
+    8 reals."""
     rdt = torch.float64 if u.dtype == torch.float64 else torch.float32
     n = lat.site_shape[0] * lat.site_shape[1] * lat.site_shape[2]
-    uc = torch.complex(u[:, :, :, :, 0].to(rdt), u[:, :, :, :, 1].to(rdt))
-    uc = uc.reshape(4, 2, u.shape[2], 3, n)
-    if u.shape[2] == 3:
-        return uc
+    rows = u.shape[2]
+    if rows == 4:
+        uc = recon8_rows(u.to(rdt).reshape(4, 2, 8, n))
+    else:
+        uc = torch.complex(u[:, :, :, :, 0].to(rdt), u[:, :, :, :, 1].to(rdt))
+        uc = uc.reshape(4, 2, rows, 3, n)
+        if rows == 3:
+            return uc
     r2 = _rebuild_row2(uc)
     T = lat.Lt
     t_last = (T if t_global is None else t_global) - 1 - t_offset
@@ -451,7 +534,11 @@ def _halo_operands(halo: Halo, x: torch.Tensor, links: torch.Tensor, p: int,
         return c
 
     def face_links(uf, phase):
-        uc = torch.complex(uf[:, :, 0].to(rdt), uf[:, :, 1].to(rdt)).reshape(uf.shape[0], 3, -1)
+        if uf.shape[0] == 4:
+            uc = recon8_rows(uf.to(rdt).reshape(8, -1))
+        else:
+            uc = torch.complex(uf[:, :, 0].to(rdt), uf[:, :, 1].to(rdt))
+            uc = uc.reshape(uf.shape[0], 3, -1)
         if uc.shape[0] == 2:
             uc = torch.cat([uc, (phase * _rebuild_row2(uc))[None]])
         return uc
@@ -473,6 +560,11 @@ def _halo_operands(halo: Halo, x: torch.Tensor, links: torch.Tensor, p: int,
     return x_ext, bwd
 
 
+def _round_bf16(z: torch.Tensor) -> torch.Tensor:
+    """A complex64 tensor with re and im rounded to bfloat16 values."""
+    return torch.complex(z.real.bfloat16().float(), z.imag.bfloat16().float())
+
+
 def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
                     *, dagger: bool = False, epilogue: str = "none", kappa: float = 0.0,
                     mu: float = 0.0, flavor: int = 1, psi0: torch.Tensor | None = None,
@@ -480,30 +572,43 @@ def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: La
                     dirs: tuple | None = None, legs_out: bool = False,
                     out: torch.Tensor | None = None,
                     clover: torch.Tensor | None = None,
-                    halo: Halo | None = None) -> torch.Tensor:
+                    halo: Halo | None = None, compute: str = "f32") -> torch.Tensor:
     """The same function as the kernel in plain PyTorch, on any device.
 
     A port of tpuqcd's dslash_eo_dev_ri (spin projection, SU(3) mat-vec,
-    reconstruction) with reconstruct-12, the epilogues, the leg modes and
-    halo mode added; the clover epilogues apply the blocks with
-    ops/clover.clover_mv.  bfloat16 storage computes in float32,
-    reconstruction included.
+    reconstruction) with reconstruct-12 and -8, the epilogues, the leg
+    modes, halo mode and the batch axis added; the clover epilogues apply
+    the blocks with ops/clover.clover_mv.  bfloat16 storage computes in
+    float32, reconstruction included.  compute="bf16" (PyTorch has no
+    complex bfloat16) runs the same complex64 steps and rounds re and im
+    to bfloat16 after each stage the kernel keeps in bfloat16: the
+    rebuilt link, the projection, the mat-vec, each leg's accumulation
+    and the epilogue's terms.
     """
-    mask, _ = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out, clover,
-                     halo)
+    mask, _, nb = _check(u, psi, src_parity, lat, epilogue, psi0, dirs, legs_out, out,
+                         clover, halo, compute)
     counts["plain"] += 1
     p, q = src_parity, 1 - src_parity
     T, Z, S = lat.site_shape
     rdt = torch.float64 if psi.dtype == torch.float64 else torch.float32
     cdt = torch.complex128 if rdt == torch.float64 else torch.complex64
     dev = psi.device
-    x = torch.complex(psi[0].to(rdt), psi[1].to(rdt)).reshape(4, 3, -1)
+    rnd = _round_bf16 if compute == "bf16" else (lambda z: z)
+    B = psi.shape[0] if nb else 1
+
+    def cplx(f, inner):
+        """A (batch of) packed operand -> complex [B, *inner, n]."""
+        f = f if nb else f[None]
+        return torch.complex(f[:, 0].to(rdt), f[:, 1].to(rdt)).reshape(B, *inner, -1)
+
+    x = cplx(psi, (4, 3))
     if halo is None:
-        links = expand_links(u, lat, t_boundary)
+        links = rnd(expand_links(u, lat, t_boundary))
         bwd_links = links[:, p]
     else:
-        links = expand_links(u, lat, t_boundary, halo.t_offset, halo.t_global)
-        x, bwd_links = _halo_operands(halo, x, links, p, t_boundary)
+        links = rnd(expand_links(u, lat, t_boundary, halo.t_offset, halo.t_global))
+        x0_ext, bwd_links = _halo_operands(halo, x[0], links, p, t_boundary)
+        x, bwd_links = x0_ext[None], rnd(bwd_links)
     idx = hop_index(lat, p, dev, halo=halo is not None)
     tabs = [t.to(device=dev, dtype=cdt) for t in
             (HALF_PROJ_MINUS, HALF_RECON_MINUS, HALF_PROJ_PLUS, HALF_RECON_PLUS)]
@@ -516,37 +621,41 @@ def dslash_eo_plain(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: La
             continue
         if sign > 0:
             # forward: (1 - g_mu) U_mu(x)|q psi(x + mu)
-            h = torch.einsum("hs,scn->hcn", hpm[m], x[:, :, idx[m, 0]])
-            w = torch.einsum("ijn,hjn->hin", links[m, q], h)
-            legs.append(torch.einsum("bh,hin->bin", hrm[m], w))
+            h = rnd(torch.einsum("hs,bscn->bhcn", hpm[m], x[..., idx[m, 0]]))
+            w = rnd(torch.einsum("ijn,bhjn->bhin", links[m, q], h))
+            legs.append(torch.einsum("ah,bhin->bain", hrm[m], w))
         else:
             # backward: (1 + g_mu) U_mu(x - mu)|p^dag psi(x - mu)
-            nb = idx[m, 1]
-            h = torch.einsum("hs,scn->hcn", hpp[m], x[:, :, nb])
-            w = torch.einsum("jin,hjn->hin", bwd_links[m][:, :, nb].conj(), h)
-            legs.append(torch.einsum("bh,hin->bin", hrp[m], w))
+            nbr = idx[m, 1]
+            h = rnd(torch.einsum("hs,bscn->bhcn", hpp[m], x[..., nbr]))
+            w = rnd(torch.einsum("jin,bhjn->bhin", bwd_links[m][:, :, nbr].conj(), h))
+            legs.append(torch.einsum("ah,bhin->bain", hrp[m], w))
     if legs_out:
-        acc = torch.stack(legs)
+        acc = torch.stack(legs, dim=1)[0]
         res = torch.stack([acc.real, acc.imag], dim=1).reshape(len(legs), 2, 4, 3, T, Z, S)
     else:
-        acc = sum(legs[1:], legs[0])
+        acc = legs[0]
+        for leg in legs[1:]:
+            acc = rnd(acc + leg)
         tw, k2 = _site_terms(kappa, mu, flavor, xpay_scale)
         g5 = torch.tensor(G5_DIAG, dtype=rdt, device=dev)[:, None, None]
         if epilogue == "twist_inv":
-            acc = (1 - 1j * tw * g5) / (1 + tw * tw) * acc
+            acc = rnd((1 - 1j * tw * g5) / (1 + tw * tw) * acc)
         elif epilogue == "xpay":
-            x0 = torch.complex(psi0[0].to(rdt), psi0[1].to(rdt)).reshape(4, 3, -1)
-            acc = (1 + 1j * tw * g5) * x0 - k2 * acc
+            acc = rnd((1 + 1j * tw * g5) * cplx(psi0, (4, 3)) - rnd(k2 * acc))
         elif epilogue in CLOVER_EPILOGUES:
             # imported here: ops/clover imports gauge_tools, which imports this module
             from .clover import clover_mv
             cl = torch.complex(clover[0].to(rdt), clover[1].to(rdt)).reshape(2, 6, 6, -1)
             if epilogue == "clover_inv":
-                acc = clover_mv(cl, acc)
+                acc = rnd(clover_mv(cl, acc))
             else:
-                x0 = torch.complex(psi0[0].to(rdt), psi0[1].to(rdt)).reshape(4, 3, -1)
-                acc = clover_mv(cl, x0) + 1j * tw * g5 * x0 - k2 * acc
-        res = torch.stack([acc.real, acc.imag]).reshape(2, 4, 3, T, Z, S)
+                x0 = cplx(psi0, (4, 3))
+                a_x0 = rnd(clover_mv(cl, x0))
+                acc = rnd(a_x0 + 1j * tw * g5 * x0 - rnd(k2 * acc))
+        res = torch.stack([acc.real, acc.imag], dim=1).reshape(B, 2, 4, 3, T, Z, S)
+        if not nb:
+            res = res[0]
     if out is None:
         return res.to(psi.dtype)
     return out.copy_(res)

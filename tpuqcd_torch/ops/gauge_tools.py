@@ -1,8 +1,10 @@
-"""Gauge-field observables and the staple sum.
+"""Gauge-field observables, the staple sum, APE and stout smearing.
 
 Counterpart of ``tpuqcd/ops/gauge_tools.py``: ``plaquette``, the check
-setup_gauge logs after generating or loading a gauge, and
-``_staple_sum``, which the heatbath updates with.
+setup_gauge logs after generating or loading a gauge,
+``spatial_plaquette``, ``_staple_sum``, which the heatbath updates
+with, and the link smearings ``ape_smear`` and ``stout_smear`` that
+build the gauge of the Gaussian source smearing.
 
 The staple algebra runs on the site-major even-odd gauge
 [4, 2(par), T*Z*S, 3, 3] (``gauge_sites``), where a product over all
@@ -86,3 +88,84 @@ def _staple_sum(u_sm: torch.Tensor, mu: int, p: int, dirs, tables) -> torch.Tens
         s = t1 + mat3.mul(mat3.mul(a, b, adag=True), c)
         acc = s if acc is None else acc + s
     return acc
+
+
+def spatial_plaquette(u_dev: torch.Tensor, lat: Lattice) -> float:
+    """Average spatial-only plaquette (mu < nu in {x, y, z}) of a complex
+    device-layout gauge [4, 2, 3, 3, T, Z, S]."""
+    u_sm = gauge_sites(u_dev)
+    tables = neighbour_tables(lat, u_dev.device)
+    total = 0.0
+    for p in (0, 1):
+        for mu in range(3):
+            for nu in range(mu + 1, 3):
+                ab = mat3.mul(u_sm[mu, p], link_at(u_sm, nu, p, [(mu, +1)], tables))
+                pl = mat3.mul(mat3.mul(ab, link_at(u_sm, mu, p, [(nu, +1)], tables), bdag=True),
+                              u_sm[nu, p], bdag=True)
+                total += mat3.trace(pl).real.to(torch.float64).sum().item()
+    return total / (3.0 * 3.0 * lat.volume)
+
+
+def _smear_step(u_sm: torch.Tensor, tables, spatial_only: bool, new_link) -> torch.Tensor:
+    """One smearing step on the site-major gauge: every link (mu, parity)
+    becomes new_link(link, its staple sum); t links stay with
+    spatial_only.  All staples are taken from the gauge before the step."""
+    dirs = (0, 1, 2) if spatial_only else (0, 1, 2, 3)
+    out = u_sm.clone()
+    for mu in dirs:
+        for p in (0, 1):
+            out[mu, p] = new_link(u_sm[mu, p], _staple_sum(u_sm, mu, p, dirs, tables))
+    return out
+
+
+def ape_smear_step(u_dev: torch.Tensor, lat: Lattice, alpha: float = 0.5,
+                   spatial_only: bool = True) -> torch.Tensor:
+    """One APE step: U' = Proj_SU3[(1 - alpha) U + (alpha / (2 (n - 1))) staples]
+    over the n smeared directions; spatial_only smears x, y, z links over
+    spatial staples and leaves the t links (the gauge of the Gaussian
+    source smearing)."""
+    return ape_smear(u_dev, lat, alpha, 1, spatial_only)
+
+
+def ape_smear(u_dev: torch.Tensor, lat: Lattice, alpha: float = 0.5, n_steps: int = 10,
+              spatial_only: bool = True) -> torch.Tensor:
+    """n_steps APE steps on a complex device-layout gauge [4, 2, 3, 3, T, Z, S]."""
+    w = alpha / (2.0 * ((3 if spatial_only else 4) - 1))
+    tables = neighbour_tables(lat, u_dev.device)
+    u_sm = gauge_sites(u_dev)
+    for _ in range(n_steps):
+        u_sm = _smear_step(u_sm, tables, spatial_only,
+                           lambda u, st: mat3.project_su3((1.0 - alpha) * u + w * st))
+    return gauge_from_sites(u_sm, lat)
+
+
+def _stout_link(u: torch.Tensor, staples: torch.Tensor, rho: float) -> torch.Tensor:
+    """exp(iQ) U with Omega = rho C U^dag, Q = (i/2)(Omega^dag - Omega) -
+    (i/6) tr(Omega^dag - Omega); the exponential by its power series (16
+    terms reach float32 roundoff for ||rho C U|| of order 1)."""
+    omega = rho * mat3.mul(staples, u, bdag=True)
+    q = 0.5j * (mat3.dag(omega) - omega)
+    eye = torch.eye(3, dtype=u.dtype, device=u.device)
+    iq = 1j * (q - (mat3.trace(q) / 3.0)[..., None, None] * eye)
+    term = acc = eye.expand_as(q)
+    for k in range(1, 17):
+        term = mat3.mul(term, iq) / k
+        acc = acc + term
+    return mat3.mul(acc, u)
+
+
+def stout_smear_step(u_dev: torch.Tensor, lat: Lattice, rho: float = 0.1,
+                     spatial_only: bool = False) -> torch.Tensor:
+    """One stout (analytic SU(3) exponential) smearing step."""
+    return stout_smear(u_dev, lat, rho, 1, spatial_only)
+
+
+def stout_smear(u_dev: torch.Tensor, lat: Lattice, rho: float = 0.1, n_steps: int = 3,
+                spatial_only: bool = False) -> torch.Tensor:
+    """n_steps stout steps on a complex device-layout gauge [4, 2, 3, 3, T, Z, S]."""
+    tables = neighbour_tables(lat, u_dev.device)
+    u_sm = gauge_sites(u_dev)
+    for _ in range(n_steps):
+        u_sm = _smear_step(u_sm, tables, spatial_only,
+                           lambda u, st: _stout_link(u, st, rho))
+    return gauge_from_sites(u_sm, lat)

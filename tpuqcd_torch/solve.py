@@ -36,11 +36,11 @@ from .lattice import Lattice
 from .mg.device import DeviceFineCloverLevel
 from .operators import PackedNdegTMOperatorPC, PackedTMCloverOperatorPC, PackedTMOperatorPC
 from .ops.clover import clover_blocks, clover_twist_inverse
-from .solvers.bicgstab import bicgstab
-from .solvers.cg import _cg_cycle
+from .solvers.bicgstab import bicgstab, bicgstab_cols
+from .solvers.cg import _cg_cycle, _cg_cycle_cols
 from .solvers import reductions
-from .solvers.reductions import norm2
-from .utils.packed import pack_clover, unpack_gauge
+from .solvers.reductions import norm2, norm2_cols
+from .utils.packed import pack_clover, pack_gauge8, unpack_gauge
 
 
 class SolveResult(NamedTuple):
@@ -99,6 +99,50 @@ def _certified(pc, u_s, u_hp, b_pk, *, sdt, tol, maxiter, inner_tol, solver,
                        refinements=nref)
 
 
+class BatchSolveResult(NamedTuple):
+    x: torch.Tensor        # [N, 2(par), 2(ri), 4, 3, T, Z, S] float64
+    relres: list           # per column, certified
+    iters: list            # per column (solve_tm_batch) or the common count
+    refinements: list
+
+
+def _refined_solve_cols(pc, u_s, u_hp, bhat, *, sdt, tol, maxiter, inner_tol, solver):
+    """_refined_solve on a batch bhat [N, 2(ri), ...] with the meaning of
+    ``jax.vmap`` over it (tpuqcd/solve.py:501): every column carries its own
+    residual, matvec count and pass count, takes part in a pass while its
+    own condition holds, and is left as it is afterwards, so each column's
+    x, relres and count are those of its single solve.  Every operator
+    apply is one batched launch, and the host reads the whole batch's
+    residuals once per step."""
+    dev = bhat.device
+    bsq = norm2_cols(bhat)
+    tol2 = tol * tol * bsq
+    x = torch.zeros_like(bhat)
+    rsq = 4.0 * bsq
+    k = torch.zeros(bhat.shape[0], dtype=torch.int64, device=dev)
+    nref = torch.zeros_like(k)
+    live = (rsq > tol2) & (k < maxiter) & (nref < 40)
+    while live.any().item():
+        r_s = (bhat - pc.apply(u_hp, x)).to(sdt)
+        if solver == "bicgstab":
+            dx, used = bicgstab_cols(lambda v: pc.apply(u_s, v), r_s, inner_tol,
+                                     maxiter - k, live)
+        else:
+            bn = pc.apply_dagger(u_s, r_s)
+            dx, _, kc = _cg_cycle_cols(lambda v: pc.normal(u_s, v), bn,
+                                       inner_tol * inner_tol * norm2_cols(bn), maxiter - k,
+                                       live)
+            used = 2 * kc + 1
+        # a column outside `live` took no step: its dx is zero
+        x += dx.to(x.dtype)
+        rsq = torch.where(live, norm2_cols(bhat - pc.apply(u_hp, x)), rsq)
+        k = k + (used + 2) * live
+        nref = nref + live
+        live = live & (rsq > tol2) & (k < maxiter) & (nref < 40)
+    relres = torch.sqrt(rsq / torch.clamp(bsq, min=1e-300))
+    return x, relres.tolist(), k.tolist(), nref.tolist()
+
+
 def clover_pk_from_gauge(u_pk: torch.Tensor, lat: Lattice, *, kappa: float,
                          csw: float) -> torch.Tensor:
     """The packed A blocks of both parities, [2(par), 2(ri), 2(chir), 6, 6,
@@ -121,12 +165,40 @@ def make_clover_fields(u_pk: torch.Tensor, lat: Lattice, *, kappa: float, mu: fl
     return cl_pk, clinv[0], clinv[1]
 
 
+def _sloppy_links(u_pk: torch.Tensor, dtype: torch.dtype, reals: int) -> torch.Tensor:
+    """The sloppy operator's copy of the gauge with ``reals`` reals a link:
+    12 (rows 0 and 1; the default) or 8 (utils.packed.pack_gauge8)."""
+    if reals == 12:
+        return u_pk[:, :, :2].to(dtype).contiguous()
+    if reals == 8:
+        return pack_gauge8(unpack_gauge(u_pk), dtype)
+    raise ValueError(f"sloppy_links must be 8 or 12 reals a link, got {reals!r}")
+
+
+def _tm_operands(u_pk, lat, *, kappa, mu, flavor, sloppy_dtype, t_boundary, csw, clover,
+                 sloppy_links=12):
+    """The operator of a twisted-mass(-clover) solve with its sloppy and
+    float64 operands: (pc, u_s, u_hp)."""
+    # one contiguous compressed copy per solve: the kernel rebuilds the rest
+    u_s = _sloppy_links(u_pk, sloppy_dtype, sloppy_links)
+    u_hp = u_pk.to(torch.float64).contiguous()
+    if csw == 0.0:
+        return PackedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor,
+                                  t_boundary=t_boundary), u_s, u_hp
+    if clover is None:
+        clover = make_clover_fields(u_pk, lat, kappa=kappa, mu=mu, csw=csw)
+    pc = PackedTMCloverOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor,
+                                  t_boundary=t_boundary)
+    return (pc, (u_s, *(c.to(sloppy_dtype) for c in clover)),
+            (u_hp, *(c.to(torch.float64) for c in clover)))
+
+
 def solve_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: float,
              mu: float, flavor: int = 1, tol: float = 1e-10, maxiter: int = 5000,
              inner_tol: float = 1e-5, solver: str = "cg",
              sloppy_dtype: torch.dtype = torch.float32, t_boundary: int = -1,
              csw: float = 0.0, clover=None,
-             x0_e: torch.Tensor | None = None) -> SolveResult:
+             x0_e: torch.Tensor | None = None, sloppy_links: int = 12) -> SolveResult:
     """Solve the two-parity twisted-mass(-clover) system M x = b.
 
     u_pk: packed gauge [4, 2, 3, 3, 2, T, Z, S] (any float dtype);
@@ -140,25 +212,40 @@ def solve_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: flo
     iteration and to float64 for the certification; reconstruct-12
     applies to the gauge only.
     tol is on the even-odd preconditioned system; x0_e warm-starts the
-    even-parity iterate.
+    even-parity iterate.  sloppy_links: the reals a link of the sloppy
+    operator's gauge copy, 12 (reconstruct-12) or 8 (reconstruct-8).
     """
     if solver not in ("cg", "bicgstab"):
         raise ValueError(f"solver must be cg or bicgstab, got {solver!r}")
-    # one contiguous reconstruct-12 copy per solve: the kernel rebuilds row 2
-    u_s = u_pk[:, :, :2].to(sloppy_dtype).contiguous()
-    u_hp = u_pk.to(torch.float64).contiguous()
-    if csw != 0.0:
-        if clover is None:
-            clover = make_clover_fields(u_pk, lat, kappa=kappa, mu=mu, csw=csw)
-        pc = PackedTMCloverOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor,
-                                      t_boundary=t_boundary)
-        u_s = (u_s, *(c.to(sloppy_dtype) for c in clover))
-        u_hp = (u_hp, *(c.to(torch.float64) for c in clover))
-    else:
-        pc = PackedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor,
-                                t_boundary=t_boundary)
+    pc, u_s, u_hp = _tm_operands(u_pk, lat, kappa=kappa, mu=mu, flavor=flavor,
+                                 sloppy_dtype=sloppy_dtype, t_boundary=t_boundary, csw=csw,
+                                 clover=clover, sloppy_links=sloppy_links)
     return _certified(pc, u_s, u_hp, b_pk, sdt=sloppy_dtype, tol=tol, maxiter=maxiter,
                       inner_tol=inner_tol, solver=solver, x0=x0_e)
+
+
+def solve_tm_batch(u_pk: torch.Tensor, b_pks: torch.Tensor, lat: Lattice, *, kappa: float,
+                   mu: float, flavor: int = 1, tol: float = 1e-10, maxiter: int = 5000,
+                   inner_tol: float = 1e-5, solver: str = "cg",
+                   sloppy_dtype: torch.dtype = torch.float32, t_boundary: int = -1,
+                   csw: float = 0.0, clover=None) -> BatchSolveResult:
+    """solve_tm on N right-hand sides b_pks [N, 2(par), 2(ri), 4, 3, T, Z, S]
+    as one iteration stream (tpuqcd/solve.py:485, ``jax.vmap(solve_tm)``):
+    every Dslash is one batched launch and every column's x, certified
+    relres and matvec count equal those of its single solve_tm.  Arguments
+    as solve_tm."""
+    if solver not in ("cg", "bicgstab"):
+        raise ValueError(f"solver must be cg or bicgstab, got {solver!r}")
+    pc, u_s, u_hp = _tm_operands(u_pk, lat, kappa=kappa, mu=mu, flavor=flavor,
+                                 sloppy_dtype=sloppy_dtype, t_boundary=t_boundary, csw=csw,
+                                 clover=clover)
+    b_hp = b_pks.to(torch.float64)
+    bhat = pc.prepare(u_hp, b_hp)
+    x_e, relres, iters, nref = _refined_solve_cols(
+        pc, u_s, u_hp, bhat, sdt=sloppy_dtype, tol=tol, maxiter=maxiter,
+        inner_tol=inner_tol, solver=solver)
+    return BatchSolveResult(x=pc.reconstruct(u_hp, x_e, b_hp), relres=relres, iters=iters,
+                            refinements=nref)
 
 
 def solve_ndeg_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: float,
@@ -243,3 +330,19 @@ def solve_tm_mg(mg, b_pk: torch.Tensor, *, tol: float = 1e-10,
                              inner_tol=inner_tol, maxiter=maxiter, verbose=verbose)
     return SolveResult(x=res.x.transpose(0, 1).contiguous(), relres=res.relres,
                        iters=res.iters, refinements=res.refinements)
+
+
+def solve_tm_mg_batch(mg, b_pks: torch.Tensor, *, tol: float = 1e-10,
+                      inner_tol: float | None = None, maxiter: int = 200,
+                      verbose: bool = False) -> BatchSolveResult:
+    """solve_tm_mg on N right-hand sides b_pks [N, 2(par), 2(ri), 4, 3, T, Z,
+    S] as one GCR stream in lockstep (tpuqcd/solve.py:467,
+    mg.dsolve.DeviceMG.solve_certified_batch).  x is float64 in the same
+    layout, relres per column; iters and refinements are common to the
+    columns and repeated for each."""
+    n = b_pks.shape[0]
+    res = mg.solve_certified_batch(b_pks.to(torch.float32).transpose(1, 2).contiguous(),
+                                   tol=tol, inner_tol=inner_tol, maxiter=maxiter,
+                                   verbose=verbose)
+    return BatchSolveResult(x=res.x.transpose(1, 2).contiguous(), relres=res.relres,
+                            iters=[res.iters] * n, refinements=[res.refinements] * n)

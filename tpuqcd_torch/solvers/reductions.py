@@ -68,3 +68,16 @@ def cdot(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     s = _summed(torch.stack([torch.dot(xr, yr) + torch.dot(xi, yi),
                              torch.dot(xr, yi) - torch.dot(xi, yr)]))
     return s[0], s[1]
+
+
+def norm2_cols(x: torch.Tensor) -> torch.Tensor:
+    """sum |x_i|^2 of every field of a batch [N, ...] as float64 [N].
+    Each column is reduced by norm2 itself, so a column's value is bit
+    for bit that of the same field reduced alone."""
+    return torch.stack([norm2(c) for c in x.unbind(0)])
+
+
+def redot_cols(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Re <x_i, y_i> of every field of two batches [N, ...] as float64 [N]."""
+    return torch.stack([redot(a, b) for a, b in zip(x.unbind(0), y.unbind(0))])
+

@@ -3,11 +3,13 @@
 
 Counterpart of ``tpuqcd/utils/config.py`` for the parameter groups the
 port runs: gauge (random or heatbath), action (with the non-degenerate
-doublet's mubar and epsbar), solver, mg (every key of tpuqcd's
-MGParamsCfg, with the named presets), mesh, and the switches of the
-parts not ported yet (ensembles, mass sweeps), which
-``cli/common.check_in_slice`` refuses.  Keys of other groups (physics)
-and of unported options are ignored, so every existing YAML loads.
+doublet's mubar and epsbar), solver (with the multi-RHS batch keys), mg
+(every key of tpuqcd's MGParamsCfg, with the named presets), physics
+(every key of tpuqcd's PhysicsParams; the two-point run reads the
+sources, momenta, projectors, channels, smearing and output), mesh, and
+the switches of the parts not ported yet (ensembles, mass sweeps), which
+``cli/common.check_in_slice`` refuses.  Keys of unported options are
+ignored, so every existing YAML loads.
 """
 from __future__ import annotations
 
@@ -60,6 +62,19 @@ class SolverParams:
     #: port's one engine, and "auto" selects it; "overlap" (the
     #: interior/exterior split) is not ported (check_in_slice)
     comm_policy: str = "auto"            # auto | fused | overlap
+    #: propagator columns solved per batched multi-RHS call (1 =
+    #: sequential).  The MG path holds about rhs_batch * (2 + 2 * restart)
+    #: fine fields; mg/dsolve.solve_certified_batch checks that sum against
+    #: the card's free memory before it allocates
+    rhs_batch: int = 12
+    #: gate of the direct (non-MG) batched path: the first column is solved
+    #: alone, and if its matvec count exceeds rhs_batch_gate_iters the other
+    #: columns run in batches of rhs_batch_gate_chunk instead of rhs_batch.
+    #: Keys and default values are tpuqcd's, so that its YAMLs mean the
+    #: same here; they were tuned for its hardware, not for this card.
+    #: 0 disables the gate.
+    rhs_batch_gate_iters: int = 1500
+    rhs_batch_gate_chunk: int = 4
 
 
 @dataclass(frozen=True)
@@ -102,6 +117,42 @@ MG_PRESETS = {
 
 
 @dataclass(frozen=True)
+class PhysicsParams:
+    """The physics: group (tpuqcd/utils/config.py:167-206).  The two-point
+    run reads source_positions, momenta (or mom_max_sq), projectors,
+    meson_channels, the smearing keys and output; the others belong to
+    programs not ported yet and are parsed so that every YAML loads."""
+    source_positions: tuple = ((0, 0, 0, 0),)      # (t, z, y, x)
+    t_sinks: tuple[int, ...] = ()
+    projectors: tuple[str, ...] = ("P+",)
+    baryons: tuple[str, ...] = ("proton",)
+    momenta: tuple = ((0, 0, 0),)
+    sink_momentum: tuple = (0, 0, 0)
+    #: if set, momenta is generated as every integer 3-vector with
+    #: n.n <= mom_max_sq (long lists take the FFT projection)
+    mom_max_sq: Optional[int] = None
+    #: gammas.MESON_CHANNELS names; the same Gamma at source and sink
+    meson_channels: tuple[str, ...] = ("pion",)
+    #: smearing of the Gaussian smearing's links: ape | stout
+    smear_type: str = "ape"
+    smear_alpha_ape: float = 0.5
+    smear_n_ape: int = 10
+    smear_rho_stout: float = 0.1
+    smear_alpha_gauss: float = 4.0
+    smear_n_gauss: int = 30
+    n_noise: int = 12
+    tsm_cheap: int = 0
+    tsm_maxiter_cheap: int = 50
+    tsm_tol: float = 1e-3
+    n_deflate: int = 0
+    eig_outfile: Optional[str] = None
+    eig_infile: Optional[str] = None
+    dilute_t: int = 1
+    dilute_sc: bool = False
+    output: str = "results.h5"
+
+
+@dataclass(frozen=True)
 class MeshParams:
     nt: int = 1
     nz: int = 1
@@ -114,6 +165,7 @@ class RunConfig:
     action: ActionParams = field(default_factory=ActionParams)
     solver: SolverParams = field(default_factory=SolverParams)
     mg: MGParamsCfg = field(default_factory=MGParamsCfg)
+    physics: PhysicsParams = field(default_factory=PhysicsParams)
     mesh: MeshParams = field(default_factory=MeshParams)
 
 
@@ -162,6 +214,9 @@ def validate_config(cfg: RunConfig) -> None:
         raise ConfigError(f"solver.tol must be in (0, 1), got {cfg.solver.tol}")
     if cfg.solver.maxiter <= 0:
         raise ConfigError(f"solver.maxiter must be positive, got {cfg.solver.maxiter}")
+    if cfg.solver.rhs_batch < 1:
+        raise ConfigError(f"solver.rhs_batch must be >= 1, got {cfg.solver.rhs_batch}")
+    _validate_physics(cfg.physics, dims)
     a = cfg.action
     if a.epsbar != 0.0:
         t, e = 2.0 * a.kappa * a.mubar, 2.0 * a.kappa * a.epsbar
@@ -172,6 +227,44 @@ def validate_config(cfg: RunConfig) -> None:
             raise ConfigError("the ndeg doublet path (action.epsbar != 0) supports the plain "
                               "mixed-precision CG solver only (no mg/eigcg/csw yet)")
     _validate_mesh(cfg.mesh, dims, cfg.solver.comm_policy)
+
+
+def _validate_physics(ph: PhysicsParams, dims) -> None:
+    """tpuqcd's physics checks (utils/config.py:270-277, :365-385)."""
+    from ..gammas import MESON_CHANNELS, PROJECTORS
+    lx, ly, lz, lt = dims
+    bad = [c for c in ph.meson_channels if c not in MESON_CHANNELS]
+    if bad:
+        raise ConfigError(f"physics.meson_channels: unknown {bad!r}; known: "
+                          f"{sorted(MESON_CHANNELS)}")
+    if ph.smear_type not in ("ape", "stout"):
+        raise ConfigError(f"physics.smear_type must be ape | stout, got {ph.smear_type!r}")
+    if len(ph.sink_momentum) != 3:
+        raise ConfigError(f"physics.sink_momentum must be a 3-vector, got {ph.sink_momentum}")
+    for b in ph.baryons:
+        if b not in ("proton", "neutron"):
+            raise ConfigError(f"physics.baryons entries must be proton | neutron, got {b!r}")
+    for pos in ph.source_positions:
+        if len(pos) != 4:
+            raise ConfigError(f"physics.source_positions entries must be (t, z, y, x), "
+                              f"got {pos}")
+        t, z, y, x = pos
+        if not (0 <= t < lt and 0 <= z < lz and 0 <= y < ly and 0 <= x < lx):
+            raise ConfigError(f"source position {pos} (t,z,y,x) outside lattice (T,Z,Y,X) = "
+                              f"{(lt, lz, ly, lx)}")
+    for ts in ph.t_sinks:
+        if not 0 <= ts < lt:
+            raise ConfigError(f"physics.t_sinks entry {ts} outside 0..{lt - 1}")
+    for q in ph.momenta:
+        if len(q) != 3:
+            raise ConfigError(f"physics.momenta entries must be 3-vectors, got {q}")
+    for p in ph.projectors:
+        if p not in PROJECTORS:
+            raise ConfigError(f"physics.projectors entries must be one of "
+                              f"{sorted(PROJECTORS)}, got {p!r}")
+    if ph.tsm_cheap < 0 or ph.n_deflate < 0 or ph.n_noise <= 0:
+        raise ConfigError(f"physics noise counts must be sane: n_noise {ph.n_noise} > 0, "
+                          f"tsm_cheap {ph.tsm_cheap} >= 0, n_deflate {ph.n_deflate} >= 0")
 
 
 def _validate_mesh(mesh: MeshParams, dims, comm_policy: str) -> None:
@@ -247,7 +340,18 @@ def config_from_dict(raw: dict) -> RunConfig:
                     action=_build(ActionParams, raw.get("action")),
                     solver=_build(SolverParams, raw.get("solver")),
                     mg=_build(MGParamsCfg, _apply_mg_preset(raw.get("mg"))),
+                    physics=_build(PhysicsParams, raw.get("physics")),
                     mesh=_build(MeshParams, raw.get("mesh")))
+    if cfg.physics.mom_max_sq is not None:
+        q2 = int(cfg.physics.mom_max_sq)
+        if q2 < 0:
+            raise ConfigError(f"physics.mom_max_sq must be >= 0, got {q2}")
+        if (raw.get("physics") or {}).get("momenta") is not None:
+            raise ConfigError("physics.momenta and physics.mom_max_sq are exclusive")
+        r = range(-int(q2 ** 0.5), int(q2 ** 0.5) + 1)
+        moms = tuple((nx, ny, nz) for nx in r for ny in r for nz in r
+                     if nx * nx + ny * ny + nz * nz <= q2)
+        cfg = dataclasses.replace(cfg, physics=dataclasses.replace(cfg.physics, momenta=moms))
     validate_config(cfg)
     return cfg
 

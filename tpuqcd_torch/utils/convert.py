@@ -38,20 +38,23 @@ def packed_from_numpy(arr: np.ndarray, lat: Lattice, device=None) -> torch.Tenso
         full system     [2, 2, 4, 3, T, Z, S] (also a one-parity doublet
                         [2(fl), 2(ri), 4, 3, T, Z, S])
         doublet system  [2(fl), 2(par), 2, 4, 3, T, Z, S]
-        gauge           [4, 2, 3, 3, 2, T, Z, S] or reconstruct-12 [4, 2, 2, 3, 2, T, Z, S]
+        gauge           [4, 2, 3, 3, 2, T, Z, S], reconstruct-12 [4, 2, 2, 3, 2, T, Z, S]
+                        or reconstruct-8 [4, 2, 4, 1, 2, T, Z, S]
+        a batch         [N, ...] of spinors, full systems (packed sources) or
+                        propagator columns [N, 2(par), 2(ri), 4, 3, T, Z, S]
     """
     arr = np.asarray(arr)
     sites = lat.site_shape
     layouts = [(2, 4, 3, *sites), (2, 2, 4, 3, *sites), (2, 2, 2, 4, 3, *sites),
-               (4, 2, 3, 3, 2, *sites), (4, 2, 2, 3, 2, *sites)]
-    if arr.shape not in layouts:
+               (4, 2, 3, 3, 2, *sites), (4, 2, 2, 3, 2, *sites), (4, 2, 4, 1, 2, *sites)]
+    if arr.shape not in layouts and arr.shape[1:] not in layouts[:2]:
         raise ValueError(f"shape {arr.shape} is not a packed layout of {lat.dims}: "
                          f"{layouts}")
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
     if arr.dtype not in (np.float32, np.float64):
         raise ValueError(f"dtype {arr.dtype} is not float32, float64 or bfloat16")
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
 def clover_from_numpy(lat: Lattice, cl_pk: np.ndarray, *inverses: np.ndarray,

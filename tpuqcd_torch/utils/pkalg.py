@@ -11,16 +11,53 @@ upcast first) and ``caxpy``/``cscale`` cast their scalars to the
 field's dtype, so a bfloat16 field is updated in bfloat16 arithmetic.
 The epsilon floors (sdiv 1e-30, Cholesky 1e-12) are tpuqcd's; the MG
 solve normalizes its right-hand side to them (mg/dsolve.DeviceMG.solve).
+
+A batch of N fields (tpuqcd vmaps this algebra over the right-hand
+sides, mg/dsolve.py:316-347) is handled as the re/im-major view
+``[2(ri), N, ...]`` of a batch ``[N, 2(ri), ...]`` (``ri_major``): inside
+``batched()`` the reductions return one scalar per column, shaped
+``[N, 1, ..., 1]`` so that it broadcasts over ``x[0]``, and every
+function here and in solvers/krylov_pk.py then runs the N columns in
+lockstep, unchanged.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+
+_BATCHED: contextvars.ContextVar = contextvars.ContextVar("tpuqcd_torch_pk_batched",
+                                                          default=False)
+
+
+@contextlib.contextmanager
+def batched():
+    """Inside the block every field is a batch view [2(ri), N, ...] and
+    cdot/norm2 reduce per column."""
+    token = _BATCHED.set(True)
+    try:
+        yield
+    finally:
+        _BATCHED.reset(token)
+
+
+def ri_major(x: torch.Tensor) -> torch.Tensor:
+    """A batch [N, 2(ri), ...] as the view [2(ri), N, ...], and back."""
+    return x.movedim(1, 0)
 
 
 def cdot(x: torch.Tensor, y: torch.Tensor, dtype=torch.float32):
     """<x, y> = sum conj(x) y -> (re, im) 0-d tensors of ``dtype``
-    (three dot products: the real part is the dot of the packed arrays)."""
+    (three dot products: the real part is the dot of the packed arrays);
+    per column, shaped [N, 1, ..., 1], inside ``batched()``."""
     x, y = x.to(dtype), y.to(dtype)
+    if _BATCHED.get():
+        xf, yf = x.flatten(2), y.flatten(2)                       # [2, N, M]
+        re = torch.linalg.vecdot(xf, yf).sum(0)
+        im = torch.linalg.vecdot(xf[0], yf[1]) - torch.linalg.vecdot(xf[1], yf[0])
+        shape = (-1, *([1] * (x.ndim - 2)))
+        return re.reshape(shape), im.reshape(shape)
     re = torch.dot(x.reshape(-1), y.reshape(-1))
     im = torch.dot(x[0].reshape(-1), y[1].reshape(-1)) - torch.dot(x[1].reshape(-1),
                                                                   y[0].reshape(-1))
@@ -28,6 +65,9 @@ def cdot(x: torch.Tensor, y: torch.Tensor, dtype=torch.float32):
 
 
 def norm2(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    if _BATCHED.get():
+        xf = x.to(dtype).flatten(2)
+        return torch.linalg.vecdot(xf, xf).sum(0).reshape(-1, *([1] * (x.ndim - 2)))
     v = x.reshape(-1).to(dtype)
     return torch.dot(v, v)
 
