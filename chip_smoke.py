@@ -28,10 +28,12 @@ Phases, each of which exits non-zero on failure:
    dagger off and on; half-spinor and full faces; float64 and float32
    18-real, float32 and bfloat16 reconstruct-12 links), against the plain
    version and, stitched, against the unsharded kernel; then the batch
-   axis (N = 1, 3 and 12 right-hand sides in one launch: equal bit for
-   bit to N single launches, within the limits of the plain version;
-   every epilogue with clover, both parities, dagger, each storage type,
-   and into the parity views of a batched MG field), reconstruct-8 (K5:
+   axis (N = 1, 3 and 12 right-hand sides in one launch at 8^3x16, and
+   after 4h and 4i at 32^3x64 with exactly the numbers of columns their
+   launches had: equal bit for bit to N single launches, within the
+   limits of the plain version; every epilogue with clover, both
+   parities, dagger, each storage type, and into the parity views of a
+   batched MG field), reconstruct-8 (K5:
    every summed epilogue, both parities, dagger, antiperiodic and
    periodic t, each storage type, batched, in halo mode on the (2, 2)
    shards, and against the 18-real kernel on the same links) and
@@ -72,25 +74,24 @@ Phases, each of which exits non-zero on failure:
       0.5 x 5, Gauss 4.0 x 20, source at the origin, momenta (0,0,0) and
       (1,0,0), P+, pion): all 24 columns certified by the solver, one
       column per solver call also by the plain float64 operator, the
-      correlators finite, the pion at p = 0 real and positive, the neutron
-      the proton with the propagators swapped; where h5py imports, the
+      correlators finite, the pion at p = 0 real, positive and equal to the
+      sum of |S_u|^2 over each timeslice, the proton and neutron densities
+      at 8 sites equal to the unfactored Wick sum; where h5py imports, the
       file is written and read back;
    i. four point-source columns through solve_tm_mg_batch on 4b's
       hierarchy (lockstep GCR), each certified, one held to the plain
       float64 operator, beside the seconds of the same four one by one;
-   j. the modes no program of tpuqcd or of the port calls, each through a
-      function a user would call: 4a's system by solve_tm with
-      sloppy_links=8 (K5 as the sloppy operator), and the MG smoother (4
-      MR steps on 4b's gauge) on a bfloat16 fine level with
-      compute="bf16", beside float32 arithmetic;
+   reconstruct-8 and compute="bf16" are on no path, in tpuqcd as here
+   (their only caller is dslash_eo): phases 3 and 5 hold and time them,
+   and the kernels line lists them with 0 launches;
 5. times at 32^3x64: the kernel per launch for each epilogue and storage
    type the solves use and for the legs_out and dirs modes, and halo mode
    on the one-rank mesh and at the (2, 2) shard size beside the plain hop
    on the same volume, beside the plain version, with GFLOP/s, effective
    GB/s and the bound (compulsory bytes at 3.35 TB/s); the batched launch
-   at N = 1, 2, 4, 12; reconstruct-8 beside reconstruct-12 and 18-real;
-   compute="bf16" beside float32 arithmetic; the lockstep CG step at N =
-   1, 2, 4, 12.
+   at N = 1, 2, 4, 12 and at the numbers of columns 4h's and 4i's launches
+   had; reconstruct-8 beside reconstruct-12 and 18-real; compute="bf16"
+   beside float32 arithmetic; the lockstep CG step at the same N.
 
 The line before the last is the JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -139,6 +140,8 @@ HALO_STORAGE = STORAGE[:1] + (("f32_18", torch.float32, 3, 1e-5),) + STORAGE[1:]
 X_AGREE = 1e-8
 #: cell 4h: a light quark on the beta = 6.0 heatbath gauge, away from kappa_c
 TWOP_KAPPA, TWOP_MU = 0.150, 0.005
+#: cell 4i: the columns of the lockstep MG solve (12 do not fit the card)
+MGB_COLUMNS = 4
 #: compute="bf16" against float32 arithmetic and its plain version: 5% of
 #: the largest value (tpuqcd/tests/test_dslash_pallas.py:269)
 BF16C_TOL = 0.05
@@ -458,28 +461,27 @@ def _agree(k, p, what, tol, bitwise=False) -> tuple[float, float]:
     return err, rel
 
 
-def compare_batch(dims, dev) -> dict:
-    """The batch axis: N = 1, 3 and 12 right-hand sides in one launch
-    against N single launches (bit for bit) and against the plain version
-    on the batch, every epilogue with the clover ones, both parities,
-    dagger off and on, each storage type; psi, psi0 and out the parity
-    views of a batched MG field [N, 2(ri), 2(par), ...]; returns
-    {storage: max abs err against the plain version}."""
+def compare_batch(dims, dev, widths) -> dict:
+    """The batch axis: N right-hand sides in one launch, for every N of
+    ``widths``, against N single launches (bit for bit) and against the
+    plain version on the batch, every epilogue with the clover ones, both
+    parities, dagger off and on, each storage type; psi, psi0 and out the
+    parity views of a batched MG field [N, 2(ri), 2(par), ...]; returns
+    {(storage, N): max abs err against the plain version}."""
     from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
     lat, gauges, _, _ = problem(dims, dev, seed=8)
     blocks = clover_operands(gauges["f64"], lat)
     gen = torch.Generator().manual_seed(18)
     max_abs = {}
-    # the whole matrix at the small size; at full size 12 columns, with
-    # dagger on at source parity 1 only
+    # the whole matrix at the small size; at full size dagger on at source
+    # parity 1 only
     full = dims == SMALL
     for name, dt, _, tol in STORAGE:
         u = gauges[name]
-        max_abs[name] = 0.0
         worst = 0.0
-        for n in (1, 3, 12) if full else (12,):
-            field = torch.randn((n, 2, 2, 4, 3, *lat.site_shape), generator=gen,
-                                dtype=torch.float64).to(dev).to(dt)
+        for n in widths:
+            max_abs[(name, n)] = 0.0
+            field = torch.randn((n, 2, 2, 4, 3, *lat.site_shape), generator=gen).to(dev).to(dt)
             field0 = field.flip(0).roll(1, 2)
             for parity in (0, 1):
                 psi, psi0 = field[:, :, parity], field0[:, :, 1 - parity]
@@ -514,8 +516,8 @@ def compare_batch(dims, dev) -> dict:
                         if out[:, :, parity].abs().max().item() != 0.0:
                             fail(what + ": wrote outside its parity view")
                         del out, k
-                        max_abs[name], worst = max(max_abs[name], err), max(worst, rel)
-        print(f"  {'x'.join(map(str, dims))} {name:4s} batch N={'1,3,12' if full else '12'}, 6 "
+                        max_abs[(name, n)], worst = max(max_abs[(name, n)], err), max(worst, rel)
+        print(f"  {'x'.join(map(str, dims))} {name:4s} batch N={','.join(map(str, widths))}, 6 "
               f"epilogues, parities, {'daggers' if full else 'dagger at parity 1'}: equal to "
               f"single launches bit for bit; max rel err against plain "
               f"{worst:.3e} (tol {tol:.0e}) ok")
@@ -965,7 +967,7 @@ def twop_path(dev, gauge, have_h5py: bool):
     from tpuqcd_torch.gammas import PROJECTORS
     from tpuqcd_torch.lattice import Lattice
     from tpuqcd_torch.ops import dslash_cuda
-    from tpuqcd_torch.phys.contract_dev import proton_2pt_dev
+    from tpuqcd_torch.phys.contract_dev import proton_2pt_site_dev
     lat = Lattice(LARGE)
     with tempfile.TemporaryDirectory() as tmp:
         cfg = twop_config(os.path.join(tmp, "twop.h5"))
@@ -1010,17 +1012,27 @@ def twop_path(dev, gauge, have_h5py: bool):
         if not (pion.real.min() > 0 and abs(pion.imag / pion.real).max() < 1e-6):
             fail("the pion correlator at p = 0 is not real and positive on every timeslice")
         f = res.fields[tag]
-        momenta, src = res.momenta, (0, 0, 0, 0)
-        for who, (a, c) in (("proton", (f["u"], f["d"])), ("neutron", (f["d"], f["u"]))):
-            again = proton_2pt_dev(a, c, lat, momenta, src_pos=src,
-                                   proj=PROJECTORS["P+"]).cpu().numpy()
-            have = res.correlators[f"twop/{who}/P+/{tag}"]
-            if not (again == have).all():
-                fail(f"the {who} is not the proton contraction of its propagators")
+        # the pion by another formula: -Tr[g5 S g5 g5 S^dag g5] = sum |S|^2
+        own = f["u"].double().square().sum((0, 1, 2, 3, 4, 5, 7, 8)).cpu().numpy()
+        dev_pi = abs(pion.real - own).max() / own.max()
+        print(f"  pion p=0 against the sum of |S_u|^2 over each timeslice: max rel diff "
+              f"{dev_pi:.2e} (limit 1e-5)")
+        if not dev_pi <= 1e-5:
+            fail("the pion correlator is not the timeslice sum of |S_u|^2")
+        # proton and neutron densities at 8 sites against the unfactored Wick sum
+        proj = PROJECTORS["P+"]
+        sub = {k: f[k][..., 5:6, 3:4, 16:24].contiguous() for k in ("u", "d")}
+        for who, (a, c) in (("proton", ("u", "d")), ("neutron", ("d", "u"))):
+            got = proton_2pt_site_dev(sub[a], sub[c], proj)
+            want = plain_proton_density(sub[a], sub[c], proj)
+            dev_n = ((got - want).abs().max() / want.abs().max()).item()
+            print(f"  {who} density at 8 sites of timeslice 5 against the unfactored Wick sum: "
+                  f"max rel diff {dev_n:.2e} (limit 1e-5)")
+            if not dev_n <= 1e-5:
+                fail(f"the {who} density is not the Wick sum of its propagators")
         prot, neut = (res.correlators[f"twop/{w}/P+/{tag}"][0] for w in ("proton", "neutron"))
-        print(f"  proton p=0 C(0) {prot[0]:.6e}, C(T/4) {prot[T // 4]:.6e}; the neutron is the proton "
-              f"contraction with u and d swapped (max |n - p| / |p| "
-              f"{abs((neut - prot) / prot).max():.2e})")
+        print(f"  proton p=0 C(0) {prot[0]:.6e}, C(T/4) {prot[T // 4]:.6e}; neutron C(0) "
+              f"{neut[0]:.6e}, C(T/4) {neut[T // 4]:.6e}")
         if have_h5py:
             from tpuqcd_torch.io.hdf5io import read_dataset
             run_twop.write(cfg, res)
@@ -1037,6 +1049,25 @@ def twop_path(dev, gauge, have_h5py: bool):
     return res, counts
 
 
+def plain_proton_density(su, sd, proj) -> torch.Tensor:
+    """The proton's Wick sum at every site of packed propagators [2(ri),
+    2(par), 4, 3, 4, 3, T, Z, S], unfactored, in complex128 (for a handful
+    of sites): with W = G Sd G~, G = C g5,
+      sum proj[n,m] eps_abc eps_def (Su[m,a,n,d] Su[r,b,v,e]
+                                     - Su[m,a,v,e] Su[r,b,n,d]) W[r,c,v,f]
+    -> packed density [2(ri), 2(par), T, Z, S] float64."""
+    from tpuqcd_torch.gammas import CGAMMA5, EPS3, gbar
+    dev, cdt = su.device, torch.complex128
+    u, d = (torch.complex(p[0].double(), p[1].double()) for p in (su, sd))
+    g, gt = CGAMMA5.to(dev, cdt), gbar(CGAMMA5).to(dev, cdt)
+    eps, pr = EPS3.to(dev, cdt), torch.as_tensor(proj).to(dev, cdt)
+    w = torch.einsum("rs,pscuftzx,uv->prcvftzx", g, d, gt)
+    uu = (torch.einsum("pmandtzx,prbvetzx->pmandrbvetzx", u, u)
+          - torch.einsum("pmavetzx,prbndtzx->pmandrbvetzx", u, u))
+    dens = torch.einsum("nm,abc,def,pmandrbvetzx,prcvftzx->ptzx", pr, eps, eps, uu, w)
+    return torch.stack([dens.real, dens.imag])
+
+
 def point_columns(lat, dev, n: int) -> torch.Tensor:
     """The first n point-source columns at the origin, packed float32
     [n, 2(par), 2(ri), 4, 3, T, Z, S]."""
@@ -1050,15 +1081,16 @@ def point_columns(lat, dev, n: int) -> torch.Tensor:
 
 
 def mg_batch_path(dev, mg, u_pk):
-    """4i: four point-source columns through solve_tm_mg_batch on 4b's
-    hierarchy, then the same four one by one; returns (batch seconds,
-    single seconds, iterations, counts)."""
+    """4i: MGB_COLUMNS point-source columns through solve_tm_mg_batch on
+    4b's hierarchy, then the same columns one by one; returns (batch
+    seconds, single seconds, iterations, counts)."""
     from tpuqcd_torch.lattice import Lattice
     from tpuqcd_torch.ops import dslash_cuda
     from tpuqcd_torch.solve import solve_tm_mg, solve_tm_mg_batch
     lat = Lattice(LARGE)
-    b = point_columns(lat, dev, 4)
-    print(f"  the GCR basis and work fields of 4 columns: {mg.batch_bytes(4) / 2**30:.1f} GiB "
+    b = point_columns(lat, dev, MGB_COLUMNS)
+    print(f"  the GCR basis and work fields of {MGB_COLUMNS} columns: "
+          f"{mg.batch_bytes(MGB_COLUMNS) / 2**30:.1f} GiB "
           f"(12 columns: {mg.batch_bytes(12) / 2**30:.1f} GiB, refused by the memory check)")
     torch.cuda.synchronize()
     dslash_cuda.reset_counts()
@@ -1072,7 +1104,7 @@ def mg_batch_path(dev, mg, u_pk):
         fail("the batched MG path called the plain version")
     need_launches(counts, ("float32:batch", "bfloat16:batch", "float64:batch"))
     rel = plain_full_relres(u_pk.double(), b[0].double(), res.x[0], lat, MG_KAPPA, MG_MU)
-    print(f"  4 columns in lockstep: certified relres {', '.join(f'{r:.3e}' for r in res.relres)}"
+    print(f"  {MGB_COLUMNS} columns in lockstep: certified relres {', '.join(f'{r:.3e}' for r in res.relres)}"
           f"; column 0 plain-operator relres {rel:.3e}; {res.iters[0]} inner iterations, "
           f"{res.refinements[0]} refinements, {t_batch:.2f} s")
     if not (max(res.relres) <= RELRES_MAX and rel <= RELRES_MAX):
@@ -1080,12 +1112,13 @@ def mg_batch_path(dev, mg, u_pk):
     x_batch = res.x
     del res
     t0 = time.perf_counter()
-    singles = [solve_tm_mg(mg, b[i], tol=RELRES_MAX, inner_tol=1e-7) for i in range(4)]
+    singles = [solve_tm_mg(mg, b[i], tol=RELRES_MAX, inner_tol=1e-7)
+               for i in range(MGB_COLUMNS)]
     torch.cuda.synchronize()
     t_single = time.perf_counter() - t0
     agree = max(((x_batch[i] - r.x).abs().max() / r.x.abs().max()).item()
                 for i, r in enumerate(singles))
-    print(f"  the same 4 columns one by one: {t_single:.2f} s, inner iterations "
+    print(f"  the same {MGB_COLUMNS} columns one by one: {t_single:.2f} s, inner iterations "
           f"{[r.iters for r in singles]}, relres <= {max(r.relres for r in singles):.3e}; "
           f"max |x - x(lockstep)| / |x| {agree:.3e} (limit {X_AGREE:.0e}); lockstep is "
           f"{t_single / t_batch:.2f}x faster")
@@ -1102,56 +1135,6 @@ def mg_batch_path(dev, mg, u_pk):
     return t_batch, t_single, [r.iters for r in singles], counts
 
 
-def rare_modes_path(dev, res4a, gauge):
-    """4j: reconstruct-8 as the sloppy operator of 4a's solve, and
-    compute="bf16" as the arithmetic of the MG smoother; returns (recon-8
-    counts, compute-bf16 counts)."""
-    from tpuqcd_torch.lattice import Lattice
-    from tpuqcd_torch.mg.device import DeviceFineLevel
-    from tpuqcd_torch.ops import dslash_cuda
-    from tpuqcd_torch.solve import solve_tm
-    from tpuqcd_torch.solvers.krylov_pk import mr_smoother_pk
-    lat = Lattice(LARGE)
-    torch.cuda.synchronize()
-    dslash_cuda.reset_counts()
-    t0 = time.perf_counter()
-    r8 = solve_tm(res4a.u_pk, res4a.b_pk, lat, kappa=KAPPA, mu=MU, tol=RELRES_MAX,
-                  sloppy_links=8)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    r8_counts = dict(dslash_cuda.counts)
-    rel = plain_full_relres(res4a.u_pk.double(), res4a.b_pk.double(), r8.x, lat)
-    agree = ((r8.x - res4a.x).abs().max() / res4a.x.abs().max()).item()
-    print(f"  4a's system with reconstruct-8 sloppy links: launches {r8_counts}; certified "
-          f"relres {r8.relres:.3e}, plain-operator relres {rel:.3e}, {r8.iters} matvecs (4a: "
-          f"{res4a.iters}), {seconds:.3f} s with the packing; max |x - x(4a)| / |x| {agree:.3e}")
-    if r8_counts.get("plain", 0) != 0:
-        fail("the reconstruct-8 solve called the plain version")
-    need_launches(r8_counts, ("float32:recon8", "float64"))
-    if not (r8.relres <= RELRES_MAX and rel <= RELRES_MAX and agree <= X_AGREE):
-        fail("the reconstruct-8 solve is not certified or does not agree with 4a")
-    # the smoother: 4 MR steps on a normalized random residual
-    level = DeviceFineLevel(lat, gauge.u_pk, MG_KAPPA, MG_MU)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    r = level.random_field(gen)
-    r = r / r.square().sum().sqrt()
-    out = {}
-    for compute in ("f32", "bf16"):
-        twin = level.sloppy(torch.bfloat16, compute=compute)
-        torch.cuda.synchronize()
-        dslash_cuda.reset_counts()
-        x = mr_smoother_pk(twin.apply, r.bfloat16(), iters=4).float()
-        torch.cuda.synchronize()
-        out[compute] = (dict(dslash_cuda.counts), (r - level.apply(x)).square().sum().sqrt().item())
-    (c32, res32), (cbf, resbf) = out["f32"], out["bf16"]
-    print(f"  MG smoother (4 MR steps, bfloat16 level): |r - M x| / |r| = {resbf:.4f} with "
-          f"compute=bf16 (launches {cbf}), {res32:.4f} with float32 arithmetic (launches {c32})")
-    need_launches(cbf, ("bfloat16:compute_bf16",))
-    if cbf.get("plain", 0) != 0 or not (resbf < 1.0 and resbf <= 1.5 * res32):
-        fail("the compute=bf16 smoother does not reduce the residual as the float32 one does")
-    return r8_counts, cbf
-
-
 def slim(result):
     """An InvertResult without its fields and hierarchy, to free the card."""
     import dataclasses
@@ -1161,13 +1144,13 @@ def slim(result):
 
 
 def new_compares(dev):
-    """Phase 3 of the two-point slice: the batch axis, reconstruct-8 and
+    """Phase 3 of the two-point slice: the batch axis at 8^3x16 (at 32^3x64
+    it follows 4h and 4i, with their numbers of columns), reconstruct-8 and
     compute="bf16" against their plain versions at 8^3x16 and 32^3x64;
-    returns their max abs errors at 32^3x64."""
+    returns the latter two's max abs errors at 32^3x64."""
     say("phase 3: the batch axis against single launches and the plain version")
     torch.cuda.empty_cache()
-    compare_batch(SMALL, dev)
-    batch_abs = compare_batch(LARGE, dev)
+    compare_batch(SMALL, dev, (1, 3, 12))
     say("phase 3: reconstruct-8 (K5) against the plain version and the 18-real kernel")
     compare_recon8(SMALL, dev)
     r8_abs = compare_recon8(LARGE, dev)
@@ -1175,7 +1158,7 @@ def new_compares(dev):
     compare_bf16c(SMALL, dev)
     bf16c_abs = compare_bf16c(LARGE, dev)
     torch.cuda.empty_cache()
-    return batch_abs, r8_abs, bf16c_abs
+    return r8_abs, bf16c_abs
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1304,9 +1287,10 @@ def halo_timings(dev, card_tag) -> dict:
     return out
 
 
-def new_timings(dev, card_tag) -> dict:
+def new_timings(dev, card_tag, widths) -> dict:
     """The modes of the two-point slice at 32^3x64, per launch: the batched
-    launch at N = 1, 2, 4, 12 (f32 xpay, bf16 and f64 xpay_full),
+    launch at N = 1, 2, 4, 12 and every N of ``widths``, the numbers of
+    columns the main paths launched (f32 xpay, bf16 and f64 xpay_full),
     reconstruct-8 beside reconstruct-12 and 18-real (f32 and f64, none and
     xpay), compute="bf16" beside float32 arithmetic, and the lockstep CG
     step.  The bound of a batch reads the links once for its N columns.
@@ -1318,6 +1302,7 @@ def new_timings(dev, card_tag) -> dict:
     sites = lat.half_volume
     dims = "x".join(map(str, LARGE))
     gen = torch.Generator().manual_seed(22)
+    ns = sorted({1, 2, 4, 12, *widths})
     out = {}
 
     def fields(n, dt):
@@ -1338,12 +1323,12 @@ def new_timings(dev, card_tag) -> dict:
         dt, rows = next((d, r) for n_, d, r, _ in STORAGE if n_ == name)
         u = gauges[name]
         item = u.element_size()
-        for n in (1, 2, 4, 12):
+        for n in ns:
             psi, psi0 = fields(n, dt)
             kw = dict(epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale, psi0=psi0)
             k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, **kw), reps=20)
             p_ms = (time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw), reps=2, warmup=1)
-                    if n in (4, 12) else None)
+                    if n in widths else None)
             byts = (n * 3 * 24 + 8 * rows * 6) * item * sites
             report(name, f"{mode}_b{n}", f"{name} recon-{rows * 6} {mode} batch N={n:2d} "
                    f"({k_ms / n:.4f} ms a column)", k_ms, p_ms, byts, FLOP_PER_SITE * sites * n,
@@ -1383,7 +1368,7 @@ def new_timings(dev, card_tag) -> dict:
     # the lockstep CG step: the normal operator on N columns, 20 steps
     pc = PackedTMOperatorPC(lat, kappa=KAPPA, mu=MU)
     u = gauges["f32"]
-    for n in (1, 2, 4, 12):
+    for n in ns:
         b, _ = fields(n, torch.float32)
         never = torch.zeros(n, dtype=torch.float64, device=dev)
         budget = torch.full((n,), 20, dtype=torch.int64, device=dev)
@@ -1445,10 +1430,11 @@ def main() -> None:
     say("phase 3: halo mode (K6) on a one-rank mesh and an emulated (2, 2) decomposition")
     compare_halo(SMALL, dev)
     halo_abs = compare_halo(LARGE, dev)
-    batch_abs, r8_abs, bf16c_abs = new_compares(dev)
+    r8_abs, bf16c_abs = new_compares(dev)
 
     say("phase 4a: main path, tpuqcd_torch.cli.run_invert (CG) at 32^3x64")
     res, counts = main_path(dev)
+    res = slim(res)
     say("phase 4b: main path, tpuqcd_torch.cli.run_invert (MG) at 32^3x64")
     from tpuqcd_torch.cli.common import setup_gauge
     gauge = setup_gauge(mg_config(MG_KAPPA, MG_MU), dev)
@@ -1480,11 +1466,15 @@ def main() -> None:
           "at 32^3x64")
     tw_res, tw_counts = twop_path(dev, gauge, have_h5py)
     tw_seconds = tw_res.seconds
+    # the numbers of columns the batched launches of 4h and 4i had
+    tw_widths = sorted({rec["columns"] for rec in tw_res.solves if rec["columns"] > 1})
+    widths = sorted({*tw_widths, MGB_COLUMNS})
+    tw_n, tw_ns = max(tw_widths), ", ".join(map(str, tw_widths))
     del tw_res
     torch.cuda.empty_cache()
-    say("phase 4j: reconstruct-8 as a sloppy operator, compute=bf16 as the smoother's "
-          "arithmetic")
-    r8_counts, bf16c_counts = rare_modes_path(dev, res, gauge)
+    say("phase 3: the batch axis at 32^3x64 with the numbers of columns 4h's and 4i's "
+        f"launches had, N = {', '.join(map(str, widths))}")
+    batch_abs = compare_batch(LARGE, dev, widths)
 
     say(f"phase 5: times {card_tag}")
     t = timings(dev, card_tag)
@@ -1500,7 +1490,7 @@ def main() -> None:
     print(f"  doublet CG solve: {nd_res.seconds:.3f} s wallclock, {nd_res.iters} sloppy "
           f"matvecs, {nd_res.refinements} refinements; on the one-rank mesh {sh_seconds:.3f} s "
           f"{card_tag}")
-    t.update(new_timings(dev, card_tag))
+    t.update(new_timings(dev, card_tag, widths))
     print("  two-point run (4h) seconds by stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in tw_seconds.items()) + f" {card_tag}")
     print(f"  MG, 4 point-source columns (4i): lockstep {mgb_batch_s:.2f} s, one by one "
@@ -1515,6 +1505,7 @@ def main() -> None:
                 "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
+    nb = MGB_COLUMNS
     vmap = "tpuqcd/ops/dslash_pallas.py:733"   # the call jax.vmap adds a grid axis to
     k3 = "tpuqcd/ops/dslash_pallas.py:461"
     k6 = "tpuqcd/ops/dslash_pallas.py:583"
@@ -1563,27 +1554,28 @@ def main() -> None:
         entry("dslash_eo<double> 18-real halo (K6, sharded ndeg certification operator), none "
               "timed on the one-rank mesh", sh_counts["float64:halo"], halo_abs["f64"],
               ("f64", "halo_none"), k6),
-        entry("dslash_eo<float> reconstruct-12 batch axis (two-point sloppy operator, 11 or 12 "
-              "columns a launch), xpay N=12 timed", tw_counts["float32:batch"],
-              batch_abs["f32"], ("f32", "xpay_b12"), vmap),
-        entry("dslash_eo<double> 18-real batch axis (two-point certification operator), "
-              "xpay_full N=12 timed", tw_counts["float64:batch"], batch_abs["f64"],
-              ("f64", "xpay_full_b12"), vmap),
-        entry("dslash_eo<float> reconstruct-12 batch axis (lockstep MG fine operator, 4 "
-              "columns), xpay N=4 timed", mgb_counts["float32:batch"], batch_abs["f32"],
-              ("f32", "xpay_b4"), vmap),
-        entry("dslash_eo<bf16> reconstruct-12 batch axis (lockstep MG smoother, 4 columns), "
-              "xpay_full N=4 timed", mgb_counts["bfloat16:batch"], batch_abs["bf16"],
-              ("bf16", "xpay_full_b4"), vmap),
-        entry("dslash_eo<double> 18-real batch axis (lockstep MG certification operator, 4 "
-              "columns), xpay_full N=4 timed", mgb_counts["float64:batch"], batch_abs["f64"],
-              ("f64", "xpay_full_b4"), vmap),
-        entry("dslash_eo<float> reconstruct-8 (K5, sloppy operator of 4j's solve_tm), xpay "
-              "timed", r8_counts["float32:recon8"], r8_abs["f32"], ("f32", "xpay_r8"),
+        entry(f"dslash_eo<float> reconstruct-12 batch axis (two-point sloppy operator, {tw_ns} "
+              f"columns a launch), xpay N={tw_n} timed", tw_counts["float32:batch"],
+              batch_abs[("f32", tw_n)], ("f32", f"xpay_b{tw_n}"), vmap),
+        entry(f"dslash_eo<double> 18-real batch axis (two-point certification operator, {tw_ns} "
+              f"columns a launch), xpay_full N={tw_n} timed", tw_counts["float64:batch"],
+              batch_abs[("f64", tw_n)], ("f64", f"xpay_full_b{tw_n}"), vmap),
+        entry(f"dslash_eo<float> reconstruct-12 batch axis (lockstep MG fine operator, {nb} "
+              f"columns), xpay N={nb} timed", mgb_counts["float32:batch"],
+              batch_abs[("f32", nb)], ("f32", f"xpay_b{nb}"), vmap),
+        entry(f"dslash_eo<bf16> reconstruct-12 batch axis (lockstep MG smoother, {nb} columns), "
+              f"xpay_full N={nb} timed", mgb_counts["bfloat16:batch"], batch_abs[("bf16", nb)],
+              ("bf16", f"xpay_full_b{nb}"), vmap),
+        entry(f"dslash_eo<double> 18-real batch axis (lockstep MG certification operator, {nb} "
+              f"columns), xpay_full N={nb} timed", mgb_counts["float64:batch"],
+              batch_abs[("f64", nb)], ("f64", f"xpay_full_b{nb}"), vmap),
+        # on no path, in tpuqcd as here: held in phase 3, timed in phase 5
+        entry("dslash_eo<float> reconstruct-8 (K5; no caller but dslash_eo, on no path), xpay "
+              "timed", 0, r8_abs["f32"], ("f32", "xpay_r8"),
               "tpuqcd/ops/dslash_pallas.py:247"),
-        entry("dslash_eo<bf16, compute bf16> reconstruct-12 (4j's MG smoother arithmetic), "
-              "xpay_full timed", bf16c_counts["bfloat16:compute_bf16"], bf16c_abs,
-              ("bf16", "xpay_full_cbf16"), "tpuqcd/ops/dslash_pallas.py:705"),
+        entry("dslash_eo<bf16, compute bf16> reconstruct-12 (no caller but dslash_eo, on no "
+              "path), xpay_full timed", 0, bf16c_abs, ("bf16", "xpay_full_cbf16"),
+              "tpuqcd/ops/dslash_pallas.py:705"),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

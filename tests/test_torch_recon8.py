@@ -18,8 +18,8 @@ import torch
 from tpuqcd.ops.dslash_pallas import dslash_eo_pallas
 from tpuqcd.utils import packed as jpacked
 
+from tpuqcd_torch.operators import PackedTMOperatorPC
 from tpuqcd_torch.ops.dslash_cuda import dslash_eo, expand_links
-from tpuqcd_torch.solve import solve_tm
 from tpuqcd_torch.utils.convert import packed_from_numpy
 from tpuqcd_torch.utils.packed import (pack_gauge, pack_gauge8, recon8_rows, unpack_gauge,
                                        unpack_gauge8)
@@ -160,15 +160,16 @@ def test_recon8_halo_shards_stitch_to_the_whole_hop(antiperiodic_t):
                 np.testing.assert_allclose(n(out), n(m.shard(whole)), atol=1e-12, rtol=0)
 
 
-def test_solve_tm_with_reconstruct8_sloppy_links():
-    u, _, _ = _jax_fields()
-    b = t(spinor_pk(LAT, 5, parities=2))
-    ref = solve_tm(t(u), b, LAT, kappa=0.12, mu=0.05)
-    res = solve_tm(t(u), b, LAT, kappa=0.12, mu=0.05, sloppy_links=8)
-    assert res.relres <= 1e-10 and ref.relres <= 1e-10
-    assert ((res.x - ref.x).abs().max() / ref.x.abs().max()).item() <= 1e-8
-    with pytest.raises(ValueError, match="sloppy_links"):
-        solve_tm(t(u), b, LAT, kappa=0.12, mu=0.05, sloppy_links=10)
+def test_operator_takes_reconstruct8_links_by_their_shape():
+    """No option selects reconstruct-8: an 8-real gauge handed to the
+    even-odd operator gives Mhat and Mhat^dag of the 18-real gauge."""
+    u, psi, _ = _jax_fields()
+    u18 = t(u)
+    u8 = pack_gauge8(unpack_gauge(u18), torch.float64)
+    v = t(psi, torch.float64)
+    pc = PackedTMOperatorPC(LAT, kappa=KAPPA, mu=MU)
+    for f in (pc.apply, pc.apply_dagger):
+        np.testing.assert_allclose(n(f(u8, v)), n(f(u18, v)), atol=1e-12, rtol=0)
 
 
 # --- compute="bf16" ---------------------------------------------------------

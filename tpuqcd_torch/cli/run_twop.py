@@ -42,6 +42,8 @@ from .common import Gauge, log, make_solver, parse_args, setup_gauge, smeared_ga
 class TwopResult:
     #: dataset group ("twop/proton/P+/sx0sy0sz0st0") -> complex128 [n_mom, T]
     correlators: dict
+    #: dataset group -> its source position (t, z, y, x)
+    sources: dict
     #: seconds by stage, host clock, device synchronised: gauge, smearing,
     #: sources, solves_u, solves_d, sink_smearing, contractions (the Wick
     #: contractions to site densities), projection (to momenta)
@@ -83,7 +85,7 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
 
     with stage("smearing"):
         u_sm = smeared_gauge(cfg, lat, u_pk) if ph.smear_n_gauss > 0 else None
-    correlators, fields = {}, {}
+    correlators, sources, fields = {}, {}, {}
     for src in ph.source_positions:
         tag = source_tag(src)
         log.info("source %s (contractions on %s)", tuple(src), device)
@@ -117,13 +119,15 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
             for group, d in dens.items():
                 correlators[group] = project_momenta_pk(d, lat, momenta,
                                                         (src[3], src[2], src[1]))
+                sources[group] = tuple(src)
             del dens
         if keep_fields:
             fields[tag] = {"b": b_pks, **props}
         del props
     correlators = {k: v.cpu().numpy() for k, v in correlators.items()}
-    return TwopResult(correlators=correlators, seconds=dict(prof.times), solves=solve.records,
-                      momenta=momenta, plaquette=plaq, u_pk=u_pk if keep_fields else None,
+    return TwopResult(correlators=correlators, sources=sources, seconds=dict(prof.times),
+                      solves=solve.records, momenta=momenta, plaquette=plaq,
+                      u_pk=u_pk if keep_fields else None,
                       fields=fields if keep_fields else None)
 
 
@@ -133,9 +137,7 @@ def write(cfg: RunConfig, result: TwopResult) -> None:
     if os.path.dirname(out):
         os.makedirs(os.path.dirname(out), exist_ok=True)
     for group, corr in result.correlators.items():
-        st, sz, sy, sx = (int(group.rsplit("/", 1)[1].split(k)[1].split("s")[0])
-                          for k in ("st", "sz", "sy", "sx"))
-        write_twop(out, group, corr, result.momenta, (st, sz, sy, sx),
+        write_twop(out, group, corr, result.momenta, result.sources[group],
                    meta={"kappa": cfg.action.kappa, "mu": cfg.action.mu})
     log.info("wrote %d correlator groups -> %s", len(result.correlators), out)
 

@@ -64,7 +64,7 @@ class _FineHops:
     """What the twisted-mass and twisted-clover fine levels share: the
     gauge (u_pk, its reconstruct-12 copy u12), the clover-free hops and
     the field shape.  Subclasses are frozen dataclasses with the fields
-    lat, u_pk, kappa, mu, flavor, t_boundary, u12 and compute."""
+    lat, u_pk, kappa, mu, flavor, t_boundary and u12."""
 
     def __post_init__(self):
         if self.u12 is None and self.u_pk.dtype != torch.float64:
@@ -88,7 +88,7 @@ class _FineHops:
         field, or a batch [N, 2(ri), 2(par), ...] in one launch)."""
         return dslash_eo(self._u, _par(v, 1 - p), 1 - p, self.lat, kappa=self.kappa,
                          mu=self.mu, flavor=self.flavor, t_boundary=self.t_boundary,
-                         out=out, compute=self.compute, **kw)
+                         out=out, **kw)
 
     def apply_hop(self, v: torch.Tensor, mu: int, sign: int) -> torch.Tensor:
         """One hop term of M (including the -kappa), both parities."""
@@ -127,8 +127,6 @@ class DeviceFineLevel(_FineHops):
     flavor: int = +1
     t_boundary: int = -1
     u12: torch.Tensor | None = None
-    #: the kernel's arithmetic: "f32", or "bf16" on a bfloat16 twin
-    compute: str = "f32"
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
         """M v: one xpay launch per parity, (1 + i tw g5) v_p - kappa D v_{1-p};
@@ -144,11 +142,9 @@ class DeviceFineLevel(_FineHops):
         residuals (float32 links are exact in float64)."""
         return dataclasses.replace(self, u_pk=self.u_pk.to(torch.float64), u12=None)
 
-    def sloppy(self, dtype: torch.dtype = torch.bfloat16,
-               compute: str = "f32") -> "DeviceFineLevel":
-        """The smoother's twin with reconstruct-12 links stored in dtype;
-        compute="bf16" also runs the kernel's arithmetic in bfloat16."""
-        return dataclasses.replace(self, u12=self.u12.to(dtype), compute=compute)
+    def sloppy(self, dtype: torch.dtype = torch.bfloat16) -> "DeviceFineLevel":
+        """The smoother's twin with reconstruct-12 links stored in dtype."""
+        return dataclasses.replace(self, u12=self.u12.to(dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,7 +166,6 @@ class DeviceFineCloverLevel(_FineHops):
     flavor: int = +1
     t_boundary: int = -1
     u12: torch.Tensor | None = None
-    compute: str = "f32"
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
         """M v: one clover_xpay launch per parity,

@@ -10,7 +10,7 @@ operator certifies the true residual.
 [N, 2(ri), 2(par), 4, 3, T, Z, S] as one GCR stream in lockstep (tpuqcd
 vmaps the cycle, mg/dsolve.py:316-428): every fine apply is one batched
 kernel launch, every transfer and coarse apply one batched product, with
-one scalar per column (utils/pkalg.batched).  Columns that have converged
+one scalar per column (utils/pkalg, cols=True).  Columns that have converged
 keep polishing until every column meets the tolerance, and the iteration
 count is the common one.
 """
@@ -172,29 +172,28 @@ class DeviceMG:
 
     # --- the cycle -----------------------------------------------------------
 
-    def _vcycle(self, depth: int, b: torch.Tensor, on=lambda f: f) -> torch.Tensor:
-        """One V-cycle from level ``depth`` down.  ``on`` adapts a level's
-        or transfer's function to the fields the cycle carries: the
-        identity for one field, _on_batch for the views of a batch."""
+    def _vcycle(self, depth: int, b: torch.Tensor, cols: bool = False) -> torch.Tensor:
+        """One V-cycle from level ``depth`` down on one field, or with
+        ``cols`` on a batch [N, 2(ri), ...] in lockstep."""
         p = self.params
         lv = self.levels[depth]
         if depth == len(self.levels) - 1:
-            return gcr_fixed_pk(on(lv.apply), b, iters=p.coarse_iters, restart=p.restart)
+            return gcr_fixed_pk(lv.apply, b, iters=p.coarse_iters, restart=p.restart,
+                                cols=cols)
 
         def smooth(rhs):
             if depth == 0 and self.sloppy_fine is not None:
-                xs = mr_smoother_pk(on(self.sloppy_fine.apply), rhs.to(torch.bfloat16),
-                                    iters=p.smoother_iters)
+                xs = mr_smoother_pk(self.sloppy_fine.apply, rhs.to(torch.bfloat16),
+                                    iters=p.smoother_iters, cols=cols)
                 return xs.to(torch.float32)
-            return mr_smoother_pk(on(lv.apply), rhs, iters=p.smoother_iters)
+            return mr_smoother_pk(lv.apply, rhs, iters=p.smoother_iters, cols=cols)
 
         tr = self.transfers[depth]
-        apply = on(lv.apply)
         x = smooth(b)
-        r = pk.caxpy(-1.0, 0.0, apply(x), b)
-        xc = self._vcycle(depth + 1, on(tr.restrict)(r), on)
-        x = x + on(tr.prolong)(xc)
-        r = pk.caxpy(-1.0, 0.0, apply(x), b)
+        r = pk.caxpy(-1.0, 0.0, lv.apply(x), b, cols)
+        xc = self._vcycle(depth + 1, tr.restrict(r), cols)
+        x = x + tr.prolong(xc)
+        r = pk.caxpy(-1.0, 0.0, lv.apply(x), b, cols)
         return x + smooth(r)
 
     def precondition(self, r: torch.Tensor) -> torch.Tensor:
@@ -232,26 +231,24 @@ class DeviceMG:
         [N, 2(ri), 2(par), 4, 3, T, Z, S] float32, until every column meets
         tol (tpuqcd/mg/dsolve.py:349).  relres is a list, one per column;
         iters the common count.  A zero column stays zero."""
-        with pk.batched():
-            bv = pk.ri_major(b)
-            bsq = pk.norm2(bv)
-            live = bsq > 0
-            bnorm = torch.sqrt(torch.where(live, bsq, torch.ones_like(bsq)))
-            bv = bv / bnorm
-            apply = _on_batch(self.levels[0].apply)
+        bsq = pk.norm2(b, cols=True)
+        live = bsq > 0
+        bnorm = torch.sqrt(torch.where(live, bsq, torch.ones_like(bsq)))
+        b = b / bnorm
+        apply = self.levels[0].apply
 
-            def precond(r):
-                return self._vcycle(0, r, _on_batch)
+        def precond(r):
+            return self._vcycle(0, r, cols=True)
 
-            x, r = torch.zeros_like(bv), bv
-            tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
-            rsq, it = pk.norm2(r), 0
-            while rsq.max().item() > tol2 and it < maxiter:
-                x, r = _gcr_cycle(apply, precond, x, r, self.params.restart)
-                rsq = pk.norm2(r)
-                it += self.params.restart
-            relres = torch.sqrt(torch.where(live, rsq, torch.zeros_like(rsq))).flatten().tolist()
-            x = pk.ri_major(x * bnorm)
+        x, r = torch.zeros_like(b), b
+        tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
+        rsq, it = pk.norm2(r, cols=True), 0
+        while rsq.max().item() > tol2 and it < maxiter:
+            x, r = _gcr_cycle(apply, precond, x, r, self.params.restart, cols=True)
+            rsq = pk.norm2(r, cols=True)
+            it += self.params.restart
+        relres = torch.sqrt(torch.where(live, rsq, torch.zeros_like(rsq))).flatten().tolist()
+        x = x * bnorm
         return GCRResultPk(x=x, relres=relres, iters=it,
                            converged=all(rr <= tol for rr in relres))
 
@@ -360,12 +357,6 @@ class DeviceMG:
                       f"{t_res:.2f}s, inner {res.iters} iters "
                       f"{time.perf_counter() - t0:.2f}s)")
         return CertifiedResult(x * bnorm, rel, total, nref)
-
-
-def _on_batch(f):
-    """f on batches [N, 2(ri), ...] as a function of their re/im-major
-    views [2(ri), N, ...], the form utils/pkalg.batched computes on."""
-    return lambda xv: pk.ri_major(f(pk.ri_major(xv)))
 
 
 def _check_params(params: DeviceMGParams) -> None:

@@ -40,7 +40,7 @@ from .solvers.bicgstab import bicgstab, bicgstab_cols
 from .solvers.cg import _cg_cycle, _cg_cycle_cols
 from .solvers import reductions
 from .solvers.reductions import norm2, norm2_cols
-from .utils.packed import pack_clover, pack_gauge8, unpack_gauge
+from .utils.packed import pack_clover, unpack_gauge
 
 
 class SolveResult(NamedTuple):
@@ -165,22 +165,11 @@ def make_clover_fields(u_pk: torch.Tensor, lat: Lattice, *, kappa: float, mu: fl
     return cl_pk, clinv[0], clinv[1]
 
 
-def _sloppy_links(u_pk: torch.Tensor, dtype: torch.dtype, reals: int) -> torch.Tensor:
-    """The sloppy operator's copy of the gauge with ``reals`` reals a link:
-    12 (rows 0 and 1; the default) or 8 (utils.packed.pack_gauge8)."""
-    if reals == 12:
-        return u_pk[:, :, :2].to(dtype).contiguous()
-    if reals == 8:
-        return pack_gauge8(unpack_gauge(u_pk), dtype)
-    raise ValueError(f"sloppy_links must be 8 or 12 reals a link, got {reals!r}")
-
-
-def _tm_operands(u_pk, lat, *, kappa, mu, flavor, sloppy_dtype, t_boundary, csw, clover,
-                 sloppy_links=12):
+def _tm_operands(u_pk, lat, *, kappa, mu, flavor, sloppy_dtype, t_boundary, csw, clover):
     """The operator of a twisted-mass(-clover) solve with its sloppy and
     float64 operands: (pc, u_s, u_hp)."""
     # one contiguous compressed copy per solve: the kernel rebuilds the rest
-    u_s = _sloppy_links(u_pk, sloppy_dtype, sloppy_links)
+    u_s = u_pk[:, :, :2].to(sloppy_dtype).contiguous()
     u_hp = u_pk.to(torch.float64).contiguous()
     if csw == 0.0:
         return PackedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor,
@@ -198,7 +187,7 @@ def solve_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: flo
              inner_tol: float = 1e-5, solver: str = "cg",
              sloppy_dtype: torch.dtype = torch.float32, t_boundary: int = -1,
              csw: float = 0.0, clover=None,
-             x0_e: torch.Tensor | None = None, sloppy_links: int = 12) -> SolveResult:
+             x0_e: torch.Tensor | None = None) -> SolveResult:
     """Solve the two-parity twisted-mass(-clover) system M x = b.
 
     u_pk: packed gauge [4, 2, 3, 3, 2, T, Z, S] (any float dtype);
@@ -212,14 +201,13 @@ def solve_tm(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: flo
     iteration and to float64 for the certification; reconstruct-12
     applies to the gauge only.
     tol is on the even-odd preconditioned system; x0_e warm-starts the
-    even-parity iterate.  sloppy_links: the reals a link of the sloppy
-    operator's gauge copy, 12 (reconstruct-12) or 8 (reconstruct-8).
+    even-parity iterate.
     """
     if solver not in ("cg", "bicgstab"):
         raise ValueError(f"solver must be cg or bicgstab, got {solver!r}")
     pc, u_s, u_hp = _tm_operands(u_pk, lat, kappa=kappa, mu=mu, flavor=flavor,
                                  sloppy_dtype=sloppy_dtype, t_boundary=t_boundary, csw=csw,
-                                 clover=clover, sloppy_links=sloppy_links)
+                                 clover=clover)
     return _certified(pc, u_s, u_hp, b_pk, sdt=sloppy_dtype, tol=tol, maxiter=maxiter,
                       inner_tol=inner_tol, solver=solver, x0=x0_e)
 

@@ -8,7 +8,10 @@ the smoother and a GCR restart cycle never read a value back to the host
 (where tpuqcd traces lax loops, these are Python loops over device
 work).  Only ``gcr_pk`` reads the residual norm, once per restart cycle.
 
-The operator is any function ``A(x) -> Ax`` on one packed field.
+The operator is any function ``A(x) -> Ax`` on one packed field.  The
+smoother and the GCR cycle also take a batch [N, 2(ri), ...] with
+``cols=True`` (utils/pkalg): one scalar per column, the operator on the
+whole batch.
 """
 from __future__ import annotations
 
@@ -20,15 +23,15 @@ from ..utils import pkalg as pk
 
 
 def mr_smoother_pk(matvec: Callable, b: torch.Tensor, iters: int = 4,
-                   omega: float = 0.85) -> torch.Tensor:
+                   omega: float = 0.85, cols: bool = False) -> torch.Tensor:
     """Minimal-residual relaxation from x0 = 0."""
     x, r = torch.zeros_like(b), b
     for _ in range(iters):
         ar = matvec(r)
-        nr, ni = pk.cdot(ar, r)
-        den = torch.clamp(pk.norm2(ar), min=1e-30)
+        nr, ni = pk.cdot(ar, r, cols=cols)
+        den = torch.clamp(pk.norm2(ar, cols=cols), min=1e-30)
         al_r, al_i = omega * nr / den, omega * ni / den
-        x, r = pk.caxpy(al_r, al_i, r, x), pk.csub(al_r, al_i, ar, r)
+        x, r = pk.caxpy(al_r, al_i, r, x, cols), pk.csub(al_r, al_i, ar, r, cols)
     return x
 
 
@@ -50,7 +53,7 @@ def cg_fixed_pk(matvec: Callable, b: torch.Tensor, iters: int) -> torch.Tensor:
 
 
 def _gcr_cycle(matvec: Callable, precond: Callable, x: torch.Tensor, r: torch.Tensor,
-               m: int):
+               m: int, cols: bool = False):
     """One flexible-GCR restart cycle of m iterations with modified
     Gram-Schmidt against the stored (Z, V) directions."""
     Z = torch.empty((m, *x.shape), dtype=x.dtype, device=x.device)
@@ -59,20 +62,20 @@ def _gcr_cycle(matvec: Callable, precond: Callable, x: torch.Tensor, r: torch.Te
         z = precond(r)
         v = matvec(z)
         for j in range(i):
-            br, bi = pk.cdot(V[j], v)
-            z = pk.csub(br, bi, Z[j], z)
-            v = pk.csub(br, bi, V[j], v)
-        inv = torch.rsqrt(torch.clamp(pk.norm2(v), min=1e-30))
+            br, bi = pk.cdot(V[j], v, cols=cols)
+            z = pk.csub(br, bi, Z[j], z, cols)
+            v = pk.csub(br, bi, V[j], v, cols)
+        inv = torch.rsqrt(torch.clamp(pk.norm2(v, cols=cols), min=1e-30))
         Z[i] = inv * z
         V[i] = inv * v
-        ar, ai = pk.cdot(V[i], r)
-        x = pk.caxpy(ar, ai, Z[i], x)
-        r = pk.csub(ar, ai, V[i], r)
+        ar, ai = pk.cdot(V[i], r, cols=cols)
+        x = pk.caxpy(ar, ai, Z[i], x, cols)
+        r = pk.csub(ar, ai, V[i], r, cols)
     return x, r
 
 
 def gcr_fixed_pk(matvec: Callable, b: torch.Tensor, *, iters: int, restart: int = 8,
-                 precond: Callable | None = None) -> torch.Tensor:
+                 precond: Callable | None = None, cols: bool = False) -> torch.Tensor:
     """Fixed-work flexible GCR from x0 = 0, no convergence exit: the
     coarsest-level solve of the V-cycle."""
     if precond is None:
@@ -82,10 +85,10 @@ def gcr_fixed_pk(matvec: Callable, b: torch.Tensor, *, iters: int, restart: int 
     done = 0
     while done < iters:
         m = min(restart, iters - done)
-        x, r = _gcr_cycle(matvec, precond, x, r, m)
+        x, r = _gcr_cycle(matvec, precond, x, r, m, cols)
         done += m
         if done < iters:
-            r = pk.caxpy(-1.0, 0.0, matvec(x), b)   # true residual
+            r = pk.caxpy(-1.0, 0.0, matvec(x), b, cols)   # true residual
     return x
 
 

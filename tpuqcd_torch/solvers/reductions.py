@@ -70,14 +70,19 @@ def cdot(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return s[0], s[1]
 
 
+def _cols64(x: torch.Tensor) -> torch.Tensor:
+    if x.is_complex():
+        x = torch.view_as_real(x)
+    return x.flatten(1).to(torch.float64)
+
+
 def norm2_cols(x: torch.Tensor) -> torch.Tensor:
-    """sum |x_i|^2 of every field of a batch [N, ...] as float64 [N].
-    Each column is reduced by norm2 itself, so a column's value is bit
-    for bit that of the same field reduced alone."""
-    return torch.stack([norm2(c) for c in x.unbind(0)])
+    """sum |x_i|^2 of every field of a batch [N, ...] as float64 [N]: one
+    reduction over the flattened columns."""
+    v = _cols64(x)
+    return _summed(torch.linalg.vecdot(v, v))
 
 
 def redot_cols(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Re <x_i, y_i> of every field of two batches [N, ...] as float64 [N]."""
-    return torch.stack([redot(a, b) for a, b in zip(x.unbind(0), y.unbind(0))])
-
+    return _summed(torch.linalg.vecdot(_cols64(x), _cols64(y)))

@@ -12,92 +12,79 @@ field's dtype, so a bfloat16 field is updated in bfloat16 arithmetic.
 The epsilon floors (sdiv 1e-30, Cholesky 1e-12) are tpuqcd's; the MG
 solve normalizes its right-hand side to them (mg/dsolve.DeviceMG.solve).
 
-A batch of N fields (tpuqcd vmaps this algebra over the right-hand
-sides, mg/dsolve.py:316-347) is handled as the re/im-major view
-``[2(ri), N, ...]`` of a batch ``[N, 2(ri), ...]`` (``ri_major``): inside
-``batched()`` the reductions return one scalar per column, shaped
-``[N, 1, ..., 1]`` so that it broadcasts over ``x[0]``, and every
-function here and in solvers/krylov_pk.py then runs the N columns in
-lockstep, unchanged.
+A batch of N fields [N, 2(ri), ...] (tpuqcd vmaps this algebra over the
+right-hand sides, mg/dsolve.py:316-347) goes through the same functions
+with ``cols=True``: the re/im axis is then axis 1, the reductions return
+one scalar per column, shaped [N, 1, ..., 1] so that it broadcasts over
+the batch, and the updates take such scalars.  solvers/krylov_pk.py
+passes ``cols`` on, so its loops run the N columns in lockstep.
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
-
 import torch
 
-_BATCHED: contextvars.ContextVar = contextvars.ContextVar("tpuqcd_torch_pk_batched",
-                                                          default=False)
+
+def _ri(x: torch.Tensor, cols: bool):
+    """The (re, im) views of a field, or of a batch with its unit re/im
+    axis kept, so that per-column scalars broadcast over them."""
+    return (x[:, 0:1], x[:, 1:2]) if cols else (x[0], x[1])
 
 
-@contextlib.contextmanager
-def batched():
-    """Inside the block every field is a batch view [2(ri), N, ...] and
-    cdot/norm2 reduce per column."""
-    token = _BATCHED.set(True)
-    try:
-        yield
-    finally:
-        _BATCHED.reset(token)
+def _per_column(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return s.reshape(-1, *([1] * (like.ndim - 1)))
 
 
-def ri_major(x: torch.Tensor) -> torch.Tensor:
-    """A batch [N, 2(ri), ...] as the view [2(ri), N, ...], and back."""
-    return x.movedim(1, 0)
-
-
-def cdot(x: torch.Tensor, y: torch.Tensor, dtype=torch.float32):
+def cdot(x: torch.Tensor, y: torch.Tensor, dtype=torch.float32, cols: bool = False):
     """<x, y> = sum conj(x) y -> (re, im) 0-d tensors of ``dtype``
     (three dot products: the real part is the dot of the packed arrays);
-    per column, shaped [N, 1, ..., 1], inside ``batched()``."""
+    with ``cols`` per column of a batch, each shaped [N, 1, ..., 1]."""
     x, y = x.to(dtype), y.to(dtype)
-    if _BATCHED.get():
-        xf, yf = x.flatten(2), y.flatten(2)                       # [2, N, M]
-        re = torch.linalg.vecdot(xf, yf).sum(0)
-        im = torch.linalg.vecdot(xf[0], yf[1]) - torch.linalg.vecdot(xf[1], yf[0])
-        shape = (-1, *([1] * (x.ndim - 2)))
-        return re.reshape(shape), im.reshape(shape)
+    if cols:
+        xf, yf = x.flatten(2), y.flatten(2)                       # [N, 2, M]
+        re = torch.linalg.vecdot(xf, yf).sum(1)
+        im = torch.linalg.vecdot(xf[:, 0], yf[:, 1]) - torch.linalg.vecdot(xf[:, 1], yf[:, 0])
+        return _per_column(re, x), _per_column(im, x)
     re = torch.dot(x.reshape(-1), y.reshape(-1))
     im = torch.dot(x[0].reshape(-1), y[1].reshape(-1)) - torch.dot(x[1].reshape(-1),
                                                                   y[0].reshape(-1))
     return re, im
 
 
-def norm2(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    if _BATCHED.get():
+def norm2(x: torch.Tensor, dtype=torch.float32, cols: bool = False) -> torch.Tensor:
+    if cols:
         xf = x.to(dtype).flatten(2)
-        return torch.linalg.vecdot(xf, xf).sum(0).reshape(-1, *([1] * (x.ndim - 2)))
+        return _per_column(torch.linalg.vecdot(xf, xf).sum(1), x)
     v = x.reshape(-1).to(dtype)
     return torch.dot(v, v)
 
 
-def _axpy_into(out, ar, ai, x, y, sign: float) -> torch.Tensor:
+def _axpy_into(out, ar, ai, x, y, sign: float, cols: bool) -> torch.Tensor:
     """out = y + sign (ar + i ai) x.  Tensor scalars are cast to the
     field dtype and stay on the device; Python numbers go in as alpha."""
+    (xr, xi), (yr, yi), (outr, outi) = _ri(x, cols), _ri(y, cols), _ri(out, cols)
     if isinstance(ar, torch.Tensor) or isinstance(ai, torch.Tensor):
         ar = torch.as_tensor(ar, device=x.device).to(x.dtype)
         ai = torch.as_tensor(ai, device=x.device).to(x.dtype)
-        torch.addcmul(y[0], x[0], ar, value=sign, out=out[0]).addcmul_(x[1], ai, value=-sign)
-        torch.addcmul(y[1], x[1], ar, value=sign, out=out[1]).addcmul_(x[0], ai, value=sign)
+        torch.addcmul(yr, xr, ar, value=sign, out=outr).addcmul_(xi, ai, value=-sign)
+        torch.addcmul(yi, xi, ar, value=sign, out=outi).addcmul_(xr, ai, value=sign)
         return out
-    torch.add(y[0], x[0], alpha=sign * ar, out=out[0])
-    torch.add(y[1], x[1], alpha=sign * ar, out=out[1])
+    torch.add(yr, xr, alpha=sign * ar, out=outr)
+    torch.add(yi, xi, alpha=sign * ar, out=outi)
     if ai:
-        out[0].add_(x[1], alpha=-sign * ai)
-        out[1].add_(x[0], alpha=sign * ai)
+        outr.add_(xi, alpha=-sign * ai)
+        outi.add_(xr, alpha=sign * ai)
     return out
 
 
-def caxpy(ar, ai, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def caxpy(ar, ai, x: torch.Tensor, y: torch.Tensor, cols: bool = False) -> torch.Tensor:
     """y + (ar + i ai) x as a new field; scalars cast to the field dtype."""
-    return _axpy_into(torch.empty_like(y), ar, ai, x, y, 1.0)
+    return _axpy_into(torch.empty_like(y), ar, ai, x, y, 1.0, cols)
 
 
-def csub(ar, ai, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def csub(ar, ai, x: torch.Tensor, y: torch.Tensor, cols: bool = False) -> torch.Tensor:
     """y - (ar + i ai) x, the same as caxpy(-ar, -ai, x, y) without the
     negations."""
-    return _axpy_into(torch.empty_like(y), ar, ai, x, y, -1.0)
+    return _axpy_into(torch.empty_like(y), ar, ai, x, y, -1.0, cols)
 
 
 def cscale(ar, ai, x: torch.Tensor) -> torch.Tensor:
