@@ -8,7 +8,9 @@ Phases, each of which exits non-zero on failure:
    torch.cuda.get_device_name;
 2. the build of tpuqcd_torch/csrc/ with nvcc for sm_90a (dslash_eo_inst.cu
    once per storage type, arithmetic type and link format, side by side,
-   linked with dslash_eo.cu), its seconds, ptxas' registers and spills;
+   linked with dslash_eo.cu), its seconds, and ptxas' registers, shared
+   bytes and spills of each kernel instantiation, the single and the
+   batched kernel apart;
 3. the Dslash kernel against its plain PyTorch version on the card, at
    8^3x16 and 32^3x64, in every mode the solves run (epilogues none,
    twist_inv, xpay and xpay with the kappa scale; both source parities;
@@ -28,7 +30,8 @@ Phases, each of which exits non-zero on failure:
    dagger off and on; half-spinor and full faces; float64 and float32
    18-real, float32 and bfloat16 reconstruct-12 links), against the plain
    version and, stitched, against the unsharded kernel; then the batch
-   axis (N = 1, 3 and 12 right-hand sides in one launch at 8^3x16, and
+   axis (N = 1, 3, 5 and 12 right-hand sides in one launch at 8^3x16, 5
+   a width the batched kernel's column warps do not divide, and
    after 4h and 4i at 32^3x64 with exactly the numbers of columns their
    launches had: equal bit for bit to N single launches, within the
    limits of the plain version; every epilogue with clover, both
@@ -90,8 +93,10 @@ Phases, each of which exits non-zero on failure:
    on the same volume, beside the plain version, with GFLOP/s, effective
    GB/s and the bound (compulsory bytes at 3.35 TB/s); the batched launch
    at N = 1, 2, 4, 12 and at the numbers of columns 4h's and 4i's launches
-   had; reconstruct-8 beside reconstruct-12 and 18-real; compute="bf16"
-   beside float32 arithmetic; the lockstep CG step at the same N.
+   had, each beside N single launches of the same columns in the same run
+   and their ratio, and twist_inv at 4h's width; reconstruct-8 beside
+   reconstruct-12 and 18-real; compute="bf16" beside float32 arithmetic;
+   the lockstep CG step at the same N.
 
 The line before the last is the JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -184,11 +189,24 @@ def card() -> tuple[str, str]:
 
 
 def build() -> float:
+    """Build the kernel library; print one line per kernel instantiation
+    (translation unit, single or batched kernel, its template arguments as
+    mangled, registers, shared bytes, spill stores and loads)."""
     from tpuqcd_torch.ops.dslash_cuda import library
     library.get()
+    unit = name = spill = ""
     for ln in library.build_log.splitlines():
-        if "registers" in ln or "spill" in ln:
-            print(f"  ptxas: {ln.strip()}")
+        if ln.startswith("== "):
+            unit = ln[3:]
+        elif "Function properties for" in ln:
+            name = ln.split("Function properties for")[-1].strip()
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            kind = "batch " if "batch_kernel" in name else "single"
+            args = re.sub(r"^.*?kernel", "", name).split("Ev")[0]   # the template arguments
+            print(f"  ptxas {unit} {kind} {args}: {ln.split(':', 1)[-1].strip()}; {spill}")
+            name = spill = ""
     return library.build_seconds
 
 
@@ -1150,7 +1168,7 @@ def new_compares(dev):
     returns the latter two's max abs errors at 32^3x64."""
     say("phase 3: the batch axis against single launches and the plain version")
     torch.cuda.empty_cache()
-    compare_batch(SMALL, dev, (1, 3, 12))
+    compare_batch(SMALL, dev, (1, 3, 5, 12))
     say("phase 3: reconstruct-8 (K5) against the plain version and the 18-real kernel")
     compare_recon8(SMALL, dev)
     r8_abs = compare_recon8(LARGE, dev)
@@ -1291,10 +1309,12 @@ def new_timings(dev, card_tag, widths) -> dict:
     """The modes of the two-point slice at 32^3x64, per launch: the batched
     launch at N = 1, 2, 4, 12 and every N of ``widths``, the numbers of
     columns the main paths launched (f32 xpay, bf16 and f64 xpay_full),
-    reconstruct-8 beside reconstruct-12 and 18-real (f32 and f64, none and
-    xpay), compute="bf16" beside float32 arithmetic, and the lockstep CG
-    step.  The bound of a batch reads the links once for its N columns.
-    Returns {(storage, tag): (kernel ms, plain ms, bound ms, bound by)}."""
+    each beside N single launches of its columns, and f32 twist_inv at
+    the widest of ``widths`` (4h's); reconstruct-8 beside reconstruct-12
+    and 18-real (f32 and f64, none and xpay), compute="bf16" beside
+    float32 arithmetic, and the lockstep CG step.  The bound of a batch
+    reads the links once for its N columns.  Returns {(storage, tag):
+    (kernel ms, plain ms, bound ms, bound by)}."""
     from tpuqcd_torch.operators import PackedTMOperatorPC
     from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
     from tpuqcd_torch.solvers.cg import _cg_cycle_cols
@@ -1318,22 +1338,29 @@ def new_timings(dev, card_tag, widths) -> dict:
               + (f" | plain {p_ms:.3f} ms" if p_ms is not None else "") + f" | {card_tag}")
         out[(name, tag)] = (k_ms, p_ms, b_ms, b_by)
 
-    # the batch axis
-    for name, (mode, epi, scale) in (("f32", MODES[2]), ("bf16", MODES[3]), ("f64", MODES[3])):
+    # the batch axis, beside N single launches of the same columns
+    batched = [(name, m, n) for name, m in (("f32", MODES[2]), ("bf16", MODES[3]),
+                                            ("f64", MODES[3])) for n in ns]
+    batched.append(("f32", MODES[1], max(widths)))
+    for name, (mode, epi, scale), n in batched:
         dt, rows = next((d, r) for n_, d, r, _ in STORAGE if n_ == name)
         u = gauges[name]
         item = u.element_size()
-        for n in ns:
-            psi, psi0 = fields(n, dt)
-            kw = dict(epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale, psi0=psi0)
-            k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, **kw), reps=20)
-            p_ms = (time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw), reps=2, warmup=1)
-                    if n in widths else None)
-            byts = (n * 3 * 24 + 8 * rows * 6) * item * sites
-            report(name, f"{mode}_b{n}", f"{name} recon-{rows * 6} {mode} batch N={n:2d} "
-                   f"({k_ms / n:.4f} ms a column)", k_ms, p_ms, byts, FLOP_PER_SITE * sites * n,
-                   dt)
-            del psi, psi0
+        xpay = epi == "xpay"
+        psi, psi0 = fields(n, dt)
+        kw = dict(epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale)
+        kw_b = dict(kw, psi0=psi0 if xpay else None)
+        k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, **kw_b), reps=20)
+        s_ms = time_ms(lambda: [dslash_eo(u, psi[i], 0, lat, psi0=psi0[i] if xpay else None,
+                                          **kw) for i in range(n)], reps=10)
+        p_ms = (time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw_b), reps=2, warmup=1)
+                if n in widths else None)
+        byts = (n * (3 if xpay else 2) * 24 + 8 * rows * 6) * item * sites
+        report(name, f"{mode}_b{n}", f"{name} recon-{rows * 6} {mode} batch N={n:2d} "
+               f"({k_ms / n:.4f} ms a column; {n} single launches {s_ms:.4f} ms, "
+               f"{s_ms / k_ms:.2f}x the batch's time)", k_ms, p_ms, byts,
+               FLOP_PER_SITE * sites * n, dt)
+        del psi, psi0
     # reconstruct-8 beside reconstruct-12 and 18-real
     g8 = gauges8(gauges)
     for name in ("f32", "f64"):

@@ -57,11 +57,12 @@ def _batch(n_rhs, seed, parities=2, dtype=np.float32):
 
 # --- the Dslash on a batch ---------------------------------------------------
 
+@pytest.mark.parametrize("n_rhs", [3, 5])    # 5: a width the kernel's column warps do not divide
 @pytest.mark.parametrize("epilogue,parity,dagger", [("none", 0, False), ("twist_inv", 1, True),
                                                     ("xpay", 0, False)])
-def test_batched_dslash_matches_vmap_of_pallas(epilogue, parity, dagger):
+def test_batched_dslash_matches_vmap_of_pallas(epilogue, parity, dagger, n_rhs):
     u12 = _gauge()[:, :, :2]
-    psi, psi0 = jnp.asarray(_batch(3, 1, 1)), jnp.asarray(_batch(3, 11, 1))
+    psi, psi0 = jnp.asarray(_batch(n_rhs, 1, 1)), jnp.asarray(_batch(n_rhs, 11, 1))
     kw = dict(dagger=dagger, epilogue=epilogue, kappa=KAPPA, mu=MU)
     if epilogue == "xpay":
         ref = jax.vmap(lambda a, b: dslash_eo_pallas(u12, a, parity, JLAT, interpret=True,
@@ -72,7 +73,7 @@ def test_batched_dslash_matches_vmap_of_pallas(epilogue, parity, dagger):
     ref = np.asarray(ref)
     out = dslash_eo(t(u12), t(psi), parity, LAT,
                     psi0=t(psi0) if epilogue == "xpay" else None, **kw)
-    assert out.shape == (3, 2, 4, 3, *LAT.site_shape)
+    assert out.shape == (n_rhs, 2, 4, 3, *LAT.site_shape)
     assert np.abs(n(out) - ref).max() <= 1e-5 * np.abs(ref).max()
 
 

@@ -343,10 +343,11 @@ def test_run_invert_ndeg_and_one_rank_mesh_go_through_the_kernel(cuda):
 
 @pytest.mark.parametrize("mode", sorted(MODES) + ["clover_inv", "clover_xpay"])
 @pytest.mark.parametrize("storage", sorted(STORAGE))
-@pytest.mark.parametrize("n_rhs", [1, 3, 12])
+@pytest.mark.parametrize("n_rhs", [1, 3, 5, 12])
 def test_batched_launch_equals_single_launches_and_plain(cuda, n_rhs, storage, mode):
     """psi, psi0 and out are parity views of a batched MG field
-    [N, 2(ri), 2(par), ...]."""
+    [N, 2(ri), 2(par), ...]; N = 5 leaves the batched kernel's last
+    column warp one column short (batch_geometry)."""
     dt, rows, tol = STORAGE[storage]
     epi, scale = {**MODES, **CLOVER_MODES}[mode]
     lat, u64, _, _ = _problem((8, 8, 8, 16), cuda)
@@ -380,6 +381,22 @@ def test_batched_launch_equals_single_launches_and_plain(cuda, n_rhs, storage, m
             assert out[:, :, parity].abs().max().item() == 0.0
             p = dslash_eo_plain(u, psi, parity, lat, psi0=p0, **kw).double()
             assert (k.double() - p).abs().max().item() <= tol * p.abs().max().item()
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+def test_batched_xpay_at_full_size_equals_single_launches(cuda, parity):
+    """Cell 4h's sloppy launch at 32^3x64: f32 reconstruct-12 xpay on 11
+    columns (the batch gate's probe column solved first), bit for bit
+    against single launches."""
+    lat, u64, _, _ = _problem((32, 32, 32, 64), cuda)
+    u = u64[:, :, :2].float().contiguous()
+    gen = torch.Generator().manual_seed(3)
+    psi, psi0 = (torch.randn((11, 2, 4, 3, *lat.site_shape), generator=gen).to(cuda)
+                 for _ in range(2))
+    kw = dict(epilogue="xpay", kappa=KAPPA, mu=MU)
+    k = dslash_eo(u, psi, parity, lat, psi0=psi0, **kw)
+    for i in range(11):
+        assert torch.equal(k[i], dslash_eo(u, psi[i], parity, lat, psi0=psi0[i], **kw)), i
 
 
 @pytest.mark.parametrize("t_boundary", [-1, 1])

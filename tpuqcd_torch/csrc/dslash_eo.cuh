@@ -91,12 +91,48 @@
 // pl.pallas_call at dslash_pallas.py:733 adds a grid axis over the
 // right-hand sides and reads the unbatched gauge once per program): psi,
 // psi0 and out may hold n_batch fields psi_bs, psi0_bs and out_bs elements
-// apart; blockIdx.y is the right-hand side, u and the clover operand are
-// shared.  A run-time argument, so it adds no instantiation.  The columns
-// of one site run in different blocks, so a link is read (and rebuilt)
-// once per column: f32 reconstruct-12 `none` moves 192 + 384 B per column
-// and site where a kernel that kept the link for its N columns would move
-// 192 + 384/N; the L2 cache serves part of the re-reads.
+// apart; u and the clover operand are shared.  n_batch > 1 runs
+// dslash_eo_batch_kernel, whose compulsory traffic per site is the links
+// once and the spinors per column: f32 reconstruct-12 xpay 384 + 288 N B,
+// bf16 192 + 144 N, f64 18-real 1152 + 576 N.  A grid axis over the
+// columns (blockIdx.y) would read and rebuild every link once per column,
+// since the blocks of column 0 tend to run before those of column 1 and
+// the links (384 MB at 32^3x64 f32) do not fit the 50 MB L2.  So:
+//   - a block is a tile of 32 consecutive output sites (a warp's lanes)
+//     times W column warps, 2 <= W <= 4 and 32 W threads, W chosen by
+//     ops/dslash_cuda.batch_geometry and passed in with the tile's bytes,
+//     which the launch checks against its own;
+//   - phase 1: warp w reads and rebuilds legs w, w + W, ... of the tile's
+//     sites into shared memory [leg][3][3][32 sites] of complex R (18 KB
+//     for float, 36 KB for double, 9 KB for bfloat16 arithmetic; static,
+//     under 48 KB), coalesced over the sites, an entry a 2-word access
+//     without bank conflicts; its loads are unconditional, so a warp's
+//     legs are in flight together; then __syncthreads;
+//   - phase 2: warp w takes the columns w, w + W, ..., each with the
+//     single kernel's leg (hop_leg) and epilogue (finish) code on the
+//     shared links; spinor loads stay coalesced over the 32 sites;
+//   - the tile order: where a t-slice streams more than a quarter of the
+//     L2 (N spinors read, read by xpay and written, and the links: 58 MB
+//     at 32^3x64 f32 N = 11), consecutive blocks take the same sites of 8
+//     consecutive t-slices, so that a slice is still in the L2 when it is
+//     read as the t-neighbour; in site order it would be read from device
+//     memory up to three times a column.
+// A batched launch equals its N single launches bit for bit: both rebuild
+// a link with load_link (row 2 rounded step by step, so no contraction
+// into a fused multiply-add differs between the two contexts) and apply
+// it with the same hop_leg and finish.  The clover block (144 reals a site)
+// is read per column: batched clover runs on no timed path, and a second
+// tile would take f64 past 48 KB.  Not taken: tensor cores (a 3x3 complex
+// product on 2N half-spinor columns, depth 3, about 1 flop per byte);
+// cp.async/TMA double buffering of the next tile's links, since phase 1
+// is a small part once its loads are in flight together; register caps
+// (fewer registers spill), up to 8 column warps, two columns a warp on
+// one shared link, and the legs without their leg-mask branches (ptxas
+// then keeps every leg's loads in flight and runs out of registers): each
+// was timed on the card and was slower or no faster.  What bounds it is
+// the spinor traffic of each column, 8 neighbour spinors through L1/L2,
+// as in the single kernel; the links are a 384/N B share.  N = 1 keeps
+// the single kernel, which has no tile to fill.
 // Reconstruct-8 (the TPU kernel's K5, dslash_pallas.py:247-303): NROW = 4
 // reads 8 reals a link, [4(pair), 1, 2(ri)] = (u01, u02, (theta00, alpha),
 // (beta, gamma)) of utils/packed.pack_gauge8: |u00| from the unit norm of
@@ -135,14 +171,15 @@
       int Y, int Xh, int nrow, int src_parity, int dagger, int epilogue, double tw, double k2, \
       int t_boundary, int leg_mask, int legs_out, int64_t psi_rs, int64_t psi0_rs,            \
       int64_t out_rs, int64_t out_ls, int64_t psi_bs, int64_t psi0_bs, int64_t out_bs,        \
-      int n_batch, const void *f_tm, const void *f_tp, const void *f_zm, const void *f_zp,    \
-      const void *u_tm, const void *u_zm, int halo, int face_spins, int t_offset,             \
-      int t_global, int device, void *stream
+      int n_batch, int batch_warps, int batch_smem, int batch_t_block, const void *f_tm,      \
+      const void *f_tp, const void *f_zm, const void *f_zp, const void *u_tm,                 \
+      const void *u_zm, int halo, int face_spins, int t_offset, int t_global, int device,     \
+      void *stream
 #define TQ_ARGS                                                                               \
   u, psi, psi0, clov, out, T, Z, Y, Xh, nrow, src_parity, dagger, epilogue, tw, k2,           \
       t_boundary, leg_mask, legs_out, psi_rs, psi0_rs, out_rs, out_ls, psi_bs, psi0_bs,       \
-      out_bs, n_batch, f_tm, f_tp, f_zm, f_zp, u_tm, u_zm, halo, face_spins, t_offset,        \
-      t_global, device, stream
+      out_bs, n_batch, batch_warps, batch_smem, batch_t_block, f_tm, f_tp, f_zm, f_zp, u_tm,  \
+      u_zm, halo, face_spins, t_offset, t_global, device, stream
 
 #ifndef TQ_NO_KERNELS  // dslash_eo.cu takes the argument lists only
 
@@ -182,7 +219,9 @@ __device__ __forceinline__ double mag2(double a, double b) {
   return __dadd_rn(__dmul_rn(a, a), __dmul_rn(b, b));
 }
 
-template <typename R> struct cpx { R re, im; };
+// aligned as a pair, so that the batched kernel's shared link tile moves
+// an entry with one 2-word access
+template <typename R> struct alignas(2 * sizeof(R)) cpx { R re, im; };
 
 template <typename R>
 __device__ __forceinline__ cpx<R> cadd(cpx<R> a, cpx<R> b) { return {a.re + b.re, a.im + b.im}; }
@@ -253,17 +292,65 @@ __device__ __forceinline__ void recon8_rows(const G (&x)[8], cpx<G> (&U)[3][3]) 
   for (int j = 0; j < 3; ++j) U[1][j] = cadd(cmul(c1, v1[j]), cmul(c2, v2[j]));
 }
 
-// One hop leg: acc += (1 -+ gamma_mu) U psi(nb), with U = link or its
-// adjoint.  sgn = +1 takes the (1 - gamma) tables, -1 the (1 + gamma).
-// psi points at the neighbour's (spin 0, colour 0, re) element, spin-colour
-// components psi_ss apart and re/im psi_rs apart; half: it holds the two
-// projected spins.  ul points at the link's first element, elements u_ss
-// apart.  The link is rebuilt in G and used in R.
-template <int MU, int NROW, bool ADJ, typename S, typename R, typename G>
+// products and differences rounded on their own: never contracted into a
+// fused multiply-add, whatever the code around them
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+// A stored link rebuilt to 3x3 in G (reconstruct-12 and -8: row 2 =
+// phase * conj(row0 x row1)) and handed over in R.  ul points at the
+// link's first element, elements u_ss apart.  Row 2 is rounded step by
+// step (mul_rn, sub_rn), so a link rebuilt here has the same bits in the
+// single kernel, which uses it at once, and in the batched one, which
+// keeps it in shared memory for its columns.
+template <int NROW, typename S, typename R, typename G>
+__device__ __forceinline__ void load_link(cpx<R> (&U)[3][3], const S* __restrict__ ul,
+                                          int64_t u_ss, G phase) {
+  cpx<G> Ug[3][3];
+  if (NROW == 4) {
+    G x[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = conv<G>(ul[k * u_ss]);
+    recon8_rows(x, Ug);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NROW; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        Ug[i][j] = {conv<G>(ul[((i * 3 + j) * 2 + 0) * u_ss]),
+                    conv<G>(ul[((i * 3 + j) * 2 + 1) * u_ss])};
+  }
+  if (NROW != 3) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
+      const cpx<G> x = Ug[0][j1], y = Ug[1][j2], v = Ug[0][j2], w = Ug[1][j1];
+      const G are = sub_rn(mul_rn(x.re, y.re), mul_rn(x.im, y.im));
+      const G aim = add_rn(mul_rn(x.re, y.im), mul_rn(x.im, y.re));
+      const G bre = sub_rn(mul_rn(v.re, w.re), mul_rn(v.im, w.im));
+      const G bim = add_rn(mul_rn(v.re, w.im), mul_rn(v.im, w.re));
+      Ug[2][j] = {mul_rn(phase, sub_rn(are, bre)), mul_rn(-phase, sub_rn(aim, bim))};
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) U[i][j] = {conv<R>(Ug[i][j].re), conv<R>(Ug[i][j].im)};
+}
+
+// One hop leg: acc += (1 -+ gamma_mu) U psi(nb), with U = the rebuilt link
+// or (ADJ) its adjoint.  sgn = +1 takes the (1 - gamma) tables, -1 the
+// (1 + gamma).  psi points at the neighbour's (spin 0, colour 0, re)
+// element, spin-colour components psi_ss apart and re/im psi_rs apart;
+// half: it holds the two projected spins.
+template <int MU, bool ADJ, typename S, typename R>
 __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict__ psi,
                                         int64_t psi_rs, int64_t psi_ss, bool half,
-                                        const S* __restrict__ ul, int64_t u_ss, int sgn,
-                                        G phase) {
+                                        const cpx<R> (&U)[3][3], int sgn) {
   // half-spinor projection at the neighbour
   cpx<R> h[2][3];
 #pragma unroll
@@ -283,35 +370,6 @@ __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict
       h[a][c] = sgn > 0 ? cadd(pa, t) : cpx<R>{pa.re - t.re, pa.im - t.im};
     }
   }
-  // the link, rebuilt to 3x3 from reconstruct-12 or reconstruct-8 if needed
-  cpx<G> Ug[3][3];
-  if (NROW == 4) {
-    G x[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) x[k] = conv<G>(ul[k * u_ss]);
-    recon8_rows(x, Ug);
-  } else {
-#pragma unroll
-    for (int i = 0; i < NROW; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        Ug[i][j] = {conv<G>(ul[((i * 3 + j) * 2 + 0) * u_ss]),
-                    conv<G>(ul[((i * 3 + j) * 2 + 1) * u_ss])};
-  }
-  if (NROW != 3) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
-      cpx<G> a = cmul(Ug[0][j1], Ug[1][j2]);
-      cpx<G> b = cmul(Ug[0][j2], Ug[1][j1]);
-      Ug[2][j] = {phase * (a.re - b.re), -phase * (a.im - b.im)};
-    }
-  }
-  cpx<R> U[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) U[i][j] = {conv<R>(Ug[i][j].re), conv<R>(Ug[i][j].im)};
   // SU(3) mat-vec on both half spinors, then reconstruct and accumulate
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
@@ -365,101 +423,46 @@ __device__ __forceinline__ void store_spinor(S* __restrict__ out, int64_t rs, in
 // reals a stored link holds
 __host__ __device__ constexpr int link_reals(int nrow) { return nrow == 4 ? 8 : nrow * 6; }
 
-template <typename S, typename R, int NROW, bool DAGGER, bool LEGS_OUT, bool CLOVER, bool HALO>
-__global__ void __launch_bounds__(128)
-dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
-                 const S* __restrict__ psi0, const S* __restrict__ clov,
-                 S* __restrict__ out, int T, int Z, int Y,
-                 int Xh, int p, int epilogue, double tw_d, double k2_d, int t_boundary,
-                 int leg_mask, int64_t psi_rs, int64_t psi0_rs, int64_t out_rs,
-                 int64_t out_ls, int64_t psi_bs, int64_t psi0_bs, int64_t out_bs,
-                 const S* __restrict__ f_tm, const S* __restrict__ f_tp,
-                 const S* __restrict__ f_zm, const S* __restrict__ f_zp,
-                 const S* __restrict__ u_tm, const S* __restrict__ u_zm, int face_spins,
-                 int t_offset, int t_global) {
-  using G = typename ReconOf<S>::type;
-  const int64_t n_sites = (int64_t)T * Z * Y * Xh;
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_sites) return;
-  // the right-hand side of a batch
-  psi += blockIdx.y * psi_bs;
-  if (psi0 != nullptr) psi0 += blockIdx.y * psi0_bs;
-  out += blockIdx.y * out_bs;
+// An output site n of parity q = 1 - p, for the batched kernel: its t and
+// the flat indices of its 8 neighbours in the kernel's leg order (+x, -x,
+// +y, -y, +z, -z, +t, -t), with periodic wrap and the even-odd x-shift
+// rule (32-bit: launch refuses more than 2^31 - 1 sites a parity).
+struct Hood {
+  int t;
+  int nb[8];
+};
+
+__device__ __forceinline__ Hood hood(int64_t n, int T, int Z, int Y, int Xh, int p) {
+  Hood h;
   const int xh = (int)(n % Xh);
   const int y = (int)((n / Xh) % Y);
   const int z = (int)((n / ((int64_t)Xh * Y)) % Z);
   const int t = (int)(n / ((int64_t)Xh * Y * Z));
-  const int q = 1 - p;
+  h.t = t;
+  auto site = [=](int t_, int z_, int y_, int xh_) -> int {
+    return ((t_ * Z + z_) * Y + y_) * Xh + xh_;
+  };
   // x offset of the source-parity rows (tpuqcd/ops/dslash_pallas.py:106)
   const bool o_p = ((t + z + y + p) & 1) == 1;
-  auto site = [=](int t_, int z_, int y_, int xh_) -> int64_t {
-    return (((int64_t)t_ * Z + z_) * Y + y_) * Xh + xh_;
-  };
-  // the links of direction mu and parity par, one element a site
-  auto links = [=](int mu, int par) -> const S* {
-    return u + (int64_t)(mu * 2 + par) * link_reals(NROW) * n_sites;
-  };
-  const int xf = o_p ? xh : (xh + 1 == Xh ? 0 : xh + 1);
-  const int xb = o_p ? (xh == 0 ? Xh - 1 : xh - 1) : xh;
-  const int yf = y + 1 == Y ? 0 : y + 1, yb = y == 0 ? Y - 1 : y - 1;
-  const int zf = z + 1 == Z ? 0 : z + 1, zb = z == 0 ? Z - 1 : z - 1;
-  const int tf = t + 1 == T ? 0 : t + 1, tb = t == 0 ? T - 1 : t - 1;
-  // phase of a rebuilt row 2 (reconstruct-12 and -8) of a t-link at global
-  // t = T-1: the forward leg's link at global t_offset + t, the backward
-  // leg's one slice below
-  const G one = G(1);
-  const int tg = t_offset + t;
-  const G ph_f = (NROW != 3 && tg == t_global - 1) ? G(t_boundary) : one;
-  const G ph_b = (NROW != 3 && tg == 0) ? G(t_boundary) : one;
-  // forward legs take (1 - gamma), backward legs (1 + gamma); dagger swaps
-  const int sf = DAGGER ? -1 : 1;
-  const int sb = -sf;
-  // halo mode: the legs that step past the local t or z edge, and the
-  // site's index in a t face ([Z, S]) and in a z face ([T, S])
-  const bool at_tf = HALO && t == T - 1, at_tb = HALO && t == 0;
-  const bool at_zf = HALO && z == Z - 1, at_zb = HALO && z == 0;
-  const int64_t n_ts = (int64_t)Z * Y * Xh, n_zs = (int64_t)T * Y * Xh;
-  const int64_t i_t = n % n_ts, i_z = (int64_t)t * Y * Xh + n % ((int64_t)Y * Xh);
-  const bool half = face_spins == 2;
-  const int64_t frs_t = (int64_t)face_spins * 3 * n_ts, frs_z = (int64_t)face_spins * 3 * n_zs;
+  h.nb[0] = site(t, z, y, o_p ? xh : (xh + 1 == Xh ? 0 : xh + 1));
+  h.nb[1] = site(t, z, y, o_p ? (xh == 0 ? Xh - 1 : xh - 1) : xh);
+  h.nb[2] = site(t, z, y + 1 == Y ? 0 : y + 1, xh);
+  h.nb[3] = site(t, z, y == 0 ? Y - 1 : y - 1, xh);
+  h.nb[4] = site(t, z + 1 == Z ? 0 : z + 1, y, xh);
+  h.nb[5] = site(t, z == 0 ? Z - 1 : z - 1, y, xh);
+  h.nb[6] = site(t + 1 == T ? 0 : t + 1, z, y, xh);
+  h.nb[7] = site(t == 0 ? T - 1 : t - 1, z, y, xh);
+  return h;
+}
 
-  cpx<R> acc[4][3];
-  zero(acc);
-  S* slot = out;
-
-  // forward: U_mu(x)|q psi(x + mu);  backward: U_mu(x - mu)|p^dag psi(x - mu).
-  // A selected leg accumulates, or (LEGS_OUT) is stored to the next slot.
-#define TQ_LEG(BIT, MU, ADJ, PSI, PSI_RS, PSI_SS, HALF, UL, U_SS, SGN, PHASE)               \
-  if (leg_mask & (1 << (BIT))) {                                                           \
-    if (LEGS_OUT) zero(acc);                                                               \
-    hop_leg<MU, NROW, ADJ>(acc, PSI, PSI_RS, PSI_SS, HALF, UL, U_SS, SGN, PHASE);           \
-    if (LEGS_OUT) {                                                                        \
-      store_spinor(slot, out_rs, n_sites, n, acc);                                         \
-      slot += out_ls;                                                                      \
-    }                                                                                      \
-  }
-  TQ_LEG(0, 0, false, psi + site(t, z, y, xf), psi_rs, n_sites, false, links(0, q) + n,
-         n_sites, sf, one)
-  TQ_LEG(1, 0, true, psi + site(t, z, y, xb), psi_rs, n_sites, false,
-         links(0, p) + site(t, z, y, xb), n_sites, sb, one)
-  TQ_LEG(2, 1, false, psi + site(t, z, yf, xh), psi_rs, n_sites, false, links(1, q) + n,
-         n_sites, sf, one)
-  TQ_LEG(3, 1, true, psi + site(t, z, yb, xh), psi_rs, n_sites, false,
-         links(1, p) + site(t, z, yb, xh), n_sites, sb, one)
-  TQ_LEG(4, 2, false, at_zf ? f_zp + i_z : psi + site(t, zf, y, xh), at_zf ? frs_z : psi_rs,
-         at_zf ? n_zs : n_sites, at_zf && half, links(2, q) + n, n_sites, sf, one)
-  TQ_LEG(5, 2, true, at_zb ? f_zm + i_z : psi + site(t, zb, y, xh), at_zb ? frs_z : psi_rs,
-         at_zb ? n_zs : n_sites, at_zb && half,
-         at_zb ? u_zm + i_z : links(2, p) + site(t, zb, y, xh), at_zb ? n_zs : n_sites, sb, one)
-  TQ_LEG(6, 3, false, at_tf ? f_tp + i_t : psi + site(tf, z, y, xh), at_tf ? frs_t : psi_rs,
-         at_tf ? n_ts : n_sites, at_tf && half, links(3, q) + n, n_sites, sf, ph_f)
-  TQ_LEG(7, 3, true, at_tb ? f_tm + i_t : psi + site(tb, z, y, xh), at_tb ? frs_t : psi_rs,
-         at_tb ? n_ts : n_sites, at_tb && half,
-         at_tb ? u_tm + i_t : links(3, p) + site(tb, z, y, xh), at_tb ? n_ts : n_sites, sb,
-         ph_b)
-#undef TQ_LEG
-  if (LEGS_OUT) return;
-
+// The fused epilogue on the summed hop acc = D psi at site n, then the
+// store (epilogue 0 none, 1 twist_inv, 2 xpay; CLOVER: 3 clover_inv, 4
+// clover_xpay).  psi0 and the clover block are read at site n.
+template <bool CLOVER, typename S, typename R>
+__device__ __forceinline__ void finish(cpx<R> (&acc)[4][3], S* __restrict__ out, int64_t out_rs,
+                                       const S* __restrict__ psi0, int64_t psi0_rs,
+                                       const S* __restrict__ clov, int64_t n_sites, int64_t n,
+                                       int epilogue, double tw_d, double k2_d) {
   const R tw = conv<R>(tw_d), k2 = conv<R>(k2_d);
   const R r_one = conv<R>(1.f), r_mone = conv<R>(-1.f);
   if (CLOVER) {
@@ -524,15 +527,228 @@ dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
   store_spinor(out, out_rs, n_sites, n, acc);
 }
 
+template <typename S, typename R, int NROW, bool DAGGER, bool LEGS_OUT, bool CLOVER, bool HALO>
+__global__ void __launch_bounds__(128)
+dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
+                 const S* __restrict__ psi0, const S* __restrict__ clov,
+                 S* __restrict__ out, int T, int Z, int Y,
+                 int Xh, int p, int epilogue, double tw_d, double k2_d, int t_boundary,
+                 int leg_mask, int64_t psi_rs, int64_t psi0_rs, int64_t out_rs,
+                 int64_t out_ls, const S* __restrict__ f_tm, const S* __restrict__ f_tp,
+                 const S* __restrict__ f_zm, const S* __restrict__ f_zp,
+                 const S* __restrict__ u_tm, const S* __restrict__ u_zm, int face_spins,
+                 int t_offset, int t_global) {
+  using G = typename ReconOf<S>::type;
+  const int64_t n_sites = (int64_t)T * Z * Y * Xh;
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= n_sites) return;
+  const int xh = (int)(n % Xh);
+  const int y = (int)((n / Xh) % Y);
+  const int z = (int)((n / ((int64_t)Xh * Y)) % Z);
+  const int t = (int)(n / ((int64_t)Xh * Y * Z));
+  const int q = 1 - p;
+  // each neighbour's index is computed where its leg reads it (hood's
+  // formulas): holding all eight, as the batched kernel does, makes this
+  // kernel slower
+  const bool o_p = ((t + z + y + p) & 1) == 1;
+  auto site = [=](int t_, int z_, int y_, int xh_) -> int64_t {
+    return (((int64_t)t_ * Z + z_) * Y + y_) * Xh + xh_;
+  };
+  const int xf = o_p ? xh : (xh + 1 == Xh ? 0 : xh + 1);
+  const int xb = o_p ? (xh == 0 ? Xh - 1 : xh - 1) : xh;
+  const int yf = y + 1 == Y ? 0 : y + 1, yb = y == 0 ? Y - 1 : y - 1;
+  const int zf = z + 1 == Z ? 0 : z + 1, zb = z == 0 ? Z - 1 : z - 1;
+  const int tf = t + 1 == T ? 0 : t + 1, tb = t == 0 ? T - 1 : t - 1;
+  // the links of direction mu and parity par, one element a site
+  auto links = [=](int mu, int par) -> const S* {
+    return u + (int64_t)(mu * 2 + par) * link_reals(NROW) * n_sites;
+  };
+  // phase of a rebuilt row 2 (reconstruct-12 and -8) of a t-link at global
+  // t = T-1: the forward leg's link at global t_offset + t, the backward
+  // leg's one slice below
+  const G one = G(1);
+  const int tg = t_offset + t;
+  const G ph_f = (NROW != 3 && tg == t_global - 1) ? G(t_boundary) : one;
+  const G ph_b = (NROW != 3 && tg == 0) ? G(t_boundary) : one;
+  // forward legs take (1 - gamma), backward legs (1 + gamma); dagger swaps
+  const int sf = DAGGER ? -1 : 1;
+  const int sb = -sf;
+  // halo mode: the legs that step past the local t or z edge, and the
+  // site's index in a t face ([Z, S]) and in a z face ([T, S])
+  const bool at_tf = HALO && t == T - 1, at_tb = HALO && t == 0;
+  const bool at_zf = HALO && z == Z - 1, at_zb = HALO && z == 0;
+  const int64_t n_ts = (int64_t)Z * Y * Xh, n_zs = (int64_t)T * Y * Xh;
+  const int64_t i_t = n % n_ts, i_z = (int64_t)t * Y * Xh + n % ((int64_t)Y * Xh);
+  const bool half = face_spins == 2;
+  const int64_t frs_t = (int64_t)face_spins * 3 * n_ts, frs_z = (int64_t)face_spins * 3 * n_zs;
+
+  cpx<R> acc[4][3];
+  zero(acc);
+  S* slot = out;
+
+  // forward: U_mu(x)|q psi(x + mu);  backward: U_mu(x - mu)|p^dag psi(x - mu).
+  // A selected leg accumulates, or (LEGS_OUT) is stored to the next slot.
+#define TQ_LEG(BIT, MU, ADJ, PSI, PSI_RS, PSI_SS, HALF, UL, U_SS, SGN, PHASE)               \
+  if (leg_mask & (1 << (BIT))) {                                                           \
+    if (LEGS_OUT) zero(acc);                                                               \
+    cpx<R> U[3][3];                                                                        \
+    load_link<NROW>(U, UL, U_SS, PHASE);                                                   \
+    hop_leg<MU, ADJ>(acc, PSI, PSI_RS, PSI_SS, HALF, U, SGN);                              \
+    if (LEGS_OUT) {                                                                        \
+      store_spinor(slot, out_rs, n_sites, n, acc);                                         \
+      slot += out_ls;                                                                      \
+    }                                                                                      \
+  }
+  TQ_LEG(0, 0, false, psi + site(t, z, y, xf), psi_rs, n_sites, false, links(0, q) + n,
+         n_sites, sf, one)
+  TQ_LEG(1, 0, true, psi + site(t, z, y, xb), psi_rs, n_sites, false,
+         links(0, p) + site(t, z, y, xb), n_sites, sb, one)
+  TQ_LEG(2, 1, false, psi + site(t, z, yf, xh), psi_rs, n_sites, false, links(1, q) + n,
+         n_sites, sf, one)
+  TQ_LEG(3, 1, true, psi + site(t, z, yb, xh), psi_rs, n_sites, false,
+         links(1, p) + site(t, z, yb, xh), n_sites, sb, one)
+  TQ_LEG(4, 2, false, at_zf ? f_zp + i_z : psi + site(t, zf, y, xh), at_zf ? frs_z : psi_rs,
+         at_zf ? n_zs : n_sites, at_zf && half, links(2, q) + n, n_sites, sf, one)
+  TQ_LEG(5, 2, true, at_zb ? f_zm + i_z : psi + site(t, zb, y, xh), at_zb ? frs_z : psi_rs,
+         at_zb ? n_zs : n_sites, at_zb && half,
+         at_zb ? u_zm + i_z : links(2, p) + site(t, zb, y, xh), at_zb ? n_zs : n_sites, sb, one)
+  TQ_LEG(6, 3, false, at_tf ? f_tp + i_t : psi + site(tf, z, y, xh), at_tf ? frs_t : psi_rs,
+         at_tf ? n_ts : n_sites, at_tf && half, links(3, q) + n, n_sites, sf, ph_f)
+  TQ_LEG(7, 3, true, at_tb ? f_tm + i_t : psi + site(tb, z, y, xh), at_tb ? frs_t : psi_rs,
+         at_tb ? n_ts : n_sites, at_tb && half,
+         at_tb ? u_tm + i_t : links(3, p) + site(tb, z, y, xh), at_tb ? n_ts : n_sites, sb,
+         ph_b)
+#undef TQ_LEG
+  if (LEGS_OUT) return;
+  finish<CLOVER>(acc, out, out_rs, psi0, psi0_rs, clov, n_sites, n, epilogue, tw_d, k2_d);
+}
+
+// The batched kernel's site tile (a warp's lanes are a block's sites), its
+// most column warps, and its shared link tile [8(leg), 3, 3, BATCH_SITES]
+// of complex R: ops/dslash_cuda.batch_geometry mirrors these.
+constexpr int BATCH_SITES = 32;
+constexpr int BATCH_MAX_WARPS = 4;
+template <typename R>
+constexpr int batch_smem_bytes() { return 8 * 9 * BATCH_SITES * (int)sizeof(cpx<R>); }
+
+// a leg's link in the tile, entry (i, j) of a lane at ((leg * 9 + 3 i + j) * 32 + lane):
+// a warp moves 32 consecutive complex entries, without bank conflicts
+template <typename R>
+__device__ __forceinline__ void tile_put(cpx<R>* tile, int leg, int lane,
+                                         const cpx<R> (&U)[3][3]) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) tile[(leg * 9 + k) * BATCH_SITES + lane] = U[k / 3][k % 3];
+}
+template <typename R>
+__device__ __forceinline__ void tile_get(cpx<R> (&U)[3][3], const cpx<R>* tile, int leg,
+                                         int lane) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) U[k / 3][k % 3] = tile[(leg * 9 + k) * BATCH_SITES + lane];
+}
+
+// N right-hand sides in one launch: phase 1 reads and rebuilds the 8
+// legs' links of the block's 32 sites once, into shared memory; phase 2
+// runs warp w over the columns w, w + W, ... (W = blockDim.x / 32), each
+// with the same leg and epilogue code as the single kernel.  The link
+// tile is the only state the columns share: the clover block is read per
+// column, as is every spinor.
+template <typename S, typename R, int NROW, bool DAGGER, bool CLOVER>
+__global__ void __launch_bounds__(BATCH_SITES * BATCH_MAX_WARPS)
+dslash_eo_batch_kernel(const S* __restrict__ u, const S* __restrict__ psi,
+                       const S* __restrict__ psi0, const S* __restrict__ clov,
+                       S* __restrict__ out, int T, int Z, int Y, int Xh, int p, int epilogue,
+                       double tw_d, double k2_d, int t_boundary, int leg_mask, int64_t psi_rs,
+                       int64_t psi0_rs, int64_t out_rs, int64_t psi_bs, int64_t psi0_bs,
+                       int64_t out_bs, int n_batch, int t_block) {
+  using G = typename ReconOf<S>::type;
+  __shared__ cpx<R> tile[8 * 9 * BATCH_SITES];
+  const int lane = threadIdx.x % BATCH_SITES, warp = threadIdx.x / BATCH_SITES;
+  const int n_warps = blockDim.x / BATCH_SITES;
+  const int64_t n_sites = (int64_t)T * Z * Y * Xh;
+  // the block's tile: t_block consecutive blocks take the same sites of
+  // t_block consecutive t-slices, so that a t-slice is read as a
+  // neighbour while the L2 cache still holds it from its own tiles
+  int64_t tile_id = blockIdx.x;
+  if (t_block > 1) {
+    const int64_t per_slice = (int64_t)Z * Y * Xh / BATCH_SITES;
+    const int64_t t_in = tile_id % t_block, rest = tile_id / t_block;
+    tile_id = ((rest / per_slice) * t_block + t_in) * per_slice + rest % per_slice;
+  }
+  const int64_t n = tile_id * BATCH_SITES + lane;
+  const bool live = n < n_sites;  // the last tile may be ragged
+  const Hood hd = hood(live ? n : 0, T, Z, Y, Xh, p);
+  const int q = 1 - p;
+
+  // phase 1: warp w rebuilds legs w, w + W, ... (at most 4: W >= 2),
+  // coalesced over the sites; a backward leg's link sits at the neighbour,
+  // the t-links carry the boundary phase on row 2 as in the single kernel.
+  // Every load is unconditional (a spare leg reloads the warp's first, a
+  // lane past the last site reads site 0), so the legs' loads are all in
+  // flight at once; only the store is guarded.  Legs that dirs leaves out
+  // are rebuilt and never read.
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int leg = warp + j * n_warps;
+    const int mu = (leg < 8 ? leg : warp) / 2, bwd = (leg < 8 ? leg : warp) & 1;
+    const int nb = mu == 0 ? hd.nb[1] : mu == 1 ? hd.nb[3] : mu == 2 ? hd.nb[5] : hd.nb[7];
+    const S* ul = u + (int64_t)(mu * 2 + (bwd ? p : q)) * link_reals(NROW) * n_sites +
+                  (bwd ? nb : (live ? n : 0));
+    const G phase =
+        (NROW != 3 && mu == 3 && hd.t == (bwd ? 0 : T - 1)) ? G(t_boundary) : G(1);
+    cpx<R> U[3][3];
+    load_link<NROW>(U, ul, n_sites, phase);
+    if (leg < 8) tile_put(tile, leg, lane, U);
+  }
+  __syncthreads();
+  if (!live) return;
+
+  // phase 2: the columns of warp w
+  const int sf = DAGGER ? -1 : 1;
+  const int sb = -sf;
+  for (int c = warp; c < n_batch; c += n_warps) {
+    const S* psi_c = psi + c * psi_bs;
+    cpx<R> acc[4][3];
+    zero(acc);
+#define TQ_BLEG(BIT, MU, ADJ, SGN)                                                          \
+  if (leg_mask & (1 << (BIT))) {                                                           \
+    cpx<R> U[3][3];                                                                        \
+    tile_get(U, tile, BIT, lane);                                                          \
+    hop_leg<MU, ADJ>(acc, psi_c + hd.nb[BIT], psi_rs, n_sites, false, U, SGN);             \
+  }
+    TQ_BLEG(0, 0, false, sf)
+    TQ_BLEG(1, 0, true, sb)
+    TQ_BLEG(2, 1, false, sf)
+    TQ_BLEG(3, 1, true, sb)
+    TQ_BLEG(4, 2, false, sf)
+    TQ_BLEG(5, 2, true, sb)
+    TQ_BLEG(6, 3, false, sf)
+    TQ_BLEG(7, 3, true, sb)
+#undef TQ_BLEG
+    finish<CLOVER>(acc, out + c * out_bs, out_rs, psi0 == nullptr ? psi0 : psi0 + c * psi0_bs,
+                   psi0_rs, clov, n_sites, n, epilogue, tw_d, k2_d);
+  }
+}
+
 template <typename S, typename R, int NROW>
 int launch(TQ_PARAMS) {
   // epilogues: 0 none, 1 twist_inv, 2 xpay, 3 clover_inv, 4 clover_xpay
   const bool clover = epilogue >= 3;
   if (nrow != NROW || (src_parity != 0 && src_parity != 1) || epilogue < 0 || epilogue > 4 ||
       ((epilogue == 2 || epilogue == 4) && psi0 == nullptr) || (clover && clov == nullptr) ||
-      T <= 0 || Z <= 0 || Y <= 0 || Xh <= 0 || leg_mask <= 0 || leg_mask > 255 ||
+      T <= 0 || Z <= 0 || Y <= 0 || Xh <= 0 || (int64_t)T * Z * Y * Xh > INT32_MAX ||
+      leg_mask <= 0 || leg_mask > 255 ||
       (legs_out && epilogue != 0) || n_batch < 1 || n_batch > 65535 ||
       (n_batch > 1 && (legs_out || halo)))
+    return (int)cudaErrorInvalidValue;
+  // a batch takes the batched kernel with the caller's column warps (2 to
+  // 4: phase 1 rebuilds at most 4 legs a warp) and t-block, and the
+  // caller's count of its shared bytes must be the kernel's
+  if (n_batch > 1 ? (batch_warps < 2 || batch_warps > BATCH_MAX_WARPS ||
+                     batch_warps > n_batch || batch_smem != batch_smem_bytes<R>() ||
+                     batch_t_block < 1 ||
+                     (batch_t_block > 1 && (T % batch_t_block != 0 ||
+                                            (int64_t)Z * Y * Xh % BATCH_SITES != 0)))
+                  : (batch_warps != 0 || batch_smem != 0 || batch_t_block != 0))
     return (int)cudaErrorInvalidValue;
   if (halo && (legs_out || f_tm == nullptr || f_tp == nullptr || f_zm == nullptr ||
                f_zp == nullptr || u_tm == nullptr || u_zm == nullptr ||
@@ -545,20 +761,35 @@ int launch(TQ_PARAMS) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const int64_t n_sites = (int64_t)T * Z * Y * Xh;
-  const int threads = 128;
-  const dim3 blocks((unsigned)((n_sites + threads - 1) / threads), (unsigned)n_batch);
   cudaStream_t s = (cudaStream_t)stream;
   const S* u_ = (const S*)u;
   const S* psi_ = (const S*)psi;
   const S* psi0_ = (const S*)psi0;
   const S* clov_ = (const S*)clov;
   S* out_ = (S*)out;
+  if (n_batch > 1) {
+    const unsigned blocks = (unsigned)((n_sites + BATCH_SITES - 1) / BATCH_SITES);
+    const int threads = BATCH_SITES * batch_warps;
+#define TQ_LAUNCH(DG, CL)                                                                    \
+  dslash_eo_batch_kernel<S, R, NROW, DG, CL><<<blocks, threads, 0, s>>>(                     \
+      u_, psi_, psi0_, clov_, out_, T, Z, Y, Xh, src_parity, epilogue, tw, k2, t_boundary,   \
+      leg_mask, psi_rs, psi0_rs, out_rs, psi_bs, psi0_bs, out_bs, n_batch, batch_t_block)
+    if (dagger) {
+      if (clover) TQ_LAUNCH(true, true); else TQ_LAUNCH(true, false);
+    } else {
+      if (clover) TQ_LAUNCH(false, true); else TQ_LAUNCH(false, false);
+    }
+#undef TQ_LAUNCH
+    return (int)cudaGetLastError();
+  }
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((n_sites + threads - 1) / threads);
 #define TQ_LAUNCH(DG, LO, CL, HA)                                                           \
   dslash_eo_kernel<S, R, NROW, DG, LO, CL, HA><<<blocks, threads, 0, s>>>(                  \
       u_, psi_, psi0_, clov_, out_, T, Z, Y, Xh, src_parity, epilogue, tw, k2, t_boundary,  \
-      leg_mask, psi_rs, psi0_rs, out_rs, out_ls, psi_bs, psi0_bs, out_bs, (const S*)f_tm,   \
-      (const S*)f_tp, (const S*)f_zm, (const S*)f_zp, (const S*)u_tm, (const S*)u_zm,       \
-      face_spins, t_offset, t_global)
+      leg_mask, psi_rs, psi0_rs, out_rs, out_ls, (const S*)f_tm, (const S*)f_tp,            \
+      (const S*)f_zm, (const S*)f_zp, (const S*)u_tm, (const S*)u_zm, face_spins, t_offset, \
+      t_global)
 #define TQ_LAUNCH_LO(DG)                                     \
   if (legs_out) TQ_LAUNCH(DG, true, false, false);           \
   else if (halo && clover) TQ_LAUNCH(DG, false, true, true);  \

@@ -29,7 +29,9 @@ reconstruction stays float32); other storage raises.
 A batch: psi (and psi0, out) [N, 2(ri), 4, 3, T, Z, S] is N right-hand
 sides in one launch (the TPU kernel under ``jax.vmap``); u and clover are
 shared.  It composes with every epilogue, dagger, dirs and dtype, not
-with legs_out or halo mode.
+with legs_out or halo mode.  N > 1 takes the batched kernel, which reads
+and rebuilds each link once for all N columns (``batch_geometry``); a
+batch of one takes the single kernel.
 
 Epilogues, with tw = 2 kappa mu flavor:
 
@@ -177,7 +179,7 @@ class _Library:
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                            + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
-                           + [ctypes.c_int64] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+                           + [ctypes.c_int64] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
                            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.tq_error_string.argtypes = [ctypes.c_int]
@@ -234,6 +236,70 @@ class _Library:
 
 
 library = _Library()
+
+
+#: the batched kernel's site tile (a warp's 32 lanes are a block's sites)
+#: and its most column warps (csrc/dslash_eo.cuh: BATCH_SITES,
+#: BATCH_MAX_WARPS); the t-slices whose tiles consecutive blocks take
+BATCH_SITES, BATCH_MAX_WARPS, BATCH_T_BLOCK = 32, 4, 8
+#: the H100's L2 cache; a t-slice is read again as a neighbour two slices
+#: of streaming later, in about half of it
+L2_BYTES = 50 * 2 ** 20
+
+
+class BatchGeometry(NamedTuple):
+    """The launch of the batched kernel: blocks of BATCH_SITES sites and
+    ``warps`` column warps; warp w takes the columns w, w + warps, ...
+    (``columns``).  ``shared_bytes`` is the
+    block's link tile, the 8 legs' rebuilt 3x3 links of its sites in the
+    arithmetic type, the same for every link format.  ``t_block``
+    consecutive blocks take the same sites of as many consecutive
+    t-slices (``tile``), so that the t-neighbours of N columns are read
+    again while the L2 cache holds them; 1 keeps the site order."""
+    warps: int
+    shared_bytes: int
+    t_block: int
+
+    @property
+    def threads(self) -> int:
+        return BATCH_SITES * self.warps
+
+    def columns(self, warp: int, n_batch: int) -> range:
+        return range(warp, n_batch, self.warps)
+
+    def tile(self, block: int, per_slice: int) -> int:
+        """The site tile of a block, per_slice tiles to a t-slice (the
+        kernel's order)."""
+        if self.t_block == 1:
+            return block
+        t_in, rest = block % self.t_block, block // self.t_block
+        return ((rest // per_slice) * self.t_block + t_in) * per_slice + rest % per_slice
+
+
+def batch_geometry(n_batch: int, lat: Lattice, dtype: torch.dtype, link_reals: int,
+                   compute: str = "f32") -> BatchGeometry | None:
+    """The batched kernel's geometry for N = ``n_batch`` columns of storage
+    ``dtype`` and links of ``link_reals`` reals on ``lat``, or None for N =
+    1 (the single kernel).  The fewest steps a warp takes with at most
+    BATCH_MAX_WARPS warps, then the fewest warps that keep them: N = 5
+    runs 3 warps of 2, 2, 1 columns, not 4 of 2, 1, 1, 1.  Tiles go
+    BATCH_T_BLOCK t-slices at a time where a t-slice streams more than a
+    quarter of the L2 (N spinors read, N read by xpay, N written, 8 links
+    a site), and where a t-slice is whole tiles and T a multiple of it;
+    else in site order, which a slice that stays in the L2 reads faster."""
+    if not 1 <= n_batch <= 65535:
+        raise ValueError(f"a batch holds 1 to 65535 fields, got {n_batch}")
+    if n_batch == 1:
+        return None
+    steps = -(-n_batch // min(BATCH_MAX_WARPS, n_batch))
+    warps = -(-n_batch // steps)
+    arith = 2 if compute == "bf16" else 8 if dtype == torch.float64 else 4
+    T, Z, S = lat.site_shape
+    item = torch.empty((), dtype=dtype).element_size()
+    slice_bytes = Z * S * (3 * 24 * n_batch + 8 * link_reals) * item
+    blocked = (slice_bytes > L2_BYTES / 4 and T % BATCH_T_BLOCK == 0
+               and Z * S % BATCH_SITES == 0)
+    return BatchGeometry(warps, 8 * 18 * BATCH_SITES * arith, BATCH_T_BLOCK if blocked else 1)
 
 
 # --------------------------------------------------------------------------
@@ -413,13 +479,18 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
     def batch_stride(x):
         return x.stride(0) if nb and x is not None else 0
 
+    geom = (batch_geometry(psi.shape[0], lat, psi.dtype, LINK_ROWS[u.shape[2]], compute)
+            if nb else None)
+
     err = fn(u.data_ptr(), psi.data_ptr(), psi0.data_ptr() if psi0 is not None else None,
              clover.data_ptr() if clover is not None else None, out.data_ptr(), T, Z,
              lat.Ly, lat.Lx // 2, u.shape[2], src_parity, int(dagger), EPILOGUES[epilogue],
              tw, k2, int(t_boundary), mask, int(legs_out), psi.stride(nb),
              psi0.stride(nb) if psi0 is not None else 0, out.stride(1 if legs_out else nb),
              out.stride(0) if legs_out else 0, batch_stride(psi), batch_stride(psi0),
-             batch_stride(out), psi.shape[0] if nb else 1, *faces, psi.device.index, stream)
+             batch_stride(out), psi.shape[0] if nb else 1,
+             *((geom.warps, geom.shared_bytes, geom.t_block) if geom else (0, 0, 0)),
+             *faces, psi.device.index, stream)
     if err != 0:
         msg = library.get().tq_error_string(err).decode()
         raise RuntimeError(f"dslash_eo kernel launch failed: {msg} (CUDA error {err})")
