@@ -32,7 +32,7 @@ Phases, each of which exits non-zero on failure:
    version and, stitched, against the unsharded kernel; then the batch
    axis (N = 1, 3, 5 and 12 right-hand sides in one launch at 8^3x16, 5
    a width the batched kernel's column warps do not divide, and
-   after 4h and 4i at 32^3x64 with exactly the numbers of columns their
+   after 4h, 4i and 4j at 32^3x64 with exactly the numbers of columns their
    launches had: equal bit for bit to N single launches, within the
    limits of the plain version; every epilogue with clover, both
    parities, dagger, each storage type, and into the parity views of a
@@ -84,6 +84,15 @@ Phases, each of which exits non-zero on failure:
    i. four point-source columns through solve_tm_mg_batch on 4b's
       hierarchy (lockstep GCR), each certified, one held to the plain
       float64 operator, beside the seconds of the same four one by one;
+   j. tpuqcd_torch.cli.run_threeptwop.measure at 32^3x64 on 4b's gauge
+      with 4h's action, solver and smearing, the projectors (P+, P5z) and
+      baryons (proton, neutron) of examples/threep.yaml, t_sink 12, sink
+      momentum 0: 24 forward and 8 x 12 flavor-flipped backward columns,
+      every one certified by the solver and by the plain float64 operator
+      (Solver.audit), the proton two-point function equal to 4h's, all
+      260 correlators finite, the u / d ratio of the proton's gt insertion
+      between source and sink printed, the seconds by stage and the peak
+      device memory;
    reconstruct-8 and compute="bf16" are on no path, in tpuqcd as here
    (their only caller is dslash_eo): phases 3 and 5 hold and time them,
    and the kernels line lists them with 0 launches;
@@ -92,8 +101,8 @@ Phases, each of which exits non-zero on failure:
    on the one-rank mesh and at the (2, 2) shard size beside the plain hop
    on the same volume, beside the plain version, with GFLOP/s, effective
    GB/s and the bound (compulsory bytes at 3.35 TB/s); the batched launch
-   at N = 1, 2, 4, 12 and at the numbers of columns 4h's and 4i's launches
-   had, each beside N single launches of the same columns in the same run
+   at N = 1, 2, 4, 12 and at the numbers of columns 4h's, 4i's and 4j's
+   launches had, each beside N single launches of the same columns in the same run
    and their ratio, and twist_inv at 4h's width; reconstruct-8 beside
    reconstruct-12 and 18-real; compute="bf16" beside float32 arithmetic;
    the lockstep CG step at the same N.
@@ -105,6 +114,7 @@ no result.  ``--invert-rank`` runs one rank of phase 4g (invert_rank).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -145,6 +155,8 @@ HALO_STORAGE = STORAGE[:1] + (("f32_18", torch.float32, 3, 1e-5),) + STORAGE[1:]
 X_AGREE = 1e-8
 #: cell 4h: a light quark on the beta = 6.0 heatbath gauge, away from kappa_c
 TWOP_KAPPA, TWOP_MU = 0.150, 0.005
+#: cell 4j: the sink timeslice, about 1.1 fm from the source at a = 0.093 fm
+THREEP_T_SINK = 12
 #: cell 4i: the columns of the lockstep MG solve (12 do not fit the card)
 MGB_COLUMNS = 4
 #: compute="bf16" against float32 arithmetic and its plain version: 5% of
@@ -964,7 +976,8 @@ def mg_path(dev, gauge, clover: bool = False):
     return res, counts
 
 
-def twop_config(output: str):
+def twop_config(output: str, **physics):
+    """4h's configuration; ``physics`` keys replace its physics block's (4j)."""
     from tpuqcd_torch.utils.config import config_from_dict
     return config_from_dict({
         "gauge": {"dims": list(LARGE), "heatbath_beta": MG_BETA,
@@ -975,7 +988,7 @@ def twop_config(output: str):
         "physics": {"source_positions": [[0, 0, 0, 0]], "momenta": [[0, 0, 0], [1, 0, 0]],
                     "smear_alpha_ape": 0.5, "smear_n_ape": 5, "smear_alpha_gauss": 4.0,
                     "smear_n_gauss": 20, "projectors": ["P+"], "meson_channels": ["pion"],
-                    "output": output}})
+                    "output": output, **physics}})
 
 
 def twop_path(dev, gauge, have_h5py: bool):
@@ -1065,6 +1078,96 @@ def twop_path(dev, gauge, have_h5py: bool):
             print("  HDF5: h5py does not import here, the file is not written (the writer is "
                   "held by tests/test_torch_twop.py)")
     return res, counts
+
+
+def threep_path(dev, gauge, twop_proton, have_h5py: bool):
+    """4j: run_threeptwop.measure at 32^3x64 on 4b's heatbath gauge with
+    4h's action, solver and smearing, the projectors and baryons of
+    examples/threep.yaml and t_sink THREEP_T_SINK; every column of every
+    solver call certified by the solver and by the plain float64 operator
+    (Solver.audit, whose plain calls are not the path's); the two-point
+    proton at P+ against 4h's ``twop_proton``.  Returns (result, counts,
+    audit seconds)."""
+    from tpuqcd_torch.cli import run_threeptwop
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.ops import dslash_cuda
+    lat, u64 = Lattice(LARGE), gauge.u_pk.double()
+    audited, audit_s = [], [0.0]
+
+    def audit(b, x, flavor):
+        t0, plain = time.perf_counter(), dslash_cuda.counts["plain"]
+        rels = [plain_full_relres(u64, b[i].double(), x[i], lat, TWOP_KAPPA, TWOP_MU * flavor)
+                for i in range(b.shape[0])]
+        dslash_cuda.counts["plain"] = plain
+        torch.cuda.synchronize()
+        audit_s[0] += time.perf_counter() - t0
+        audited.append((flavor, len(rels), max(rels)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = twop_config(os.path.join(tmp, "threep.h5"), projectors=["P+", "P5z"],
+                          baryons=["proton", "neutron"], t_sinks=[THREEP_T_SINK],
+                          sink_momentum=[0, 0, 0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dslash_cuda.reset_counts()
+        res = run_threeptwop.measure(cfg, dev, gauge, audit=audit)
+        torch.cuda.synchronize()
+        counts = dict(dslash_cuda.counts)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  launches during the run: {counts}")
+        if counts.get("plain", 0) != 0:
+            fail(f"the three-point path called the plain version {counts['plain']} times")
+        need_launches(counts, ("float32:batch", "float64:batch", "float32", "float64"))
+        print("  seconds by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items())
+              + f"; the plain-operator audit inside the solves {audit_s[0]:.3f} s; peak "
+              f"memory {peak:.2f} GiB")
+        for rec, (flavor, n, worst) in zip(res.solves, audited):
+            if not (rec["flavor"] == flavor and rec["columns"] == n):
+                fail("the audit does not follow the solver's calls")
+            print(f"  flavor {flavor:+d} columns {rec['first_column']}-"
+                  f"{rec['first_column'] + n - 1}: certified relres <= {max(rec['relres']):.3e}, "
+                  f"matvecs {min(rec['iters'])}-{max(rec['iters'])}; plain-operator relres "
+                  f"<= {worst:.3e}")
+            if not (max(rec["relres"]) <= RELRES_MAX and worst <= RELRES_MAX):
+                fail(f"a three-point column is not certified: solver {max(rec['relres']):.3e}, "
+                     f"plain {worst:.3e}")
+        # the forward solves come first: two flavors of 12 columns
+        ends = list(itertools.accumulate(n for _, n, _ in audited))
+        if len(audited) != len(res.solves) or 24 not in ends or ends[-1] != 24 + 96:
+            fail(f"{ends[-1] if ends else 0} columns audited, not 24 forward and 96 backward")
+        print(f"  all 24 forward and 96 backward columns certified <= "
+              f"{RELRES_MAX:.0e} by the solver and by the plain float64 operator")
+        T = LARGE[3]
+        corrs = dict(res.twop)
+        corrs.update({f"{g}/{k}": v for g, ins in res.threep.items() for k, v in ins.items()})
+        for name, corr in corrs.items():
+            if not (corr.shape == (2, T) and bool(torch.isfinite(torch.from_numpy(corr)).all())):
+                fail(f"{name}: shape {corr.shape} or non-finite values")
+        if len(corrs) != 4 + 2 * 2 * 2 * 32:
+            fail(f"{len(corrs)} correlators, not {4 + 2 * 2 * 2 * 32}")
+        tag = "sx0sy0sz0st0"
+        prot = res.twop[f"twop/proton/P+/{tag}"]
+        dev_2 = abs(prot - twop_proton).max() / abs(twop_proton).max()
+        print(f"  twop/proton/P+ against 4h's: max |diff| / max |4h| {dev_2:.2e} (limit 1e-10)")
+        if not dev_2 <= 1e-10:
+            fail("the three-point run's two-point proton differs from 4h's")
+        gt_u = res.threep[f"threep/proton/P+/u/ts{THREEP_T_SINK}/{tag}"]["gt"][0]
+        gt_d = res.threep[f"threep/proton/P+/d/ts{THREEP_T_SINK}/{tag}"]["gt"][0]
+        ratio = (gt_u / gt_d)[1:THREEP_T_SINK].real
+        print(f"  proton P+ p=0, gt insertion, u leg / d leg on t = 1..{THREEP_T_SINK - 1} "
+              f"(about 2 expected, not a gate): {', '.join(f'{r:.4f}' for r in ratio)}")
+        if have_h5py:
+            from tpuqcd_torch.io.hdf5io import read_dataset
+            run_threeptwop.write(cfg, res)
+            group = f"threep_der/neutron/P5z/u/ts{THREEP_T_SINK}/{tag}"
+            back = read_dataset(cfg.physics.output, f"{group}/der_g3_D3/mom_1_0_0")
+            if not (back == res.threep[group]["der_g3_D3"][1]).all():
+                fail(f"{group} read back from HDF5 differs")
+            print("  HDF5: written and read back")
+        else:
+            print("  HDF5: h5py does not import here, the file is not written (the writer is "
+                  "held by tests/test_torch_threeptwop.py)")
+    return res, counts, audit_s[0]
 
 
 def plain_proton_density(su, sd, proj) -> torch.Tensor:
@@ -1493,13 +1596,22 @@ def main() -> None:
           "at 32^3x64")
     tw_res, tw_counts = twop_path(dev, gauge, have_h5py)
     tw_seconds = tw_res.seconds
-    # the numbers of columns the batched launches of 4h and 4i had
+    tw_proton = tw_res.correlators["twop/proton/P+/sx0sy0sz0st0"]
+    # the numbers of columns the batched launches of 4h, 4i and 4j had
     tw_widths = sorted({rec["columns"] for rec in tw_res.solves if rec["columns"] > 1})
-    widths = sorted({*tw_widths, MGB_COLUMNS})
     tw_n, tw_ns = max(tw_widths), ", ".join(map(str, tw_widths))
     del tw_res
     torch.cuda.empty_cache()
-    say("phase 3: the batch axis at 32^3x64 with the numbers of columns 4h's and 4i's "
+    say("phase 4j: main path, tpuqcd_torch.cli.run_threeptwop.measure (sequential sources, "
+        "flavor-flipped batched backward solves, insertions) at 32^3x64")
+    tj_res, tj_counts, tj_audit_s = threep_path(dev, gauge, tw_proton, have_h5py)
+    tj_seconds = tj_res.seconds
+    tj_widths = sorted({rec["columns"] for rec in tj_res.solves if rec["columns"] > 1})
+    tj_n, tj_ns = max(tj_widths), ", ".join(map(str, tj_widths))
+    del tj_res
+    torch.cuda.empty_cache()
+    widths = sorted({*tw_widths, *tj_widths, MGB_COLUMNS})
+    say("phase 3: the batch axis at 32^3x64 with the numbers of columns 4h's, 4i's and 4j's "
         f"launches had, N = {', '.join(map(str, widths))}")
     batch_abs = compare_batch(LARGE, dev, widths)
 
@@ -1520,6 +1632,9 @@ def main() -> None:
     t.update(new_timings(dev, card_tag, widths))
     print("  two-point run (4h) seconds by stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in tw_seconds.items()) + f" {card_tag}")
+    print("  three-point run (4j) seconds by stage: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tj_seconds.items())
+          + f" (the solves include the plain-operator audit, {tj_audit_s:.3f} s) {card_tag}")
     print(f"  MG, 4 point-source columns (4i): lockstep {mgb_batch_s:.2f} s, one by one "
           f"{mgb_single_s:.2f} s {card_tag}")
     print(f"  smoke run {time.perf_counter() - t_start:.1f} s so far", flush=True)
@@ -1587,6 +1702,17 @@ def main() -> None:
         entry(f"dslash_eo<double> 18-real batch axis (two-point certification operator, {tw_ns} "
               f"columns a launch), xpay_full N={tw_n} timed", tw_counts["float64:batch"],
               batch_abs[("f64", tw_n)], ("f64", f"xpay_full_b{tw_n}"), vmap),
+        entry(f"dslash_eo<float> reconstruct-12 batch axis (three-point sloppy operator, "
+              f"forward and flavor-flipped backward solves, {tj_ns} columns a launch), xpay "
+              f"N={tj_n} timed", tj_counts["float32:batch"], batch_abs[("f32", tj_n)],
+              ("f32", f"xpay_b{tj_n}"), vmap),
+        entry(f"dslash_eo<double> 18-real batch axis (three-point certification operator, "
+              f"{tj_ns} columns a launch), xpay_full N={tj_n} timed", tj_counts["float64:batch"],
+              batch_abs[("f64", tj_n)], ("f64", f"xpay_full_b{tj_n}"), vmap),
+        entry("dslash_eo<float> reconstruct-12 (three-point batch-gate probe columns, sloppy), "
+              "xpay timed", tj_counts["float32"], max_abs["f32"], ("f32", "xpay")),
+        entry("dslash_eo<double> 18-real (three-point probe columns' certification), xpay_full "
+              "timed", tj_counts["float64"], max_abs["f64"], ("f64", "xpay_full")),
         entry(f"dslash_eo<float> reconstruct-12 batch axis (lockstep MG fine operator, {nb} "
               f"columns), xpay N={nb} timed", mgb_counts["float32:batch"],
               batch_abs[("f32", nb)], ("f32", f"xpay_b{nb}"), vmap),

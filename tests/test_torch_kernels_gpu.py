@@ -4,7 +4,7 @@ of MG probing (K4: dirs, legs_out), the clover epilogues (K3:
 clover_inv, clover_xpay), the MG fine operators' xpay and clover_xpay
 on parity views, halo mode (K6) on emulated shards of a (2, 2) grid with
 the doublet solve through it, the batch axis, reconstruct-8 links (K5),
-compute="bf16", and the two-point run through them.  Marked ``gpu``;
+compute="bf16", and the two- and three-point runs through them.  Marked ``gpu``;
 skips without CUDA.
 
 It imports neither jax nor tpuqcd, so it runs on a machine that has only
@@ -495,3 +495,37 @@ def test_run_twop_goes_through_the_batched_kernel(cuda):
     assert all(max(r["relres"]) <= 1e-10 for r in res.solves)
     pion = res.correlators["twop/pion/sx0sy0sz0st0"][0]
     assert pion.real.min() > 0 and abs(pion.imag).max() <= 1e-6 * pion.real.max()
+
+
+def test_run_threeptwop_on_the_card_matches_the_cpu(cuda):
+    """run_threeptwop.measure at 4^3x8 on the card against the same run on
+    the CPU (the kernel's plain version): batched float32 and float64
+    launches, no plain call, all 24 + 96 columns certified, every
+    correlator within 1e-5 of its largest value (float32 propagators,
+    solves certified to 1e-10 on both)."""
+    import numpy as np
+    from tpuqcd_torch.cli import run_threeptwop
+    from tpuqcd_torch.cli.common import Gauge, setup_gauge
+    cfg = config_from_dict({
+        "gauge": {"dims": [4, 4, 4, 8], "random_seed": 2},
+        "action": {"kappa": KAPPA, "mu": MU}, "solver": {"tol": 1e-10},
+        "physics": {"momenta": [[0, 0, 0], [1, 0, 0]], "t_sinks": [3], "sink_momentum": [0, 0, 1],
+                    "source_positions": [[1, 0, 1, 2]], "projectors": ["P+", "P5z"],
+                    "baryons": ["proton", "neutron"], "smear_n_ape": 2, "smear_n_gauss": 4,
+                    "smear_alpha_gauss": 1.0}})
+    g = setup_gauge(cfg, torch.device("cpu"))
+    host = run_threeptwop.measure(cfg, torch.device("cpu"), g)
+    dslash_cuda.reset_counts()
+    res = run_threeptwop.measure(cfg, cuda, Gauge(g.lat, g.u_pk.to(cuda), g.plaquette, 0.0))
+    counts = dict(dslash_cuda.counts)
+    assert counts.get("plain", 0) == 0
+    for key in ("float32:batch", "float64:batch", "float32", "float64"):
+        assert counts.get(key, 0) > 0, key
+    assert sum(r["columns"] for r in res.solves) == 24 + 96
+    assert all(max(r["relres"]) <= 1e-10 for r in res.solves)
+    pairs = [(k, v, host.twop[k]) for k, v in res.twop.items()]
+    pairs += [(f"{k}/{name}", v, host.threep[k][name])
+              for k, ins in res.threep.items() for name, v in ins.items()]
+    assert len(pairs) == 4 + 8 * 32
+    for name, got, want in pairs:
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), name

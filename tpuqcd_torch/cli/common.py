@@ -24,7 +24,7 @@ from ..ops.gauge_tools import plaquette
 from ..ops.layout import gauge_to_device
 from ..parallel.dist import init_distributed
 from ..phys.propagator import full_to_packed
-from ..utils.config import RunConfig, load_config
+from ..utils.config import ConfigError, RunConfig, load_config
 from ..utils.packed import pack_gauge, unpack_gauge
 from ..utils.profile import sync
 
@@ -65,8 +65,12 @@ def _not_ported(what: str, item: str):
                               f"(ROADMAP.md, Queue 1 item {item})")
 
 
-def check_in_slice(cfg: RunConfig) -> None:
-    """Refuse the configurations the port does not run yet."""
+def check_in_slice(cfg: RunConfig, threep: bool = False) -> None:
+    """Refuse the configurations the port does not run yet; with ``threep``
+    (the three-point run) also one without physics.t_sinks."""
+    if threep and not cfg.physics.t_sinks:
+        raise ConfigError("physics.t_sinks is empty: the three-point run needs at least one "
+                          "sink timeslice")
     g, a, mg = cfg.gauge, cfg.action, cfg.mg
     # as in tpuqcd, a mesh of one device is no mesh
     mesh = cfg.mesh.nt * cfg.mesh.nz * cfg.mesh.ny > 1
@@ -250,10 +254,14 @@ class Solver:
     batch handed to packed_src_batch), columns, the certified relres and
     the count of every column, whether the gate re-chunked, and, with
     ``keep_first``, the float64 solution of its first column as
-    ``x_first`` (for an independent residual)."""
+    ``x_first`` (for an independent residual).  ``audit``, when set, is
+    called as audit(b_pks, x, flavor) after every solver call with its
+    sources [n, 2(par), 2(ri), ...] and their float64 solutions, before
+    these are rounded to float32 (an independent check of every column)."""
 
     lmesh = None
     keep_first = False
+    audit = None
 
     def __init__(self, cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor):
         self.cfg, self.lat, self.u_pk = cfg, lat, u_pk
@@ -302,6 +310,8 @@ class Solver:
             log.info("  solve: relres=%.2e iters=%d%s", res.relres, res.iters,
                      " (batch-gate probe)" if probe else "")
         self._record(flavor, res, probe=probe)
+        if self.audit is not None:
+            self.audit(b_pk[None], res.x[None], flavor)
         return res.x.to(torch.float32)
 
     def _batch(self, b_pks: torch.Tensor, flavor: int, first_column: int):
@@ -313,6 +323,8 @@ class Solver:
             log.info("  batch solve (%d rhs): max relres=%.2e iters<=%d", b_pks.shape[0],
                      max(res.relres), max(res.iters))
         self._record(flavor, res, first_column)
+        if self.audit is not None:
+            self.audit(b_pks, res.x, flavor)
         return res.x.to(torch.float32)
 
     def packed_src_batch(self, b_pks: torch.Tensor, flavor: int = +1) -> torch.Tensor:

@@ -64,6 +64,29 @@ def source_tag(src) -> str:
     return f"sx{src[3]}sy{src[2]}sz{src[1]}st{src[0]}"
 
 
+def stage_timer(prof: Profile, device: torch.device):
+    """stage(name): a context that adds its seconds to prof.times[name], the
+    device synchronised before the clock stops."""
+    @contextlib.contextmanager
+    def stage(name):
+        with prof.phase(name):
+            yield
+            sync(device)
+    return stage
+
+
+def smeared_sources(cfg: RunConfig, lat, src, u_sm: torch.Tensor | None,
+                    device: torch.device) -> torch.Tensor:
+    """The 12 point sources at src = (t, z, y, x), packed [12, 2(par), 2(ri),
+    4, 3, T, Z, S] on ``device``, Gaussian-smeared on u_sm when
+    physics.smear_n_gauss > 0."""
+    ph = cfg.physics
+    b_pks = packed_sources(point_sources(lat, tuple(src), device=device), lat)
+    if ph.smear_n_gauss > 0:
+        b_pks = smear_sources(u_sm, b_pks, lat, ph.smear_alpha_gauss, ph.smear_n_gauss)
+    return b_pks
+
+
 def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
             keep_fields: bool = False) -> TwopResult:
     """The two-point measurement of ``cfg`` on ``device``: the correlators
@@ -76,13 +99,7 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
     momenta = np.asarray(ph.momenta)
     prof = Profile()
     prof.times["gauge"] = gauge_seconds
-
-    @contextlib.contextmanager
-    def stage(name):
-        with prof.phase(name):
-            yield
-            sync(device)
-
+    stage = stage_timer(prof, device)
     with stage("smearing"):
         u_sm = smeared_gauge(cfg, lat, u_pk) if ph.smear_n_gauss > 0 else None
     correlators, sources, fields = {}, {}, {}
@@ -90,9 +107,7 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
         tag = source_tag(src)
         log.info("source %s (contractions on %s)", tuple(src), device)
         with stage("sources"):
-            b_pks = packed_sources(point_sources(lat, tuple(src), device=device), lat)
-            if ph.smear_n_gauss > 0:
-                b_pks = smear_sources(u_sm, b_pks, lat, ph.smear_alpha_gauss, ph.smear_n_gauss)
+            b_pks = smeared_sources(cfg, lat, src, u_sm, device)
         props = {}
         for name, flavor in (("u", +1), ("d", -1)):
             log.info(" forward props flavor %s (batched rhs)", name)

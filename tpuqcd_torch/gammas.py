@@ -8,7 +8,8 @@ and factors as recon[4, 2] @ proj[2, 4]; every table entry is 0, +-1 or
 +-i.  The CUDA kernel (csrc/dslash_eo.cu) hard-codes the same tables.
 SIGMA_MUNU[mu, nu] = (i/2)[gamma_mu, gamma_nu] feeds the clover term.
 The contraction tables (CGAMMA5, the projectors, EPS3, the meson
-channels) are products of the same four matrices.
+channels, the three-point insertions) are products of the same four
+matrices.
 """
 from __future__ import annotations
 
@@ -96,6 +97,21 @@ MESON_CHANNELS = {
     "a1_x": GAMMA5 @ GAMMA_X,
     "a1_y": GAMMA5 @ GAMMA_Y,
     "a1_z": GAMMA5 @ GAMMA_Z,
+}
+
+
+#: the 16 ultra-local insertions of the three-point run, S = 1, P = g5,
+#: V = g_mu, A = g5 g_mu, T = sigma_{mu<nu}; names and order are the HDF5
+#: dataset names (tpuqcd/gammas.py:138-151)
+INSERTION_GAMMAS = {
+    "1": ID4,
+    "g5": GAMMA5,
+    "gx": GAMMA_X, "gy": GAMMA_Y, "gz": GAMMA_Z, "gt": GAMMA_T,
+    "g5gx": GAMMA5 @ GAMMA_X, "g5gy": GAMMA5 @ GAMMA_Y,
+    "g5gz": GAMMA5 @ GAMMA_Z, "g5gt": GAMMA5 @ GAMMA_T,
+    "sxy": SIGMA_MUNU[0, 1], "sxz": SIGMA_MUNU[0, 2],
+    "sxt": SIGMA_MUNU[0, 3], "syz": SIGMA_MUNU[1, 2],
+    "syt": SIGMA_MUNU[1, 3], "szt": SIGMA_MUNU[2, 3],
 }
 
 

@@ -1,8 +1,7 @@
 """HDF5 output of the correlators.
 
-Counterpart of ``tpuqcd/io/hdf5io.py`` (``write_twop`` and
-``read_dataset``; the three-point and loop writers come with their
-programs).  Results are host numpy arrays written with h5py, one dataset
+Counterpart of ``tpuqcd/io/hdf5io.py`` (``write_twop``, ``write_threep``
+and ``read_dataset``; the loop writer comes with its program).  Results are host numpy arrays written with h5py, one dataset
 per momentum, per source position, so a killed run loses at most one
 source.  h5py is imported inside the call.
 """
@@ -20,20 +19,42 @@ def _h5py():
     return h5py
 
 
+def _group(f, group: str, src_pos, attrs: dict | None):
+    g = f.require_group(group)
+    g.attrs["src_pos"] = np.asarray(src_pos)
+    for k, v in (attrs or {}).items():
+        g.attrs[k] = v
+    return g
+
+
+def _write_momenta(g, corr: np.ndarray, momenta: np.ndarray) -> None:
+    """corr [n_mom, T]: one dataset mom_px_py_pz per momentum, replacing one
+    already there."""
+    for i, p in enumerate(np.asarray(momenta)):
+        name = f"mom_{p[0]}_{p[1]}_{p[2]}"
+        if name in g:
+            del g[name]
+        g.create_dataset(name, data=np.asarray(corr[i]))
+
+
 def write_twop(path: str, group: str, corr: np.ndarray, momenta: np.ndarray, src_pos,
                meta: dict | None = None, mode: str = "a") -> None:
     """corr [n_mom, T] complex; one dataset ``mom_px_py_pz`` per momentum
     under ``group``, with src_pos and meta as the group's attributes."""
     with _h5py().File(path, mode) as f:
-        g = f.require_group(group)
-        g.attrs["src_pos"] = np.asarray(src_pos)
-        for k, v in (meta or {}).items():
-            g.attrs[k] = v
-        for i, p in enumerate(np.asarray(momenta)):
-            name = f"mom_{p[0]}_{p[1]}_{p[2]}"
-            if name in g:
-                del g[name]
-            g.create_dataset(name, data=np.asarray(corr[i]))
+        _write_momenta(_group(f, group, src_pos, meta), corr, momenta)
+
+
+def write_threep(path: str, group: str, corr: np.ndarray, momenta: np.ndarray,
+                 insertions: list[str], src_pos, t_sink: int, meta: dict | None = None,
+                 mode: str = "a") -> None:
+    """corr [n_insertion, n_mom, T] complex; under ``group`` one subgroup per
+    insertion and in it one dataset ``mom_px_py_pz`` per momentum, with
+    src_pos, t_sink and meta as the group's attributes."""
+    with _h5py().File(path, mode) as f:
+        g = _group(f, group, src_pos, {"t_sink": t_sink, **(meta or {})})
+        for j, ins in enumerate(insertions):
+            _write_momenta(g.require_group(ins), corr[j], momenta)
 
 
 def read_dataset(path: str, name: str) -> np.ndarray:

@@ -87,6 +87,22 @@ def sink_smear_prop_pk(u_smear_pk: torch.Tensor, prop_pk: torch.Tensor, lat: Lat
     return assemble_propagator_pk(sm)
 
 
+def sink_smear_timeslice_pk(u_smear_pk: torch.Tensor, prop_pk: torch.Tensor, lat: Lattice,
+                            t: int, alpha: float, n_steps: int) -> torch.Tensor:
+    """sink_smear_prop_pk of a packed propagator that is zero off timeslice t
+    (a sequential source).  Smearing is spatial, so only t's even-odd pair
+    of timeslices (t0 = t - t % 2, t0 + 1) is smeared, as a lattice two
+    slices long: a timeslice's even-odd packing depends on t only through
+    its parity.  The result is zero off that pair, as the input."""
+    t0 = int(t) - int(t) % 2
+    pair = slice(t0, t0 + 2)
+    sub = Lattice((lat.Lx, lat.Ly, lat.Lz, 2))
+    out = torch.zeros_like(prop_pk)
+    out[..., pair, :, :] = sink_smear_prop_pk(u_smear_pk[..., pair, :, :].contiguous(),
+                                              prop_pk[..., pair, :, :], sub, alpha, n_steps)
+    return out
+
+
 def compute_propagator(u_pk: torch.Tensor, b_pks: torch.Tensor, lat: Lattice, *,
                        kappa: float, mu: float, flavor: int = 1, tol: float = 1e-8,
                        solver: str = "cg", maxiter: int = 5000, csw: float = 0.0,
