@@ -32,7 +32,7 @@ Phases, each of which exits non-zero on failure:
    version and, stitched, against the unsharded kernel; then the batch
    axis (N = 1, 3, 5 and 12 right-hand sides in one launch at 8^3x16, 5
    a width the batched kernel's column warps do not divide, and
-   after 4h, 4i and 4j at 32^3x64 with exactly the numbers of columns their
+   after 4h, 4i, 4j, 4k and 4l at 32^3x64 with exactly the numbers of columns their
    launches had: equal bit for bit to N single launches, within the
    limits of the plain version; every epilogue with clover, both
    parities, dagger, each storage type, and into the parity views of a
@@ -93,6 +93,28 @@ Phases, each of which exits non-zero on failure:
       260 correlators finite, the u / d ratio of the proton's gt insertion
       between source and sink printed, the seconds by stage and the peak
       device memory;
+   k. tpuqcd_torch.cli.run_loops.measure at 32^3x64 on 4b's gauge with
+      4h's action and solver: one Z4 noise in 12 spin-colour classes, TSM
+      with 4 cheap noises (50 steps, tol 1e-3), 8 Lanczos modes of M_d
+      M_d^dag written to eig_outfile, the 33 momenta of q^2 <= 4: every
+      full and low-mode column certified by the solver and by the plain
+      float64 operator, the basis orthonormal to 1e-5 with positive
+      ascending Rayleigh quotients (printed with their residuals), every
+      deflated source orthogonal to it to 1e-5 of its norm, the file read
+      back equal to it bit for bit, every dataset finite of shape
+      [n_mom, T]; the TSM correction's size, the seconds by stage and the
+      peak device memory printed;
+   l. 4k's run without TSM and deflation, with the batched CG and with
+      eigCG on the same noise: every column of both held to the plain
+      float64 operator, their loops within 1e-6 of each dataset's largest
+      value, eigCG's iterations per column and final space printed; then a
+      witness that the harvested space deflates, on a fresh right-hand side
+      of eigCG's inner system: the share of the plain CG solution's A-norm
+      that the space's deflated guess misses (held below 1), the
+      iterations without and with the space, the space's lowest Rayleigh
+      quotients with their residuals beside a 40-step Lanczos on the same
+      operator (the space's lowest held within a factor 2 of Lanczos's),
+      and the space's spread lambda_k / lambda_1;
    reconstruct-8 and compute="bf16" are on no path, in tpuqcd as here
    (their only caller is dslash_eo): phases 3 and 5 hold and time them,
    and the kernels line lists them with 0 launches;
@@ -101,8 +123,8 @@ Phases, each of which exits non-zero on failure:
    on the one-rank mesh and at the (2, 2) shard size beside the plain hop
    on the same volume, beside the plain version, with GFLOP/s, effective
    GB/s and the bound (compulsory bytes at 3.35 TB/s); the batched launch
-   at N = 1, 2, 4, 12 and at the numbers of columns 4h's, 4i's and 4j's
-   launches had, each beside N single launches of the same columns in the same run
+   at N = 1, 2, 4, 12 and at the numbers of columns 4h's, 4i's, 4j's, 4k's
+   and 4l's launches had, each beside N single launches of the same columns in the same run
    and their ratio, and twist_inv at 4h's width; reconstruct-8 beside
    reconstruct-12 and 18-real; compute="bf16" beside float32 arithmetic;
    the lockstep CG step at the same N.
@@ -114,6 +136,7 @@ no result.  ``--invert-rank`` runs one rank of phase 4g (invert_rank).
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -123,6 +146,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 KAPPA, MU = 0.115, 0.08
@@ -159,6 +183,15 @@ TWOP_KAPPA, TWOP_MU = 0.150, 0.005
 THREEP_T_SINK = 12
 #: cell 4i: the columns of the lockstep MG solve (12 do not fit the card)
 MGB_COLUMNS = 4
+#: cells 4k and 4l: the loop run's deflation modes and its limits on the
+#: basis (orthonormality, deflated sources' overlap with it) and, in 4l, on
+#: eigCG's loops against the batched CG's (both certified to 1e-10)
+LOOPS_N_DEFLATE, BASIS_TOL, LOOPS_AGREE = 8, 1e-5, 1e-6
+#: cell 4l's deflation witness: the eigCG space's lowest Rayleigh quotient
+#: at most this factor above a 40-step Lanczos's lowest on the same
+#: operator (both are upper bounds of the lowest eigenvalue; a space that
+#: missed the bottom of the spectrum sits near its mean, orders above)
+WITNESS_RQ = 2.0
 #: compute="bf16" against float32 arithmetic and its plain version: 5% of
 #: the largest value (tpuqcd/tests/test_dslash_pallas.py:269)
 BF16C_TOL = 0.05
@@ -1085,58 +1118,30 @@ def threep_path(dev, gauge, twop_proton, have_h5py: bool):
     4h's action, solver and smearing, the projectors and baryons of
     examples/threep.yaml and t_sink THREEP_T_SINK; every column of every
     solver call certified by the solver and by the plain float64 operator
-    (Solver.audit, whose plain calls are not the path's); the two-point
-    proton at P+ against 4h's ``twop_proton``.  Returns (result, counts,
-    audit seconds)."""
+    (audited_measure); the two-point proton at P+ against 4h's
+    ``twop_proton``.  Returns (result, counts, audit seconds)."""
     from tpuqcd_torch.cli import run_threeptwop
     from tpuqcd_torch.lattice import Lattice
-    from tpuqcd_torch.ops import dslash_cuda
     lat, u64 = Lattice(LARGE), gauge.u_pk.double()
-    audited, audit_s = [], [0.0]
-
-    def audit(b, x, flavor):
-        t0, plain = time.perf_counter(), dslash_cuda.counts["plain"]
-        rels = [plain_full_relres(u64, b[i].double(), x[i], lat, TWOP_KAPPA, TWOP_MU * flavor)
-                for i in range(b.shape[0])]
-        dslash_cuda.counts["plain"] = plain
-        torch.cuda.synchronize()
-        audit_s[0] += time.perf_counter() - t0
-        audited.append((flavor, len(rels), max(rels)))
-
     with tempfile.TemporaryDirectory() as tmp:
         cfg = twop_config(os.path.join(tmp, "threep.h5"), projectors=["P+", "P5z"],
                           baryons=["proton", "neutron"], t_sinks=[THREEP_T_SINK],
                           sink_momentum=[0, 0, 0])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        dslash_cuda.reset_counts()
-        res = run_threeptwop.measure(cfg, dev, gauge, audit=audit)
-        torch.cuda.synchronize()
-        counts = dict(dslash_cuda.counts)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"  launches during the run: {counts}")
-        if counts.get("plain", 0) != 0:
-            fail(f"the three-point path called the plain version {counts['plain']} times")
+        res, counts, audited, audit_s, peak = audited_measure(run_threeptwop.measure, cfg, dev,
+                                                              gauge, u64, lat)
         need_launches(counts, ("float32:batch", "float64:batch", "float32", "float64"))
         print("  seconds by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items())
-              + f"; the plain-operator audit inside the solves {audit_s[0]:.3f} s; peak "
+              + f"; the plain-operator audit inside the solves {audit_s:.3f} s; peak "
               f"memory {peak:.2f} GiB")
         for rec, (flavor, n, worst) in zip(res.solves, audited):
-            if not (rec["flavor"] == flavor and rec["columns"] == n):
-                fail("the audit does not follow the solver's calls")
             print(f"  flavor {flavor:+d} columns {rec['first_column']}-"
                   f"{rec['first_column'] + n - 1}: certified relres <= {max(rec['relres']):.3e}, "
                   f"matvecs {min(rec['iters'])}-{max(rec['iters'])}; plain-operator relres "
                   f"<= {worst:.3e}")
-            if not (max(rec["relres"]) <= RELRES_MAX and worst <= RELRES_MAX):
-                fail(f"a three-point column is not certified: solver {max(rec['relres']):.3e}, "
-                     f"plain {worst:.3e}")
+        check_columns(res, audited, 24 + 96, "the 24 forward and 96 backward columns")
         # the forward solves come first: two flavors of 12 columns
-        ends = list(itertools.accumulate(n for _, n, _ in audited))
-        if len(audited) != len(res.solves) or 24 not in ends or ends[-1] != 24 + 96:
-            fail(f"{ends[-1] if ends else 0} columns audited, not 24 forward and 96 backward")
-        print(f"  all 24 forward and 96 backward columns certified <= "
-              f"{RELRES_MAX:.0e} by the solver and by the plain float64 operator")
+        if 24 not in itertools.accumulate(n for _, n, _ in audited):
+            fail("the forward solves are not the first 24 columns")
         T = LARGE[3]
         corrs = dict(res.twop)
         corrs.update({f"{g}/{k}": v for g, ins in res.threep.items() for k, v in ins.items()})
@@ -1167,7 +1172,298 @@ def threep_path(dev, gauge, twop_proton, have_h5py: bool):
         else:
             print("  HDF5: h5py does not import here, the file is not written (the writer is "
                   "held by tests/test_torch_threeptwop.py)")
-    return res, counts, audit_s[0]
+    return res, counts, audit_s
+
+
+def loops_config(output: str, **physics):
+    """4k's configuration (4h's gauge and action, direct CG): one Z4 noise in
+    12 spin-colour classes, TSM with 4 cheap noises, 8 Lanczos modes, the
+    33 momenta of q^2 <= 4; ``physics`` keys replace its physics block's
+    (4l)."""
+    from tpuqcd_torch.utils.config import config_from_dict
+    return config_from_dict({
+        "gauge": {"dims": list(LARGE), "heatbath_beta": MG_BETA,
+                  "heatbath_sweeps": MG_SWEEPS, "random_seed": 0},
+        "action": {"kappa": TWOP_KAPPA, "mu": TWOP_MU},
+        "solver": {"solver": "cg", "sloppy_dtype": "float32", "rhs_batch": 12,
+                   "tol": RELRES_MAX},
+        "physics": {"n_noise": 1, "dilute_sc": True, "dilute_t": 1, "tsm_cheap": 4,
+                    "tsm_maxiter_cheap": 50, "tsm_tol": 1e-3, "n_deflate": LOOPS_N_DEFLATE,
+                    "mom_max_sq": 4, "output": output, **physics}})
+
+
+def audited_measure(measure, cfg, dev, gauge, u64, lat, on_column=None, **kw):
+    """measure(cfg, dev, gauge, audit=..., **kw) with the launch counts set
+    to 0 just before and read just after, every solver column held to the
+    plain float64 operator (its plain calls taken back out of the count),
+    and on_column(source, flavor) called on each column's source.  Returns
+    (result, counts, [(flavor, columns, worst plain relres)], audit seconds,
+    peak GiB)."""
+    from tpuqcd_torch.ops import dslash_cuda
+    audited, audit_s = [], [0.0]
+
+    def audit(b, x, flavor):
+        t0, plain = time.perf_counter(), dslash_cuda.counts["plain"]
+        rels = [plain_full_relres(u64, b[i].double(), x[i], lat, TWOP_KAPPA, TWOP_MU * flavor)
+                for i in range(b.shape[0])]
+        for i in range(b.shape[0]):
+            if on_column is not None:
+                on_column(b[i], flavor)
+        dslash_cuda.counts["plain"] = plain
+        torch.cuda.synchronize()
+        audit_s[0] += time.perf_counter() - t0
+        audited.append((flavor, len(rels), max(rels)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dslash_cuda.reset_counts()
+    res = measure(cfg, dev, gauge, audit=audit, **kw)
+    torch.cuda.synchronize()
+    counts = dict(dslash_cuda.counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  launches during the run: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail(f"the path called the plain version {counts['plain']} times")
+    return res, counts, audited, audit_s[0], peak
+
+
+def check_columns(res, audited, n_columns: int, what: str) -> None:
+    """Every column certified by the solver and by the plain operator."""
+    if len(audited) != len(res.solves) or sum(n for _, n, _ in audited) != n_columns:
+        fail(f"{what}: {sum(n for _, n, _ in audited)} columns audited in {len(audited)} "
+             f"calls, not {n_columns} in {len(res.solves)}")
+    for rec, (flavor, n, worst) in zip(res.solves, audited):
+        if not (rec["flavor"] == flavor and rec["columns"] == n):
+            fail(f"{what}: the audit does not follow the solver's calls")
+        if not (max(rec["relres"]) <= RELRES_MAX and worst <= RELRES_MAX):
+            fail(f"{what}: a column is not certified: solver {max(rec['relres']):.3e}, plain "
+                 f"{worst:.3e}")
+    print(f"  {what}: all {n_columns} columns certified <= {RELRES_MAX:.0e} by the solver "
+          f"(<= {max(max(r['relres']) for r in res.solves):.2e}) and by the plain float64 "
+          f"operator (<= {max(w for _, _, w in audited):.2e})")
+
+
+def check_loops(res, n_mom: int, groups) -> None:
+    T = LARGE[3]
+    if sorted(res.loops) != sorted(groups):
+        fail(f"datasets {sorted(res.loops)}, not {sorted(groups)}")
+    for group, loops in res.loops.items():
+        want = 16 if group.count("_der") == 0 else 64
+        if len(loops) != want:
+            fail(f"{group}: {len(loops)} insertions, not {want}")
+        for name, v in loops.items():
+            if not (v.shape == (n_mom, T) and np.isfinite(v).all()):
+                fail(f"{group}/{name}: shape {v.shape} or non-finite values")
+    print(f"  {', '.join(groups)}: every insertion finite, shape ({n_mom}, {T})")
+
+
+def loops_path(dev, gauge, have_h5py: bool):
+    """4k: run_loops.measure at 32^3x64 on 4b's gauge (loops_config): every
+    full and low-mode column certified by the solver and by the plain
+    float64 operator, the Lanczos basis orthonormal with positive ascending
+    Rayleigh quotients, every deflated source orthogonal to it, the saved
+    eigenpairs equal to the basis, every dataset finite.  Returns (result
+    without its fields, counts, audit seconds, peak GiB)."""
+    from tpuqcd_torch.cli import run_loops
+    from tpuqcd_torch.cli.common import _mg_fine_level
+    from tpuqcd_torch.gammas import G5_DIAG
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.utils.checkpoint import load_eigenpairs
+    lat, u64 = Lattice(LARGE), gauge.u_pk.double()
+    g5 = torch.tensor(G5_DIAG, dtype=torch.float64, device=dev).view(4, 1, 1, 1, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        eig = os.path.join(tmp, "eig.npz")
+        cfg = loops_config(os.path.join(tmp, "loops.h5"), eig_outfile=eig)
+        basis, overlaps = [], []
+
+        def on_column(b, flavor):
+            """The overlap of a source with the basis, |V^dag s| / |s|: the
+            sources of the noise's solves come first (the dilution classes,
+            deflated), then the low modes themselves."""
+            if not basis:        # the Lanczos stage wrote it before any solve
+                evecs = torch.stack(load_eigenpairs(eig)[1]).to(dev).transpose(1, 2)
+                basis.append(torch.complex(evecs[:, :, 0].double(),
+                                           evecs[:, :, 1].double()).reshape(len(evecs), -1))
+            s = (b.double() * g5).transpose(0, 1)                  # undo the g5, ri first
+            c = torch.complex(s[0], s[1]).reshape(-1)
+            overlaps.append(((basis[0].conj() @ c).abs().max() / c.abs().pow(2).sum().sqrt())
+                            .item())
+
+        res, counts, audited, audit_s, peak = audited_measure(
+            run_loops.measure, cfg, dev, gauge, u64, lat, on_column, keep_fields=True)
+        need_launches(counts, ("float32:batch", "float64:batch", "float32", "float64"))
+        print("  seconds by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items())
+              + f"; the plain-operator audit inside the solves {audit_s:.3f} s; peak memory "
+              f"{peak:.2f} GiB")
+        n_classes, n_def = 12, LOOPS_N_DEFLATE
+        check_columns(res, audited, n_classes + n_def, "the noise's 12 classes and 8 low modes")
+        defl = max(overlaps[:n_classes])
+        print(f"  deflated sources: max |V^dag s| / |s| {defl:.2e} (limit {BASIS_TOL:.0e}); the "
+              f"low modes' own {min(overlaps[n_classes:]):.3f}-{max(overlaps[n_classes:]):.3f}")
+        if not defl <= BASIS_TOL:
+            fail("a deflated source is not orthogonal to the deflation basis")
+        # the basis: orthonormal, ascending positive Rayleigh quotients, residuals
+        v = res.evecs.reshape(n_def, 2, -1).double()
+        vc = torch.complex(v[:, 0], v[:, 1])
+        gram = (vc.conj() @ vc.T - torch.eye(n_def, device=dev)).abs().max().item()
+        lv_p, lv_m = (_mg_fine_level(cfg, lat, gauge.u_pk, f) for f in (+1, -1))
+        g5mg = g5.to(torch.float32)[None]
+        resid = []
+        for lam, x in zip(res.evals, res.evecs):
+            ax = lv_m.apply(g5mg * lv_p.apply(g5mg * x))
+            resid.append(((ax - lam * x).double().square().sum().sqrt() / lam).item())
+        print(f"  Lanczos basis: |V^dag V - 1|_max {gram:.2e} (limit {BASIS_TOL:.0e}); Rayleigh "
+              f"quotients {', '.join(f'{e:.5e}' for e in res.evals)}; |Av - lv| / l "
+              f"{', '.join(f'{r:.2e}' for r in resid)}")
+        if not (gram <= BASIS_TOL and (res.evals > 0).all() and (np.diff(res.evals) >= 0).all()):
+            fail("the Lanczos basis is not orthonormal, or its Rayleigh quotients are not "
+                 "positive and ascending")
+        evals, evecs = load_eigenpairs(eig, expect_layout="packed", n_expect=n_def)
+        same = (np.array_equal(evals, res.evals)
+                and torch.equal(torch.stack(evecs), res.evecs.cpu()))
+        print(f"  eig_outfile read back: {'equal' if same else 'NOT equal'} to the basis in "
+              f"memory bit for bit")
+        if not same:
+            fail("the saved eigenpairs differ from the basis in memory")
+        check_loops(res, len(cfg.physics.momenta), ["loops/oneend", "loops/oneend_der",
+                                                    "loops/oneend_lowmode",
+                                                    "loops/oneend_lowmode_der"])
+        for name in ("1", "g5"):
+            full, cheap = res.tsm["full"][name], res.tsm["cheap"][name]
+            print(f"  TSM correction {name}: |full - cheap| / |full| "
+                  f"{np.linalg.norm(full - cheap) / np.linalg.norm(full):.3e}")
+        g5l = res.loops["loops/oneend"]["g5"][0]
+        print(f"  oneend g5 p=0, t=0..3: {', '.join(f'{z:.4e}' for z in g5l[:4])}")
+        if have_h5py:
+            from tpuqcd_torch.io.hdf5io import read_dataset
+            run_loops.write(cfg, res)
+            back = read_dataset(cfg.physics.output, "loops/oneend_der/g5gt_D3")
+            if not (back == res.loops["loops/oneend_der"]["g5gt_D3"]).all():
+                fail("loops/oneend_der read back from HDF5 differs")
+            print("  HDF5: written and read back")
+        else:
+            print("  HDF5: h5py does not import here, the file is not written (the writer is "
+                  "held by tests/test_torch_run_loops.py)")
+    return dataclasses.replace(res, evecs=None, u_pk=None), counts, audit_s, peak
+
+
+def deflation_witness(es, inner_tol: float, shape) -> None:
+    """4l's witness that the space eigCG harvested deflates, on a fresh
+    right-hand side of the inner system Mhat^dag Mhat x = Mhat^dag bhat of
+    es (an EigCGSolver after the run): x* by plain CG to inner_tol, and
+    the share of its A-norm that the space's guess x0 = U diag(1/lambda)
+    U^dag rhs misses, |x* - x0|_A / |x*|_A, held below 1 (x0 is the
+    Galerkin guess); the iterations without and with the space; the
+    space's lowest Rayleigh quotients with |Av - lambda v| / lambda beside
+    a 40-step Lanczos on the same operator, the space's lowest held within
+    WITNESS_RQ of Lanczos's; the spread lambda_k / lambda_1, whose root is
+    the fall of the iterations that deflating those k modes exactly could
+    give; and beside the path's guess the Galerkin guess U (U^dag A U)^-1
+    U^dag rhs, what a Rayleigh-Ritz over the whole space would give."""
+    from tpuqcd_torch.solve import EIGCG_M, EIGCG_NEV
+    from tpuqcd_torch.solvers.eigcg import eigcg
+    from tpuqcd_torch.solvers.lanczos import lanczos_lowest_pk
+    from tpuqcd_torch.utils import pkalg as pk
+    a, space, dev = es._apply_a, es.space, es.u32.device
+    b = torch.randn((2, 2, 4, 3, *shape), generator=torch.Generator().manual_seed(31),
+                    dtype=torch.float64).to(dev)
+    rhs = es.pc.apply_dagger(es.u32, es.pc.prepare(es.u_hp, b).to(torch.float32))
+    plain = eigcg(a, rhs, nev=EIGCG_NEV, m=EIGCG_M, tol=inner_tol, maxiter=4000)
+    defl = eigcg(a, rhs, nev=EIGCG_NEV, m=EIGCG_M, tol=inner_tol, maxiter=4000, space=space)
+
+    def anorm2(v):
+        return pk.cdot(v, a(v), dtype=torch.float64)[0].item()
+
+    miss = (anorm2(plain.x - space.deflate(rhs)) / anorm2(plain.x)) ** 0.5
+    U = torch.stack(space.evecs).reshape(space.k, 2, -1)
+
+    def herm(p, q):
+        """p^dag q for stacks of packed fields [k, 2(ri), N]: complex128 [k, n]."""
+        re = p[:, 0] @ q[:, 0].T + p[:, 1] @ q[:, 1].T
+        im = p[:, 0] @ q[:, 1].T - p[:, 1] @ q[:, 0].T
+        return torch.complex(re.double(), im.double()).cpu().numpy()
+
+    h = np.concatenate([herm(U, torch.stack([a(v) for v in space.evecs[i:i + 16]])
+                             .reshape(-1, 2, U.shape[2])) for i in range(0, space.k, 16)], 1)
+    y = np.linalg.solve(h, herm(U, rhs.reshape(1, 2, -1))[:, 0])
+    yr, yi = (torch.as_tensor(z, dtype=torch.float32, device=dev) for z in (y.real, y.imag))
+    x0g = torch.stack([yr @ U[:, 0] - yi @ U[:, 1], yr @ U[:, 1] + yi @ U[:, 0]])
+    miss_g = (anorm2(plain.x - x0g.reshape(rhs.shape)) / anorm2(plain.x)) ** 0.5
+    off = np.abs(h - np.diag(np.diag(h))).max() / np.abs(np.diag(h)).min()
+    del U, x0g
+    order = np.argsort(space.evals)
+    low = [(space.evals[i], space.evecs[i]) for i in order[:4]]
+    resid = [(pk.norm2(a(v) - lam * v, dtype=torch.float64).sqrt() / lam).item()
+             for lam, v in low]
+    v0 = torch.randn(rhs.shape, generator=torch.Generator().manual_seed(9))
+    lz, _ = lanczos_lowest_pk(a, v0.to(dev), 4, n_iter=40)
+    spread = space.evals[order[-1]] / space.evals[order[0]]
+    print(f"  deflation witness (a fresh right-hand side, flavor +1): plain CG {plain.iters} "
+          f"iterations, with the space of k = {space.k} {defl.iters}; the deflated guess "
+          f"misses {miss:.7f} of the solution's A-norm (limit < 1; it holds {1 - miss ** 2:.3e} "
+          f"of its square), the Galerkin guess {miss_g:.7f} ({1 - miss_g ** 2:.3e}); U^dag A "
+          f"U's largest off-diagonal over its smallest diagonal {off:.3e}")
+    print(f"  the space's lowest Rayleigh quotients {', '.join(f'{lam:.5e}' for lam, _ in low)} "
+          f"(|Av - lv| / l {', '.join(f'{r:.2e}' for r in resid)}); 40-step Lanczos on the same "
+          f"operator {', '.join(f'{e:.5e}' for e in lz)}; spread lambda_k / lambda_1 "
+          f"{spread:.3f} (exact deflation of these modes: iterations x "
+          f"{spread ** -0.5:.3f} at best)")
+    if not (plain.converged and defl.converged and miss < 1.0):
+        fail("the witness's solves did not converge, or the deflated guess is no better than 0")
+    if not low[0][0] <= WITNESS_RQ * lz[0]:
+        fail(f"the eigCG space's lowest Rayleigh quotient {low[0][0]:.3e} is not within "
+             f"{WITNESS_RQ} of Lanczos's {lz[0]:.3e}: the space misses the low modes")
+
+
+def eigcg_path(dev, gauge):
+    """4l: 4k's configuration without TSM and deflation, once with the
+    batched CG and once with eigCG on the same seed-17 noise: every column
+    of both held to the plain float64 operator, the loops of the two within
+    LOOPS_AGREE of each dataset's largest value, then deflation_witness on
+    the eigCG run's space.  Returns (eigCG result, eigCG counts, CG counts,
+    CG seconds by stage, the batched CG's launch widths)."""
+    from unittest import mock
+
+    from tpuqcd_torch.cli import run_loops
+    from tpuqcd_torch.cli.common import make_solver
+    from tpuqcd_torch.lattice import Lattice
+    lat, u64 = Lattice(LARGE), gauge.u_pk.double()
+    runs, made = {}, []
+
+    def keep(*args):
+        """make_solver, the Solver kept for the witness."""
+        made.append(make_solver(*args))
+        return made[-1]
+
+    for solver in ("cg", "eigcg"):
+        cfg = loops_config("unused.h5", tsm_cheap=0, n_deflate=0)
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, solver=solver))
+        print(f"  solver {solver}:")
+        with mock.patch.object(run_loops, "make_solver", keep):
+            res, counts, audited, audit_s, peak = audited_measure(run_loops.measure, cfg, dev,
+                                                                  gauge, u64, lat)
+        need_launches(counts, ("float32", "float64") if solver == "eigcg"
+                      else ("float32:batch", "float64:batch", "float32", "float64"))
+        print("  seconds by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items())
+              + f"; the audit {audit_s:.3f} s; peak memory {peak:.2f} GiB")
+        check_columns(res, audited, 12, f"{solver}: the noise's 12 classes")
+        check_loops(res, len(cfg.physics.momenta), ["loops/oneend", "loops/oneend_der"])
+        runs[solver] = (res, counts)
+    cg, eig = runs["cg"][0], runs["eigcg"][0]
+    print(f"  eigCG iterations per column: {[r['iters'][0] for r in eig.solves]}; final space "
+          f"k = {eig.solves[-1]['space']}; the batched CG's matvecs per column "
+          f"{[i for r in cg.solves for i in r['iters']]}")
+    worst = 0.0
+    for group in ("loops/oneend", "loops/oneend_der"):
+        for name, a in cg.loops[group].items():
+            worst = max(worst, np.abs(eig.loops[group][name] - a).max() / np.abs(a).max())
+    print(f"  eigCG against the batched CG, every dataset: max |diff| / max |CG| {worst:.2e} "
+          f"(limit {LOOPS_AGREE:.0e})")
+    if not worst <= LOOPS_AGREE:
+        fail("the eigCG loops differ from the batched CG's")
+    deflation_witness(made[-1].eigcg[+1], cfg.solver.inner_tol, lat.site_shape)
+    cg_widths = sorted({rec["columns"] for rec in cg.solves if rec["columns"] > 1})
+    return eig, runs["eigcg"][1], runs["cg"][1], cg.seconds, cg_widths
 
 
 def plain_proton_density(su, sd, proj) -> torch.Tensor:
@@ -1610,9 +1906,19 @@ def main() -> None:
     tj_n, tj_ns = max(tj_widths), ", ".join(map(str, tj_widths))
     del tj_res
     torch.cuda.empty_cache()
-    widths = sorted({*tw_widths, *tj_widths, MGB_COLUMNS})
-    say("phase 3: the batch axis at 32^3x64 with the numbers of columns 4h's, 4i's and 4j's "
-        f"launches had, N = {', '.join(map(str, widths))}")
+    say("phase 4k: main path, tpuqcd_torch.cli.run_loops.measure (Z4 noise, spin-colour "
+        "dilution, TSM, Lanczos deflation, exact low modes, one-derivative loops) at 32^3x64")
+    tk_res, tk_counts, tk_audit_s, tk_peak = loops_path(dev, gauge, have_h5py)
+    tk_widths = sorted({rec["columns"] for rec in tk_res.solves if rec["columns"] > 1} | {12})
+    tk_n, tk_ns = max(tk_widths), ", ".join(map(str, tk_widths))
+    torch.cuda.empty_cache()
+    say("phase 4l: the loop run with eigCG against the batched CG on the same noise at 32^3x64")
+    tl_res, tl_counts, tl_cg_counts, tl_cg_seconds, tl_widths = eigcg_path(dev, gauge)
+    tl_n, tl_ns = max(tl_widths), ", ".join(map(str, tl_widths))
+    torch.cuda.empty_cache()
+    widths = sorted({*tw_widths, *tj_widths, *tk_widths, *tl_widths, MGB_COLUMNS})
+    say("phase 3: the batch axis at 32^3x64 with the numbers of columns 4h's, 4i's, 4j's, "
+        f"4k's and 4l's launches had, N = {', '.join(map(str, widths))}")
     batch_abs = compare_batch(LARGE, dev, widths)
 
     say(f"phase 5: times {card_tag}")
@@ -1635,6 +1941,15 @@ def main() -> None:
     print("  three-point run (4j) seconds by stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in tj_seconds.items())
           + f" (the solves include the plain-operator audit, {tj_audit_s:.3f} s) {card_tag}")
+    print("  loop run (4k) seconds by stage: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tk_res.seconds.items())
+          + f" (the solves include the plain-operator audit, {tk_audit_s:.3f} s); peak memory "
+          f"{tk_peak:.2f} GiB {card_tag}")
+    print("  loop run with eigCG (4l) seconds by stage: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tl_res.seconds.items())
+          + "; with the batched CG: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tl_cg_seconds.items())
+          + f" (both with the audit) {card_tag}")
     print(f"  MG, 4 point-source columns (4i): lockstep {mgb_batch_s:.2f} s, one by one "
           f"{mgb_single_s:.2f} s {card_tag}")
     print(f"  smoke run {time.perf_counter() - t_start:.1f} s so far", flush=True)
@@ -1722,6 +2037,31 @@ def main() -> None:
         entry(f"dslash_eo<double> 18-real batch axis (lockstep MG certification operator, {nb} "
               f"columns), xpay_full N={nb} timed", mgb_counts["float64:batch"],
               batch_abs[("f64", nb)], ("f64", f"xpay_full_b{nb}"), vmap),
+        entry(f"dslash_eo<float> reconstruct-12 batch axis (loop run 4k: dilution classes, "
+              f"cheap TSM and low-mode solves, {tk_ns} columns a launch), xpay N={tk_n} timed",
+              tk_counts["float32:batch"], batch_abs[("f32", tk_n)], ("f32", f"xpay_b{tk_n}"),
+              vmap),
+        entry(f"dslash_eo<double> 18-real batch axis (loop run 4k certification, {tk_ns} "
+              f"columns a launch), xpay_full N={tk_n} timed", tk_counts["float64:batch"],
+              batch_abs[("f64", tk_n)], ("f64", f"xpay_full_b{tk_n}"), vmap),
+        entry("dslash_eo<float> reconstruct-12 (loop run 4k: Lanczos on M_d M_d^dag, probe "
+              "columns), xpay_full timed", tk_counts["float32"], fine_abs["f32"],
+              ("f32", "xpay_full")),
+        entry("dslash_eo<double> 18-real (loop run 4k: probe columns' certification), "
+              "xpay_full timed", tk_counts["float64"], max_abs["f64"], ("f64", "xpay_full")),
+        entry("dslash_eo<float> reconstruct-12 (loop run 4l: eigCG's normal operator), xpay "
+              "timed", tl_counts["float32"], max_abs["f32"], ("f32", "xpay")),
+        entry("dslash_eo<double> 18-real (loop run 4l: eigCG's prepare, residuals and "
+              "reconstruction), xpay_full timed", tl_counts["float64"], max_abs["f64"],
+              ("f64", "xpay_full")),
+        entry("dslash_eo<float> reconstruct-12 batch axis (loop run 4l, the batched CG beside "
+              f"eigCG, {tl_ns} columns a launch), xpay N={tl_n} timed",
+              tl_cg_counts["float32:batch"], batch_abs[("f32", tl_n)], ("f32", f"xpay_b{tl_n}"),
+              vmap),
+        entry(f"dslash_eo<double> 18-real batch axis (loop run 4l, the batched CG's "
+              f"certification, {tl_ns} columns a launch), xpay_full N={tl_n} timed",
+              tl_cg_counts["float64:batch"], batch_abs[("f64", tl_n)],
+              ("f64", f"xpay_full_b{tl_n}"), vmap),
         # on no path, in tpuqcd as here: held in phase 3, timed in phase 5
         entry("dslash_eo<float> reconstruct-8 (K5; no caller but dslash_eo, on no path), xpay "
               "timed", 0, r8_abs["f32"], ("f32", "xpay_r8"),

@@ -92,8 +92,6 @@ def check_in_slice(cfg: RunConfig, threep: bool = False) -> None:
                 "the new hardware changes the port'); set it to float32")
     if a.mu_list:
         _not_ported("action.mu_list (the multishift mass sweep)", "12, remaining variants")
-    if cfg.solver.solver == "eigcg":
-        _not_ported("solver.solver: eigcg", "11, loops and deflation")
     if g.heatbath_n_cfg > 1:
         _not_ported("gauge.heatbath_n_cfg > 1 (heatbath.generate_ensemble)",
                     "12, remaining variants")
@@ -247,12 +245,16 @@ class Solver:
         x_full = solve(b_full)                         # complex128 [T, Z, Y, X, 4, 3]
 
     With mg.enabled the MG branch (MGSolver; the batch in chunks of
-    solver.rhs_batch columns in lockstep), else the direct even-odd
+    solver.rhs_batch columns in lockstep); else with solver.solver eigcg
+    one solve.EigCGSolver per flavor, whose deflation space grows along
+    the columns of a batch, solved one after the other
+    (tpuqcd/cli/common.py:479-539); else the direct even-odd
     branch: solve_tm and solve_tm_batch, the clover fields built once,
     and the batch gate of solver.rhs_batch_gate_iters.  ``records`` keeps
     one entry per solver call: flavor, first_column (its index in the
     batch handed to packed_src_batch), columns, the certified relres and
-    the count of every column, whether the gate re-chunked, and, with
+    the count of every column, whether the gate re-chunked, with eigCG the
+    size of the deflation space after the solve ("space"), and, with
     ``keep_first``, the float64 solution of its first column as
     ``x_first`` (for an independent residual).  ``audit``, when set, is
     called as audit(b_pks, x, flavor) after every solver call with its
@@ -268,6 +270,14 @@ class Solver:
         self.rhs_batch = max(1, int(cfg.solver.rhs_batch))
         self.records: list[dict] = []
         self.mg = MGSolver(cfg, lat, u_pk) if cfg.mg.enabled else None
+        self.eigcg = None
+        if self.mg is None and cfg.solver.solver == "eigcg":
+            if cfg.action.csw != 0.0:
+                raise NotImplementedError(
+                    "solver: eigcg runs on the plain twisted-mass operator only; with "
+                    "action.csw != 0 use mg.enabled or solver: cg/bicgstab (which honor the "
+                    "clover term)")
+            self.eigcg = {}
         self.clover = None
         if self.mg is None and cfg.action.csw != 0.0:
             from ..solve import make_clover_fields
@@ -298,18 +308,36 @@ class Solver:
             rec["x_first"] = res.x if one else res.x[0]
         self.records.append(rec)
 
-    def packed_src(self, b_pk: torch.Tensor, flavor: int = +1, probe: bool = False):
+    def _eigcg_solver(self, flavor: int):
+        """The flavor's EigCGSolver, made at its first solve."""
+        if flavor not in self.eigcg:
+            from ..solve import EigCGSolver
+            a = self.cfg.action
+            self.eigcg[flavor] = EigCGSolver(
+                self.u_pk, self.lat, kappa=a.kappa, mu=a.mu, flavor=flavor,
+                t_boundary=-1 if self.cfg.gauge.antiperiodic_t else 1)
+        return self.eigcg[flavor]
+
+    def packed_src(self, b_pk: torch.Tensor, flavor: int = +1, probe: bool = False,
+                   first_column: int = 0):
         """One packed source -> the packed float32 solution (probe: it is
-        the batch gate's first column)."""
-        b_pk = self.put(b_pk)
+        the batch gate's first column; first_column: its index in a batch)."""
+        b_pk, more = self.put(b_pk), {}
         if self.mg is not None:
             res = self.mg(b_pk, flavor)
+        elif self.eigcg is not None:
+            es = self._eigcg_solver(int(flavor))
+            c = self.cfg.solver
+            res = es.solve(b_pk, tol=c.tol, inner_tol=c.inner_tol, maxiter=c.maxiter)
+            log.info("  eigcg solve: relres=%.2e iters=%d (space k=%d)", res.relres, res.iters,
+                     es.space.k)
+            more["space"] = es.space.k
         else:
             from ..solve import solve_tm
             res = solve_tm(self.u_pk, b_pk, self.lat, **self._kw(flavor))
             log.info("  solve: relres=%.2e iters=%d%s", res.relres, res.iters,
                      " (batch-gate probe)" if probe else "")
-        self._record(flavor, res, probe=probe)
+        self._record(flavor, res, first_column, probe=probe, **more)
         if self.audit is not None:
             self.audit(b_pk[None], res.x[None], flavor)
         return res.x.to(torch.float32)
@@ -332,8 +360,13 @@ class Solver:
         in batches of solver.rhs_batch columns.  On the direct branch the
         first column is solved alone, and if it took more than
         solver.rhs_batch_gate_iters matvecs the others run in batches of
-        solver.rhs_batch_gate_chunk (tpuqcd/cli/common.py:728-774)."""
+        solver.rhs_batch_gate_chunk (tpuqcd/cli/common.py:728-774).  eigCG
+        solves the columns one after the other, each deflated by what the
+        ones before it harvested."""
         b_pks = self.put(b_pks)
+        if self.eigcg is not None:
+            return torch.stack([self.packed_src(b, flavor, first_column=i)
+                                for i, b in enumerate(b_pks)])
         n, batch_n, lead = b_pks.shape[0], self.rhs_batch, None
         gate = int(self.cfg.solver.rhs_batch_gate_iters)
         gate_chunk = int(self.cfg.solver.rhs_batch_gate_chunk)

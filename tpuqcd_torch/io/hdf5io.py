@@ -1,9 +1,10 @@
-"""HDF5 output of the correlators.
+"""HDF5 output of the correlators and loops.
 
-Counterpart of ``tpuqcd/io/hdf5io.py`` (``write_twop``, ``write_threep``
-and ``read_dataset``; the loop writer comes with its program).  Results are host numpy arrays written with h5py, one dataset
-per momentum, per source position, so a killed run loses at most one
-source.  h5py is imported inside the call.
+Counterpart of ``tpuqcd/io/hdf5io.py`` (``write_twop``, ``write_threep``,
+``write_loops`` and ``read_dataset``).  Results are host numpy arrays
+written with h5py: correlators one dataset per momentum, per source
+position, so a killed run loses at most one source; loops one dataset per
+insertion.  h5py is imported inside the call.
 """
 from __future__ import annotations
 
@@ -19,10 +20,9 @@ def _h5py():
     return h5py
 
 
-def _group(f, group: str, src_pos, attrs: dict | None):
+def _group(f, group: str, attrs: dict):
     g = f.require_group(group)
-    g.attrs["src_pos"] = np.asarray(src_pos)
-    for k, v in (attrs or {}).items():
+    for k, v in attrs.items():
         g.attrs[k] = v
     return g
 
@@ -42,7 +42,8 @@ def write_twop(path: str, group: str, corr: np.ndarray, momenta: np.ndarray, src
     """corr [n_mom, T] complex; one dataset ``mom_px_py_pz`` per momentum
     under ``group``, with src_pos and meta as the group's attributes."""
     with _h5py().File(path, mode) as f:
-        _write_momenta(_group(f, group, src_pos, meta), corr, momenta)
+        _write_momenta(_group(f, group, {"src_pos": np.asarray(src_pos), **(meta or {})}),
+                       corr, momenta)
 
 
 def write_threep(path: str, group: str, corr: np.ndarray, momenta: np.ndarray,
@@ -52,9 +53,22 @@ def write_threep(path: str, group: str, corr: np.ndarray, momenta: np.ndarray,
     insertion and in it one dataset ``mom_px_py_pz`` per momentum, with
     src_pos, t_sink and meta as the group's attributes."""
     with _h5py().File(path, mode) as f:
-        g = _group(f, group, src_pos, {"t_sink": t_sink, **(meta or {})})
+        g = _group(f, group, {"src_pos": np.asarray(src_pos), "t_sink": t_sink, **(meta or {})})
         for j, ins in enumerate(insertions):
             _write_momenta(g.require_group(ins), corr[j], momenta)
+
+
+def write_loops(path: str, group: str, loops: np.ndarray, insertions: list[str],
+                meta: dict | None = None, mode: str = "a") -> None:
+    """loops [n_insertion, n_mom, T] (or [n_insertion, T]) complex; under
+    ``group`` one dataset per insertion, replacing one already there, with
+    meta as the group's attributes."""
+    with _h5py().File(path, mode) as f:
+        g = _group(f, group, meta or {})
+        for j, ins in enumerate(insertions):
+            if ins in g:
+                del g[ins]
+            g.create_dataset(ins, data=np.asarray(loops[j]))
 
 
 def read_dataset(path: str, name: str) -> np.ndarray:

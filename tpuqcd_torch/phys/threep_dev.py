@@ -199,13 +199,14 @@ def _deriv(u_flat, f_flat, tables, nu: int, p: int, sl, conj: bool) -> torch.Ten
 def cov_shift_pk(u_pk: torch.Tensor, f_pk: torch.Tensor, nu: int, sign: int, lat: Lattice,
                  conj_links: bool = False) -> torch.Tensor:
     """U_nu(x) f(x+nu) (sign +1) or U_nu(x-nu)^dag f(x-nu) (sign -1) on the
-    sink colour of a packed propagator.  u_pk: the packed gauge [4, 2(par),
-    3, 3, 2(ri), T, Z, S] (the run's, boundary phase in); ``conj_links``
-    uses conj(U) (the derivative of a backward propagator)."""
+    sink colour of a packed propagator [2(ri), 2(par), 4, 3, q, b, T, Z, S]
+    (any source axes q, b: 1, 1 for a spinor).  u_pk: the packed gauge [4,
+    2(par), 3, 3, 2(ri), T, Z, S] (the run's, boundary phase in);
+    ``conj_links`` uses conj(U) (the derivative of a backward propagator)."""
     tables = neighbour_tables(lat, f_pk.device)
     u_flat, f_flat = u_pk.flatten(-3), f_pk.flatten(-3)
     c = _over_sites(lambda p, sl: _shift(u_flat, f_flat, tables, nu, sign, p, sl, conj_links),
-                    (4, 3, 4, 3), lat.site_shape, f_pk.device, _cdtype(f_pk))
+                    tuple(f_pk.shape[2:-3]), lat.site_shape, f_pk.device, _cdtype(f_pk))
     return _packed(c, lat.site_shape).to(f_pk.dtype)
 
 
@@ -216,7 +217,7 @@ def cov_deriv_sym_pk(u_pk: torch.Tensor, f_pk: torch.Tensor, nu: int, lat: Latti
     tables = neighbour_tables(lat, f_pk.device)
     u_flat, f_flat = u_pk.flatten(-3), f_pk.flatten(-3)
     c = _over_sites(lambda p, sl: _deriv(u_flat, f_flat, tables, nu, p, sl, conj_links),
-                    (4, 3, 4, 3), lat.site_shape, f_pk.device, _cdtype(f_pk))
+                    tuple(f_pk.shape[2:-3]), lat.site_shape, f_pk.device, _cdtype(f_pk))
     return _packed(c, lat.site_shape).to(f_pk.dtype)
 
 

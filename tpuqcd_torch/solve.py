@@ -1,7 +1,7 @@
 """Certified twisted-mass and twisted-clover solves: sloppy Krylov
 iteration inside an f64 defect-correction loop.
 
-Counterpart of ``tpuqcd/solve.py:30-251, :445``.  The iteration operator
+Counterpart of ``tpuqcd/solve.py:30-251, :292-367, :445``.  The iteration operator
 runs in the sloppy dtype on a reconstruct-12 gauge copy; true residuals,
 the even-odd preparation, the reconstruction and the final full-system
 residual use the float64 operator on the full 18-real gauge.  On a CUDA
@@ -24,6 +24,9 @@ solve_ndeg_tm_sharded runs it on the local shards with every reduction
 summed over the ranks; the same sharded operator certifies in float64
 (tpuqcd needs an XLA twin there, its kernel being float32 only).  The
 sharded twisted-mass solve comes with make_solver's mesh branch.
+
+EigCGSolver keeps tpuqcd's incremental eigCG for a sequence of sources:
+one deflation space per instance, grown by every solve.
 """
 from __future__ import annotations
 
@@ -301,6 +304,67 @@ def full_system_relres(u_pk: torch.Tensor, b_pk: torch.Tensor, x_pk: torch.Tenso
         mx = pc.apply_full(u64, x_pk.to(torch.float64))
     r = b64 - mx
     return (norm2(r).item() / max(norm2(b64).item(), 1e-300)) ** 0.5
+
+
+#: EigCGSolver's sizes (tpuqcd's defaults, which no caller changes): Ritz
+#: pairs harvested a solve, the window, the largest deflation space, and
+#: the defect-correction passes a solve
+EIGCG_NEV, EIGCG_M, EIGCG_MAX_SPACE, EIGCG_MAX_REFINE = 8, 24, 96, 10
+
+
+class EigCGSolver:
+    """Incremental eigCG for a sequence of right-hand sides
+    (tpuqcd/solve.py:292-367): each solve runs deflated CG on the even-odd
+    normal operator Mhat^dag Mhat in float32 (solvers/eigcg.py) inside a
+    float64 defect correction that certifies the true residual, harvests
+    low eigenpairs of Mhat^dag Mhat, and adds them to a deflation space that
+    cuts the iterations of every later solve.
+
+    One instance per gauge and flavor: the space belongs to that operator.
+    The sloppy operator reads a reconstruct-12 float32 copy of the gauge
+    (tpuqcd's reads the 18 reals), so ``t_boundary`` must be the links'
+    phase; prepare, the residuals and the reconstruction take the float64
+    operator on the 18 reals."""
+
+    def __init__(self, u_pk: torch.Tensor, lat: Lattice, *, kappa: float, mu: float,
+                 flavor: int = +1, t_boundary: int = -1):
+        from .solvers.eigcg import EigCGSpace
+        self.lat = lat
+        self.pc = PackedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor,
+                                     t_boundary=t_boundary)
+        self.u32 = u_pk[:, :, :2].to(torch.float32).contiguous()
+        self.u_hp = u_pk.to(torch.float64).contiguous()
+        self.space = EigCGSpace.empty()
+
+    def _apply_a(self, v: torch.Tensor) -> torch.Tensor:
+        return self.pc.normal(self.u32, v)
+
+    def solve(self, b_pk: torch.Tensor, *, tol: float = 1e-10, inner_tol: float = 1e-5,
+              maxiter: int = 2000) -> SolveResult:
+        """b_pk [2(par), 2(ri), 4, 3, T, Z, S] -> x float64 in the same
+        layout, relres the certified |bhat - Mhat x_e| / |bhat|, iters the
+        eigCG iterations over all passes."""
+        from .solvers.eigcg import eigcg
+        pc, u_hp = self.pc, self.u_hp
+        b_hp = b_pk.to(torch.float64)
+        bhat = pc.prepare(u_hp, b_hp)
+        bsq = max(norm2(bhat).item(), 1e-300)
+        x = torch.zeros_like(bhat)
+        total, nref = 0, 0
+        while True:
+            r = bhat - pc.apply(u_hp, x)
+            rel = (norm2(r).item() / bsq) ** 0.5
+            if rel <= tol or nref == EIGCG_MAX_REFINE:
+                break
+            rhs32 = pc.apply_dagger(self.u32, r.to(torch.float32))
+            res = eigcg(self._apply_a, rhs32, nev=EIGCG_NEV, m=EIGCG_M, tol=inner_tol,
+                        maxiter=maxiter, space=self.space)
+            self.space.absorb(self._apply_a, res.ritz, max_k=EIGCG_MAX_SPACE)
+            total += res.iters
+            nref += 1
+            x += res.x.to(torch.float64)
+        return SolveResult(x=pc.reconstruct(u_hp, x, b_hp), relres=rel, iters=total,
+                           refinements=nref)
 
 
 def solve_tm_mg(mg, b_pk: torch.Tensor, *, tol: float = 1e-10,

@@ -1,4 +1,5 @@
-"""MG hierarchy dumps, in the npz format of ``tpuqcd.utils.checkpoint``.
+"""MG hierarchy dumps and deflation eigenpairs, in the npz formats of
+``tpuqcd.utils.checkpoint``.
 
 ``save_device_mg`` writes, and ``load_device_mg`` reads, the arrays of
 tpuqcd's ``save_device_mg`` (utils/checkpoint.py:70, :87) under the same
@@ -7,6 +8,10 @@ keys and layouts: per transfer the raw null vectors ``t{i}_v``, Linv
 ``c{i}_links`` [2, 9, N, N, Vc], ``c{i}_dims`` and ``c{i}_n``.  A
 hierarchy dumped by either package loads into the other; a reload skips
 the null-vector solves, the block orthogonalization and the probing.
+
+``save_eigenpairs`` and ``load_eigenpairs`` (tpuqcd/utils/checkpoint.py:
+128-157) keep a deflation basis under the keys ``evals``, ``evecs`` and
+``layout``; files of either package load in the other.
 
 tpuqcd writes bfloat16 coarse links (coarse_dtype "bfloat16") with
 ml_dtypes' bfloat16, which ``np.load`` returns as a 2-byte void dtype;
@@ -76,3 +81,39 @@ def load_device_mg(path: str, fine_level, params):
         transfers.append(tr)
         coarse.append(level)
     return DeviceMG.from_parts(fine_level, params, transfers, coarse)
+
+
+def save_eigenpairs(path: str, evals, evecs, layout: str = "") -> None:
+    """evals [n] and evecs (a stack or a list of n fields) into ``path``
+    (numpy adds .npz when the name lacks it).  layout: "packed" (the
+    device basis, MG layout [2(ri), 2(par), 4, 3, T, Z, S]) or "full"
+    (tpuqcd's host basis), recorded so that a reload on the other path
+    fails instead of feeding the wrong layout on.  Uncompressed (tpuqcd
+    compresses; np.load reads both): float32 eigenvectors hardly compress,
+    and zlib takes tens of seconds on a 32^3x64 basis."""
+    np.savez(path, evals=np.asarray(evals),
+                        evecs=np.stack([torch.as_tensor(v).cpu().numpy() for v in evecs]),
+                        layout=np.asarray(layout))
+
+
+def load_eigenpairs(path: str, expect_layout: str | None = None,
+                    n_expect: int | None = None):
+    """(evals, [evec tensors on the CPU]) from a save_eigenpairs file; with
+    ``n_expect`` the first n_expect pairs.  A file of another layout than
+    ``expect_layout``, or with fewer than n_expect pairs, raises."""
+    z = np.load(path)
+    if expect_layout and "layout" in z:
+        got = str(z["layout"])
+        if got and got != expect_layout:
+            raise ValueError(f"{path} holds {got!r}-layout eigenvectors; this run needs "
+                             f"{expect_layout!r} (device and host deflation bases are not "
+                             "interchangeable: regenerate on this path or drop eig_infile)")
+    evecs = [torch.from_numpy(np.ascontiguousarray(v)) for v in z["evecs"]]
+    evals = z["evals"]
+    if n_expect is not None:
+        if len(evecs) < n_expect:
+            raise ValueError(f"{path} holds {len(evecs)} eigenpairs but the config asks "
+                             f"n_deflate={n_expect}; regenerate with enough modes or lower "
+                             "n_deflate")
+        return evals[:n_expect], evecs[:n_expect]
+    return evals, evecs

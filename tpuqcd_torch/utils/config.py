@@ -5,9 +5,8 @@ Counterpart of ``tpuqcd/utils/config.py`` for the parameter groups the
 port runs: gauge (random or heatbath), action (with the non-degenerate
 doublet's mubar and epsbar), solver (with the multi-RHS batch keys), mg
 (every key of tpuqcd's MGParamsCfg, with the named presets), physics
-(every key of tpuqcd's PhysicsParams; the two-point run reads the
-sources, momenta, projectors, channels, smearing and output), mesh, and
-the switches of the parts not ported yet (ensembles, mass sweeps), which
+(every key of tpuqcd's PhysicsParams), mesh, and the switches of the
+parts not ported yet (ensembles, mass sweeps), which
 ``cli/common.check_in_slice`` refuses.  Keys of unported options are
 ignored, so every existing YAML loads.
 """
@@ -118,10 +117,10 @@ MG_PRESETS = {
 
 @dataclass(frozen=True)
 class PhysicsParams:
-    """The physics: group (tpuqcd/utils/config.py:167-206).  The two-point
-    run reads source_positions, momenta (or mom_max_sq), projectors,
-    meson_channels, the smearing keys and output; the others belong to
-    programs not ported yet and are parsed so that every YAML loads."""
+    """The physics: group (tpuqcd/utils/config.py:167-206).  The two- and
+    three-point runs read the sources, momenta (or mom_max_sq), projectors,
+    baryons, channels, sinks, smearing keys and output; the loop run the
+    noise, dilution, TSM and deflation keys and output."""
     source_positions: tuple = ((0, 0, 0, 0),)      # (t, z, y, x)
     t_sinks: tuple[int, ...] = ()
     projectors: tuple[str, ...] = ("P+",)
@@ -265,6 +264,8 @@ def _validate_physics(ph: PhysicsParams, dims) -> None:
     if ph.tsm_cheap < 0 or ph.n_deflate < 0 or ph.n_noise <= 0:
         raise ConfigError(f"physics noise counts must be sane: n_noise {ph.n_noise} > 0, "
                           f"tsm_cheap {ph.tsm_cheap} >= 0, n_deflate {ph.n_deflate} >= 0")
+    if not 1 <= ph.dilute_t <= lt:
+        raise ConfigError(f"physics.dilute_t must be in 1..Lt = {lt}, got {ph.dilute_t}")
 
 
 def _validate_mesh(mesh: MeshParams, dims, comm_policy: str) -> None:
