@@ -32,7 +32,7 @@ Phases, each of which exits non-zero on failure:
    version and, stitched, against the unsharded kernel; then the batch
    axis (N = 1, 3, 5 and 12 right-hand sides in one launch at 8^3x16, 5
    a width the batched kernel's column warps do not divide, and
-   after 4h, 4i, 4j, 4k and 4l at 32^3x64 with exactly the numbers of columns their
+   after 4h-4n at 32^3x64 with exactly the numbers of columns their
    launches had: equal bit for bit to N single launches, within the
    limits of the plain version; every epilogue with clover, both
    parities, dagger, each storage type, and into the parity views of a
@@ -49,10 +49,17 @@ Phases, each of which exits non-zero on failure:
    version:
    a. tpuqcd_torch.cli.run_invert at 32^3x64 (random gauge seed 1,
       kappa 0.115, mu 0.08, CG, tol 1e-10);
-   b. run_invert's multigrid path at 32^3x64: a beta = 6.0 heatbath gauge
-      (160 compound sweeps), kappa 0.157, mu 0.0009, mg.preset
-      near_critical, inner_tol 1e-7, tol 1e-10; it prints the plaquette,
-      the setup seconds by stage, the inner iterations and refinements;
+   b. run_invert's multigrid path at 32^3x64 on the gauge of 4b and every
+      later cell: a beta = 6.0 heatbath chain through
+      cli/common._heatbath_chain_members (seed 0, 160 compound sweeps to
+      member c0000, 20 more to c0001), both written as 64-bit ILDG files
+      into a temporary directory removed at exit, and c0000 read back
+      through gauge.config_file with its plaquette pinned (its links equal
+      to the chain's bit for bit, its checksum verified, both plaquettes
+      within 0.002 of 0.5937 and apart; the sweeps', the writes' and the
+      read's seconds printed); kappa 0.157, mu 0.0009, mg.preset
+      near_critical, inner_tol 1e-7, tol 1e-10; it prints the setup
+      seconds by stage, the inner iterations and refinements;
    c. run_invert's direct twisted-clover path at 32^3x64 with the action
       and solver of BASELINE config 2 (random gauge seed 1, kappa 0.115,
       mu 0.06, csw 1.2, BiCGStab on bfloat16 storage, inner_tol 1e-4,
@@ -71,8 +78,9 @@ Phases, each of which exits non-zero on failure:
    g. with more than one card only: torchrun of run_invert's doublet path
       on a mesh nt = 2 or 4 over NCCL, its x held against 4e's (with one
       card it says so and is no pass);
-   h. tpuqcd_torch.cli.run_twop.measure at 32^3x64 on 4b's heatbath gauge,
-      direct branch: kappa 0.150, mu 0.005, CG, float32 sloppy, rhs_batch
+   h. tpuqcd_torch.cli.run_twop.measure at 32^3x64 on 4b's gauge, as the
+      first member of 4m (the chain's c0000, read from its file), direct
+      branch: kappa 0.150, mu 0.005, CG, float32 sloppy, rhs_batch
       12, tol 1e-10, the physics block of examples/twop_mg_24cube.yaml (APE
       0.5 x 5, Gauss 4.0 x 20, source at the origin, momenta (0,0,0) and
       (1,0,0), P+, pion): all 24 columns certified by the solver, one
@@ -84,6 +92,22 @@ Phases, each of which exits non-zero on failure:
    i. four point-source columns through solve_tm_mg_batch on 4b's
       hierarchy (lockstep GCR), each certified, one held to the plain
       float64 operator, beside the seconds of the same four one by one;
+   m. run_twop over the ensemble gauge.config_files = the chain's two
+      files, as its main loops it (cli/common.ensemble_members: the second
+      file read and checksummed on a background thread while the first
+      member runs; setup_gauge, then run_twop.measure with 4h's physics):
+      every column of both members certified by the solver and by the
+      plain float64 operator, the members' correlators apart, the
+      per-member output names '<root>.<file stem><ext>'; the host wait at
+      the second member's take beside a synchronous read of its file
+      after the run, the read, checksum and decode apart;
+   n. setup_gauge on c0000 with gauge.fix landau at tpuqcd's defaults (200
+      sweeps, tol 1e-9) on the card: the sweeps, the seconds, the
+      functional before, after the first and after the last sweep (held to
+      have risen), the plaquette unchanged to 1e-5; and a gauge-invariant
+      witness, per timeslice the sum of |x|^2 over the three colour columns
+      of source spin 0 from batched CG on the fixed and on the unfixed
+      gauge, the two within 1e-5 of the largest value;
    j. tpuqcd_torch.cli.run_threeptwop.measure at 32^3x64 on 4b's gauge
       with 4h's action, solver and smearing, the projectors (P+, P5z) and
       baryons (proton, neutron) of examples/threep.yaml, t_sink 12, sink
@@ -123,11 +147,13 @@ Phases, each of which exits non-zero on failure:
    on the one-rank mesh and at the (2, 2) shard size beside the plain hop
    on the same volume, beside the plain version, with GFLOP/s, effective
    GB/s and the bound (compulsory bytes at 3.35 TB/s); the batched launch
-   at N = 1, 2, 4, 12 and at the numbers of columns 4h's, 4i's, 4j's, 4k's
-   and 4l's launches had, each beside N single launches of the same columns in the same run
+   at N = 1, 2, 4, 12 and at the numbers of columns 4h's-4n's launches
+   had, each beside N single launches of the same columns in the same run
    and their ratio, and twist_inv at 4h's width; reconstruct-8 beside
    reconstruct-12 and 18-real; compute="bf16" beside float32 arithmetic;
-   the lockstep CG step at the same N.
+   the lockstep CG step at the same N; the heatbath chain's sweeps, the
+   ILDG writes and reads (encode, checksum, write; read, checksum,
+   decode), the read-ahead's host wait, and the gauge fix.
 
 The line before the last is the JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -136,11 +162,13 @@ no result.  ``--invert-rank`` runs one rank of phase 4g (invert_rank).
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -179,6 +207,11 @@ HALO_STORAGE = STORAGE[:1] + (("f32_18", torch.float32, 3, 1e-5),) + STORAGE[1:]
 X_AGREE = 1e-8
 #: cell 4h: a light quark on the beta = 6.0 heatbath gauge, away from kappa_c
 TWOP_KAPPA, TWOP_MU = 0.150, 0.005
+#: cells 4b and 4m: the heatbath chain's compound sweeps from member c0000
+#: to c0001 (tpuqcd's heatbath_skip default)
+CHAIN_SKIP = 20
+#: cell 4n: the witness' columns (the three colours of source spin 0)
+WITNESS_COLUMNS = 3
 #: cell 4j: the sink timeslice, about 1.1 fm from the source at a = 0.093 fm
 THREEP_T_SINK = 12
 #: cell 4i: the columns of the lockstep MG solve (12 do not fit the card)
@@ -1009,12 +1042,14 @@ def mg_path(dev, gauge, clover: bool = False):
     return res, counts
 
 
-def twop_config(output: str, **physics):
-    """4h's configuration; ``physics`` keys replace its physics block's (4j)."""
+def twop_config(output: str, gauge: dict | None = None, **physics):
+    """4h's configuration; ``gauge`` keys replace its gauge block's (the
+    4b heatbath; 4m and 4n), ``physics`` keys its physics block's (4j)."""
     from tpuqcd_torch.utils.config import config_from_dict
     return config_from_dict({
-        "gauge": {"dims": list(LARGE), "heatbath_beta": MG_BETA,
-                  "heatbath_sweeps": MG_SWEEPS, "random_seed": 0},
+        "gauge": {"dims": list(LARGE), **(gauge or {"heatbath_beta": MG_BETA,
+                                                    "heatbath_sweeps": MG_SWEEPS,
+                                                    "random_seed": 0})},
         "action": {"kappa": TWOP_KAPPA, "mu": TWOP_MU},
         "solver": {"solver": "cg", "sloppy_dtype": "float32", "rhs_batch": 12,
                    "tol": RELRES_MAX},
@@ -1024,93 +1059,314 @@ def twop_config(output: str, **physics):
                     "output": output, **physics}})
 
 
-def twop_path(dev, gauge, have_h5py: bool):
-    """4h: run_twop.measure at 32^3x64 on the heatbath gauge, direct branch;
-    returns (result, counts)."""
+def io_line(what: str, st: dict) -> str:
+    return what + ": " + ", ".join(f"{k} {st[k]:.3f} s" for k in
+                                   ("take", "read", "checksum", "decode", "encode", "write")
+                                   if k in st)
+
+
+def chain_gauge(dev, ens_dir: str):
+    """4b's gauge: cli/common._heatbath_chain_members at beta 6.0 (MG_SWEEPS
+    to thermalize, then CHAIN_SKIP sweeps to the second member, seed 0),
+    both members written as ILDG files into ``ens_dir``; then member c0000
+    read back through gauge.config_file with its plaquette pinned, as every
+    later cell uses it.  Checks: the read-back links equal the chain's in
+    memory bit for bit, the checksum verified, both plaquettes within
+    PLAQ_TOL of PLAQ_BETA6 and apart.  Returns (Gauge, {"files", "plaquettes",
+    "sweeps", "writes", "read"})."""
+    from tpuqcd_torch.cli.common import _heatbath_chain_members, setup_gauge
+    from tpuqcd_torch.fields import apply_boundary_phase
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.utils.packed import pack_gauge
+    lat = Lattice(LARGE)
+    cfg = twop_config(os.path.join(ens_dir, "twop.h5"), gauge={
+        "heatbath_beta": MG_BETA, "heatbath_sweeps": MG_SWEEPS, "random_seed": 0,
+        "heatbath_n_cfg": 2, "heatbath_skip": CHAIN_SKIP, "heatbath_dir": ens_dir})
+    keep = []
+    members = _heatbath_chain_members(cfg, dev, keep)
+    for (ctag, g), k in zip(members, keep):
+        print(f"  {ctag}: {MG_SWEEPS if ctag == 'c0000' else CHAIN_SKIP} compound sweeps "
+              f"{k['sweeps_seconds']:.3f} s, plaquette {k['plaquette']:.6f} (|p - {PLAQ_BETA6}| "
+              f"= {abs(k['plaquette'] - PLAQ_BETA6):.2e}, limit {PLAQ_TOL}); "
+              + io_line(f"written to {os.path.basename(g.config_file)}", k["write"]), flush=True)
+        if abs(k["plaquette"] - PLAQ_BETA6) > PLAQ_TOL:
+            fail(f"{ctag}: plaquette {k['plaquette']:.6f} is not within {PLAQ_TOL} of "
+                 f"{PLAQ_BETA6}")
+    if keep[0]["plaquette"] == keep[1]["plaquette"]:
+        fail("the chain's two members have the same plaquette")
+    detail = {}
+    gauge = setup_gauge(dataclasses.replace(cfg, gauge=members[0][1]), dev, detail)
+    want = pack_gauge(apply_boundary_phase(keep[0]["links"], lat, "device", True),
+                      torch.float32)
+    if not torch.equal(gauge.u_pk, want):
+        fail("c0000 read back from its ILDG file differs from the chain's links")
+    if detail["scidac_checksum"] is None:
+        fail("c0000 was read without a verified scidac checksum")
+    print(f"  c0000 read back through gauge.config_file: the links equal the chain's bit for "
+          f"bit, scidac checksum {detail['scidac_checksum'][0]:08x} "
+          f"{detail['scidac_checksum'][1]:08x} verified, plaquette pinned; "
+          + io_line("read", detail) + "; the same gauge serves 4b-4n", flush=True)
+    return gauge, {"files": [g.config_file for _, g in members],
+                   "plaquettes": [k["plaquette"] for k in keep],
+                   "sweeps": [k["sweeps_seconds"] for k in keep],
+                   "writes": [k["write"] for k in keep], "read": detail}
+
+
+def check_twop(res, counts, cfg, have_h5py: bool) -> None:
+    """4h's checks of a two-point result (member c0000 of 4m): the launches,
+    every column certified by the solver and one per solver call by the plain
+    operator, the correlators finite, the pion real, positive and the
+    timeslice sum of |S_u|^2, the baryon densities the unfactored Wick sum;
+    where h5py imports, the file written and read back."""
     from tpuqcd_torch.cli import run_twop
     from tpuqcd_torch.gammas import PROJECTORS
     from tpuqcd_torch.lattice import Lattice
-    from tpuqcd_torch.ops import dslash_cuda
     from tpuqcd_torch.phys.contract_dev import proton_2pt_site_dev
     lat = Lattice(LARGE)
+    print(f"  launches during the run: {counts}")
+    need_launches(counts, ("float32:batch", "float64:batch", "float32", "float64"))
+    # every column certified by the solver, one per call by the plain operator
+    tag = run_twop.source_tag((0, 0, 0, 0))
+    u64, b = res.u_pk.double(), res.fields[tag]["b"]
+    n_cols = 0
+    for rec in res.solves:
+        n_cols += rec["columns"]
+        worst = max(rec["relres"])
+        rel = plain_full_relres(u64, b[rec["first_column"]].double(), rec["x_first"], lat,
+                                TWOP_KAPPA, TWOP_MU * rec["flavor"])
+        gate = (f", batch gate {'re-chunked' if rec['gate_rechunked'] else 'kept the batch'}"
+                if "gate_rechunked" in rec else "")
+        print(f"  flavor {rec['flavor']:+d} columns {rec['first_column']}-"
+              f"{rec['first_column'] + rec['columns'] - 1}: certified relres <= {worst:.3e}, "
+              f"matvecs {min(rec['iters'])}-{max(rec['iters'])}; column "
+              f"{rec['first_column']} plain-operator relres {rel:.3e}{gate}")
+        if not (worst <= RELRES_MAX and rel <= RELRES_MAX):
+            fail(f"a two-point column is not certified: solver {worst:.3e}, plain {rel:.3e}")
+    if n_cols != 24:
+        fail(f"{n_cols} columns solved, not 24")
+    # the correlators
+    T = LARGE[3]
+    for group, corr in res.correlators.items():
+        ok = corr.shape == (2, T) and bool(torch.isfinite(torch.from_numpy(corr)).all())
+        if not ok:
+            fail(f"{group}: shape {corr.shape} or non-finite values")
+    pion = res.correlators[f"twop/pion/{tag}"][0]
+    print(f"  pion p=0: C(0) {pion[0].real:.6e}, C(T/2) {pion[T // 2].real:.6e}, min Re "
+          f"{pion.real.min():.3e}, max |Im| / |Re| {abs(pion.imag / pion.real).max():.2e}")
+    if not (pion.real.min() > 0 and abs(pion.imag / pion.real).max() < 1e-6):
+        fail("the pion correlator at p = 0 is not real and positive on every timeslice")
+    f = res.fields[tag]
+    # the pion by another formula: -Tr[g5 S g5 g5 S^dag g5] = sum |S|^2
+    own = f["u"].double().square().sum((0, 1, 2, 3, 4, 5, 7, 8)).cpu().numpy()
+    dev_pi = abs(pion.real - own).max() / own.max()
+    print(f"  pion p=0 against the sum of |S_u|^2 over each timeslice: max rel diff "
+          f"{dev_pi:.2e} (limit 1e-5)")
+    if not dev_pi <= 1e-5:
+        fail("the pion correlator is not the timeslice sum of |S_u|^2")
+    # proton and neutron densities at 8 sites against the unfactored Wick sum
+    proj = PROJECTORS["P+"]
+    sub = {k: f[k][..., 5:6, 3:4, 16:24].contiguous() for k in ("u", "d")}
+    for who, (a, c) in (("proton", ("u", "d")), ("neutron", ("d", "u"))):
+        got = proton_2pt_site_dev(sub[a], sub[c], proj)
+        want = plain_proton_density(sub[a], sub[c], proj)
+        dev_n = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"  {who} density at 8 sites of timeslice 5 against the unfactored Wick sum: "
+              f"max rel diff {dev_n:.2e} (limit 1e-5)")
+        if not dev_n <= 1e-5:
+            fail(f"the {who} density is not the Wick sum of its propagators")
+    prot, neut = (res.correlators[f"twop/{w}/P+/{tag}"][0] for w in ("proton", "neutron"))
+    print(f"  proton p=0 C(0) {prot[0]:.6e}, C(T/4) {prot[T // 4]:.6e}; neutron C(0) "
+          f"{neut[0]:.6e}, C(T/4) {neut[T // 4]:.6e}")
+    if have_h5py:
+        from tpuqcd_torch.io.hdf5io import read_dataset
+        run_twop.write(cfg, res)
+        for group, corr in res.correlators.items():
+            for i, mom in enumerate(res.momenta):
+                back = read_dataset(cfg.physics.output,
+                                    f"{group}/mom_{mom[0]}_{mom[1]}_{mom[2]}")
+                if not (back == corr[i]).all():
+                    fail(f"{group} read back from HDF5 differs")
+        print(f"  HDF5: {len(res.correlators)} groups written and read back")
+    else:
+        print("  HDF5: h5py does not import here, the file is not written (the writer is "
+              "held by tests/test_torch_twop.py)")
+
+
+def ensemble_path(dev, files, plaquettes, have_h5py: bool):
+    """4m: run_twop over the ensemble gauge.config_files = the chain's two
+    files, as main loops it: per member of cli/common.ensemble_members
+    (the second member's file read ahead on a thread while the first is
+    measured, started once the first's read is taken) setup_gauge, then run_twop.measure with every column audited
+    by the plain float64 operator; the first member (the chain's c0000) is
+    cell 4h (check_twop).  The launch counts are set to 0 before the loop
+    and read after the first member (4h's) and after the loop (4m's).
+    Checks: each member's plaquette read back equal to the chain's
+    (``plaquettes``) to 1e-12, every column of both members certified, the
+    members' correlators apart, the per-member output names (the files'
+    stems are the tags: '<root>.hb_b6_0000<ext>').  Returns (the first
+    member's result, 4h's counts, 4m's counts, {ctag: (seconds by stage,
+    gauge detail, {flavor: audit seconds})}, the read-ahead numbers)."""
+    from tpuqcd_torch.cli import run_twop
+    from tpuqcd_torch.cli.common import ensemble_members, setup_gauge
+    from tpuqcd_torch.io.lime import read_ildg_payload
+    from tpuqcd_torch.io.native import ildg_payload_to_device
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.ops import dslash_cuda
+    lat = Lattice(LARGE)
+    out, stats, corr = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = twop_config(os.path.join(tmp, "twop.h5"))
+        cfg = twop_config(os.path.join(tmp, "twop.h5"), gauge={"config_files": files})
+        root, ext = os.path.splitext(cfg.physics.output)
         torch.cuda.synchronize()
         dslash_cuda.reset_counts()
-        res = run_twop.measure(cfg, dev, gauge, keep_fields=True)
-        torch.cuda.synchronize()
+        for i, (ctag, c) in enumerate(ensemble_members(cfg, dev)):
+            if i == 0:
+                say("phase 4h: main path, tpuqcd_torch.cli.run_twop.measure (direct, 12-column "
+                    f"batches) at 32^3x64: ensemble member {ctag} (the chain's c0000)")
+            else:
+                say("phase 4m: the second member, the chain's c0001 (its file read ahead while "
+                    "the first ran)")
+            print(f"  === ensemble member {ctag} === output {c.physics.output}", flush=True)
+            want = f"{root}.{os.path.splitext(os.path.basename(files[i]))[0]}{ext}"
+            if c.physics.output != want:
+                fail(f"member {ctag}'s output is {c.physics.output}, not {want}")
+            detail = {}
+            gauge = setup_gauge(c, dev, detail)
+            if detail["scidac_checksum"] is None:
+                fail(f"{ctag} was read without a verified scidac checksum")
+            dplaq = abs(gauge.plaquette - plaquettes[i])
+            print(f"  {io_line(f'{ctag} gauge', detail)}; plaquette {gauge.plaquette:.8f}, the "
+                  f"chain's {plaquettes[i]:.8f} (|diff| {dplaq:.1e}, limit 1e-12)", flush=True)
+            if not dplaq <= 1e-12:
+                fail(f"member {ctag}'s plaquette read back is not the chain's")
+            audited, audit_s = [], {+1: 0.0, -1: 0.0}
+            u64 = gauge.u_pk.double()
+
+            def audit(b, x, flavor):
+                t0, plain = time.perf_counter(), dslash_cuda.counts["plain"]
+                audited.append((flavor, b.shape[0], max(
+                    plain_full_relres(u64, b[j].double(), x[j], lat, TWOP_KAPPA,
+                                      TWOP_MU * flavor) for j in range(b.shape[0]))))
+                dslash_cuda.counts["plain"] = plain
+                torch.cuda.synchronize()
+                audit_s[flavor] += time.perf_counter() - t0
+
+            res = run_twop.measure(c, dev, gauge, keep_fields=i == 0, audit=audit)
+            torch.cuda.synchronize()
+            counts = dict(dslash_cuda.counts)
+            if counts.get("plain", 0) != 0:
+                fail(f"member {ctag} called the plain version {counts['plain']} times")
+            check_columns(res, audited, 24, f"member {ctag}")
+            print(f"  {ctag} seconds by stage: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items())
+                  + f" (the solves include the plain-operator audit, u {audit_s[+1]:.3f} s, "
+                  f"d {audit_s[-1]:.3f} s)")
+            stats[ctag] = (dict(res.seconds), detail, audit_s)
+            corr[ctag] = res.correlators
+            if i == 0:
+                plain = dslash_cuda.counts["plain"]     # check_twop's residuals are no launches
+                check_twop(res, counts, c, have_h5py)
+                dslash_cuda.counts["plain"] = plain
+                out["tw"] = (dataclasses.replace(
+                    res, fields=None, u_pk=None,
+                    solves=[{k: v for k, v in r.items() if k != "x_first"} for r in res.solves]),
+                    counts)
+            elif have_h5py:
+                run_twop.write(c, res)
+            del res, gauge, u64
+            torch.cuda.empty_cache()
         counts = dict(dslash_cuda.counts)
-        print(f"  launches during the run: {counts}")
-        if counts.get("plain", 0) != 0:
-            fail(f"the two-point path called the plain version {counts['plain']} times")
-        need_launches(counts, ("float32:batch", "float64:batch", "float32", "float64"))
-        print("  seconds by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items()))
-        # every column certified by the solver, one per call by the plain operator
-        tag = run_twop.source_tag((0, 0, 0, 0))
-        u64, b = res.u_pk.double(), res.fields[tag]["b"]
-        n_cols = 0
-        for rec in res.solves:
-            n_cols += rec["columns"]
-            worst = max(rec["relres"])
-            rel = plain_full_relres(u64, b[rec["first_column"]].double(), rec["x_first"], lat,
-                                    TWOP_KAPPA, TWOP_MU * rec["flavor"])
-            gate = (f", batch gate {'re-chunked' if rec['gate_rechunked'] else 'kept the batch'}"
-                    if "gate_rechunked" in rec else "")
-            print(f"  flavor {rec['flavor']:+d} columns {rec['first_column']}-"
-                  f"{rec['first_column'] + rec['columns'] - 1}: certified relres <= {worst:.3e}, "
-                  f"matvecs {min(rec['iters'])}-{max(rec['iters'])}; column "
-                  f"{rec['first_column']} plain-operator relres {rel:.3e}{gate}")
-            if not (worst <= RELRES_MAX and rel <= RELRES_MAX):
-                fail(f"a two-point column is not certified: solver {worst:.3e}, plain {rel:.3e}")
-        if n_cols != 24:
-            fail(f"{n_cols} columns solved, not 24")
-        # the correlators
-        T = LARGE[3]
-        for group, corr in res.correlators.items():
-            ok = corr.shape == (2, T) and bool(torch.isfinite(torch.from_numpy(corr)).all())
-            if not ok:
-                fail(f"{group}: shape {corr.shape} or non-finite values")
-        pion = res.correlators[f"twop/pion/{tag}"][0]
-        print(f"  pion p=0: C(0) {pion[0].real:.6e}, C(T/2) {pion[T // 2].real:.6e}, min Re "
-              f"{pion.real.min():.3e}, max |Im| / |Re| {abs(pion.imag / pion.real).max():.2e}")
-        if not (pion.real.min() > 0 and abs(pion.imag / pion.real).max() < 1e-6):
-            fail("the pion correlator at p = 0 is not real and positive on every timeslice")
-        f = res.fields[tag]
-        # the pion by another formula: -Tr[g5 S g5 g5 S^dag g5] = sum |S|^2
-        own = f["u"].double().square().sum((0, 1, 2, 3, 4, 5, 7, 8)).cpu().numpy()
-        dev_pi = abs(pion.real - own).max() / own.max()
-        print(f"  pion p=0 against the sum of |S_u|^2 over each timeslice: max rel diff "
-              f"{dev_pi:.2e} (limit 1e-5)")
-        if not dev_pi <= 1e-5:
-            fail("the pion correlator is not the timeslice sum of |S_u|^2")
-        # proton and neutron densities at 8 sites against the unfactored Wick sum
-        proj = PROJECTORS["P+"]
-        sub = {k: f[k][..., 5:6, 3:4, 16:24].contiguous() for k in ("u", "d")}
-        for who, (a, c) in (("proton", ("u", "d")), ("neutron", ("d", "u"))):
-            got = proton_2pt_site_dev(sub[a], sub[c], proj)
-            want = plain_proton_density(sub[a], sub[c], proj)
-            dev_n = ((got - want).abs().max() / want.abs().max()).item()
-            print(f"  {who} density at 8 sites of timeslice 5 against the unfactored Wick sum: "
-                  f"max rel diff {dev_n:.2e} (limit 1e-5)")
-            if not dev_n <= 1e-5:
-                fail(f"the {who} density is not the Wick sum of its propagators")
-        prot, neut = (res.correlators[f"twop/{w}/P+/{tag}"][0] for w in ("proton", "neutron"))
-        print(f"  proton p=0 C(0) {prot[0]:.6e}, C(T/4) {prot[T // 4]:.6e}; neutron C(0) "
-              f"{neut[0]:.6e}, C(T/4) {neut[T // 4]:.6e}")
-        if have_h5py:
-            from tpuqcd_torch.io.hdf5io import read_dataset
-            run_twop.write(cfg, res)
-            for group, corr in res.correlators.items():
-                for i, mom in enumerate(res.momenta):
-                    back = read_dataset(cfg.physics.output,
-                                        f"{group}/mom_{mom[0]}_{mom[1]}_{mom[2]}")
-                    if not (back == corr[i]).all():
-                        fail(f"{group} read back from HDF5 differs")
-            print(f"  HDF5: {len(res.correlators)} groups written and read back")
-        else:
-            print("  HDF5: h5py does not import here, the file is not written (the writer is "
-                  "held by tests/test_torch_twop.py)")
-    return res, counts
+    print(f"  launches during the ensemble run (both members): {counts}")
+    need_launches(counts, ("float32:batch", "float64:batch", "float32", "float64"))
+    (t0_, c0), (t1_, c1) = corr.items()
+    diff = max(abs(c0[g] - c1[g]).max() / abs(c0[g]).max() for g in c0)
+    print(f"  the members' correlators differ: max over groups of max |{t1_} - {t0_}| / max "
+          f"|{t0_}| = {diff:.3e}")
+    if not diff > 1e-3:
+        fail("the two members' correlators do not differ")
+    # the read-ahead: the host's wait at take(c0001) beside a synchronous read now
+    t0 = time.perf_counter()
+    payload = read_ildg_payload(files[1])
+    t1 = time.perf_counter()
+    u = ildg_payload_to_device(payload.data, lat, payload.precision, dev)
+    torch.cuda.synchronize()
+    sync_read = {"read": payload.seconds["read"], "checksum": payload.seconds["checksum"],
+                 "decode": time.perf_counter() - t1, "total": t1 - t0}
+    del u, payload
+    second = stats[t1_][1]
+    wait = second["take"]
+    print(f"  take({t1_}) host wait {wait:.3f} s (its read {second['read']:.3f} s and checksum "
+          f"{second['checksum']:.3f} s ran on the read-ahead thread during {t0_}); the same "
+          f"file read synchronously after the run: read "
+          f"{sync_read['read']:.3f} s, checksum {sync_read['checksum']:.3f} s, decode on the "
+          f"card {sync_read['decode']:.3f} s")
+    return out["tw"][0], out["tw"][1], counts, stats, {"wait": wait, "sync": sync_read}
+
+
+def gauge_fix_path(dev, path: str, gauge):
+    """4n: setup_gauge on the chain's member c0000 with gauge.fix landau at
+    tpuqcd's defaults (200 sweeps, tol 1e-9), on the card.  Checks: the
+    plaquette of the fixed links equals the file's to 1e-5, the functional
+    rose; the gauge-invariant witness, per timeslice the sum of |x|^2 over
+    the three colour columns of source spin 0 at the origin from batched CG
+    on the fixed and on the unfixed gauge (``gauge``), agrees to 1e-5 of
+    its largest value.  Returns (the fix's detail, the witness' counts,
+    its seconds)."""
+    from tpuqcd_torch.cli.common import setup_gauge
+    from tpuqcd_torch.fields import apply_boundary_phase
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.ops import dslash_cuda
+    from tpuqcd_torch.ops.gauge_tools import plaquette
+    from tpuqcd_torch.solve import solve_tm_batch
+    from tpuqcd_torch.utils.packed import unpack_gauge
+    lat = Lattice(LARGE)
+    cfg = twop_config("unused.h5", gauge={"config_file": path, "fix": "landau",
+                                          "plaquette_check": gauge.plaquette})
+    detail = {}
+    fixed = setup_gauge(cfg, dev, detail)
+    hist = detail["fix_history"]
+    print(f"  landau gauge fixing on the card: {detail['fix_sweeps']} sweeps in "
+          f"{detail['fix_seconds']:.3f} s ({detail['fix_seconds'] / detail['fix_sweeps'] * 1e3:.2f}"
+          f" ms a sweep), functional {detail['fix_initial']:.8f} before, {hist[0]:.8f} after the "
+          f"first sweep, {hist[-1]:.8f} after the last (|dF| of the last sweep "
+          f"{abs(hist[-1] - hist[-2]):.2e}, tol {cfg.gauge.fix_tol:.0e})")
+    if not hist[-1] > detail["fix_initial"]:
+        fail("the gauge fix did not raise the functional")
+    u_fixed = apply_boundary_phase(unpack_gauge(fixed.u_pk), lat, "device", True)
+    plaq = plaquette(u_fixed, lat)
+    print(f"  plaquette of the fixed links {plaq:.8f}, of the file's {gauge.plaquette:.8f}: "
+          f"|diff| {abs(plaq - gauge.plaquette):.2e} (limit 1e-5)")
+    if not abs(plaq - gauge.plaquette) <= 1e-5:
+        fail("gauge fixing changed the plaquette")
+    del u_fixed
+    b = point_columns(lat, dev, 3)
+    torch.cuda.synchronize()
+    dslash_cuda.reset_counts()
+    t0 = time.perf_counter()
+    dens = {}
+    for name, g in (("fixed", fixed), ("unfixed", gauge)):
+        res = solve_tm_batch(g.u_pk, b, lat, kappa=TWOP_KAPPA, mu=TWOP_MU, tol=RELRES_MAX,
+                             maxiter=5000, t_boundary=-1)
+        if not max(res.relres) <= RELRES_MAX:
+            fail(f"a witness column on the {name} gauge is not certified: {max(res.relres):.3e}")
+        dens[name] = res.x.square().sum((0, 1, 2, 3, 4, 6, 7))
+        print(f"  batched CG on the {name} gauge, 3 colour columns: certified relres <= "
+              f"{max(res.relres):.2e}, matvecs {min(res.iters)}-{max(res.iters)}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(dslash_cuda.counts)
+    print(f"  launches of the witness' solves: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail("the witness called the plain version")
+    need_launches(counts, ("float32:batch", "float64:batch"))
+    a, c = dens["fixed"].cpu().numpy(), dens["unfixed"].cpu().numpy()
+    dev_w = abs(a - c).max() / abs(c).max()
+    print(f"  gauge-invariant witness, sum over colour columns and sink spin-colour of |x|^2 "
+          f"per timeslice: t = 0 {c[0]:.6e}, t = T/2 {c[LARGE[3] // 2]:.6e}; fixed against "
+          f"unfixed max |diff| / max {dev_w:.2e} (limit 1e-5)")
+    if not dev_w <= 1e-5:
+        fail("the propagator's gauge-invariant witness changed under the gauge fix")
+    return detail, counts, seconds
 
 
 def threep_path(dev, gauge, twop_proton, have_h5py: bool):
@@ -1861,15 +2117,13 @@ def main() -> None:
     say("phase 4a: main path, tpuqcd_torch.cli.run_invert (CG) at 32^3x64")
     res, counts = main_path(dev)
     res = slim(res)
+    say(f"phase 4b: the gauge: a heatbath chain (beta {MG_BETA}, seed 0) of two members "
+        f"written to ILDG, {MG_SWEEPS} sweeps to c0000 and {CHAIN_SKIP} more to c0001; c0000 "
+        "read back")
+    ens_dir = tempfile.mkdtemp(prefix="tpuqcd_ensemble_")
+    atexit.register(shutil.rmtree, ens_dir, True)
+    gauge, chain = chain_gauge(dev, ens_dir)
     say("phase 4b: main path, tpuqcd_torch.cli.run_invert (MG) at 32^3x64")
-    from tpuqcd_torch.cli.common import setup_gauge
-    gauge = setup_gauge(mg_config(MG_KAPPA, MG_MU), dev)
-    print(f"  heatbath beta {MG_BETA}, {MG_SWEEPS} compound sweeps: plaquette "
-          f"{gauge.plaquette:.6f} (|p - {PLAQ_BETA6}| = {abs(gauge.plaquette - PLAQ_BETA6):.2e}, "
-          f"limit {PLAQ_TOL}), {gauge.seconds:.1f} s; the same gauge serves 4b and 4d",
-          flush=True)
-    if abs(gauge.plaquette - PLAQ_BETA6) > PLAQ_TOL:
-        fail(f"plaquette {gauge.plaquette:.6f} is not within {PLAQ_TOL} of {PLAQ_BETA6}")
     mg_res, mg_counts = mg_path(dev, gauge)
     say("phase 4b: the same coarse operator by per-leg probing")
     pl_counts = per_leg_probing(mg_res)
@@ -1888,9 +2142,14 @@ def main() -> None:
     say("phase 4g: run_invert's doublet path on a mesh of cards (torchrun, NCCL)")
     multi_card_path(nd_res)
     nd_res, mgc_res, cl_res = slim(nd_res), slim(mgc_res), slim(cl_res)
-    say("phase 4h: main path, tpuqcd_torch.cli.run_twop.measure (direct, 12-column batches) "
-          "at 32^3x64")
-    tw_res, tw_counts = twop_path(dev, gauge, have_h5py)
+    say("phase 4m: main path, run_twop over the ensemble gauge.config_files = [c0000, c0001] "
+        "at 32^3x64, as its main loops it (member c0000 is cell 4h)")
+    tw_res, tw_counts, ens_counts, ens_stats, ens_io = ensemble_path(
+        dev, chain["files"], chain["plaquettes"], have_h5py)
+    say("phase 4n: Landau gauge fixing of c0000 in setup_gauge on the card, and the "
+        "gauge-invariant witness")
+    gf_detail, gf_counts, gf_seconds = gauge_fix_path(dev, chain["files"][0], gauge)
+    torch.cuda.empty_cache()
     tw_seconds = tw_res.seconds
     tw_proton = tw_res.correlators["twop/proton/P+/sx0sy0sz0st0"]
     # the numbers of columns the batched launches of 4h, 4i and 4j had
@@ -1916,9 +2175,10 @@ def main() -> None:
     tl_res, tl_counts, tl_cg_counts, tl_cg_seconds, tl_widths = eigcg_path(dev, gauge)
     tl_n, tl_ns = max(tl_widths), ", ".join(map(str, tl_widths))
     torch.cuda.empty_cache()
-    widths = sorted({*tw_widths, *tj_widths, *tk_widths, *tl_widths, MGB_COLUMNS})
+    widths = sorted({*tw_widths, *tj_widths, *tk_widths, *tl_widths, MGB_COLUMNS,
+                     WITNESS_COLUMNS})
     say("phase 3: the batch axis at 32^3x64 with the numbers of columns 4h's, 4i's, 4j's, "
-        f"4k's and 4l's launches had, N = {', '.join(map(str, widths))}")
+        f"4k's, 4l's, 4m's and 4n's launches had, N = {', '.join(map(str, widths))}")
     batch_abs = compare_batch(LARGE, dev, widths)
 
     say(f"phase 5: times {card_tag}")
@@ -1936,8 +2196,13 @@ def main() -> None:
           f"matvecs, {nd_res.refinements} refinements; on the one-rank mesh {sh_seconds:.3f} s "
           f"{card_tag}")
     t.update(new_timings(dev, card_tag, widths))
-    print("  two-point run (4h) seconds by stage: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in tw_seconds.items()) + f" {card_tag}")
+    tw_audit = next(iter(ens_stats.values()))[2]
+    print("  two-point run (4h, member c0000 of 4m) seconds by stage: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tw_seconds.items())
+          + f"; net of the plain-operator audit (u {tw_audit[+1]:.3f} s, d "
+          f"{tw_audit[-1]:.3f} s): solves_u {tw_seconds['solves_u'] - tw_audit[+1]:.3f}, "
+          f"solves_d {tw_seconds['solves_d'] - tw_audit[-1]:.3f}; gauge is the ILDG take and "
+          f"decode on the card {card_tag}")
     print("  three-point run (4j) seconds by stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in tj_seconds.items())
           + f" (the solves include the plain-operator audit, {tj_audit_s:.3f} s) {card_tag}")
@@ -1952,6 +2217,23 @@ def main() -> None:
           + f" (both with the audit) {card_tag}")
     print(f"  MG, 4 point-source columns (4i): lockstep {mgb_batch_s:.2f} s, one by one "
           f"{mgb_single_s:.2f} s {card_tag}")
+    print(f"  heatbath chain (4b): c0000 {MG_SWEEPS} compound sweeps {chain['sweeps'][0]:.3f} s, "
+          f"c0001 {CHAIN_SKIP} more {chain['sweeps'][1]:.3f} s; "
+          + "; ".join(io_line(f"write c000{i}", w) for i, w in enumerate(chain["writes"]))
+          + "; " + io_line("read c0000 (4b)", chain["read"]) + f" {card_tag}")
+    for ctag, (secs, det, audit_s) in ens_stats.items():
+        print(f"  ensemble run (4m) member {ctag}: " + io_line("gauge", det) + "; seconds by "
+              "stage: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+              + f" (the solves include the plain-operator audit, {sum(audit_s.values()):.3f} s) "
+              f"{card_tag}")
+    print(f"  read-ahead (4m): take(second member) host wait {ens_io['wait']:.3f} s; the same file "
+          f"read synchronously: read {ens_io['sync']['read']:.3f} s, checksum "
+          f"{ens_io['sync']['checksum']:.3f} s, decode {ens_io['sync']['decode']:.3f} s "
+          f"{card_tag}")
+    print(f"  gauge fixing (4n): {gf_detail['fix_sweeps']} landau sweeps "
+          f"{gf_detail['fix_seconds']:.3f} s, functional {gf_detail['fix_initial']:.8f} -> "
+          f"{gf_detail['fix_history'][-1]:.8f}; the witness' two batched solves "
+          f"{gf_seconds:.3f} s {card_tag}")
     print(f"  smoke run {time.perf_counter() - t_start:.1f} s so far", flush=True)
 
     src = "tpuqcd_torch/csrc/dslash_eo.cuh"
@@ -2017,6 +2299,26 @@ def main() -> None:
         entry(f"dslash_eo<double> 18-real batch axis (two-point certification operator, {tw_ns} "
               f"columns a launch), xpay_full N={tw_n} timed", tw_counts["float64:batch"],
               batch_abs[("f64", tw_n)], ("f64", f"xpay_full_b{tw_n}"), vmap),
+        entry(f"dslash_eo<float> reconstruct-12 batch axis (ensemble run 4m: both members' "
+              f"two-point sloppy operator, {tw_ns} columns a launch), xpay N={tw_n} timed",
+              ens_counts["float32:batch"], batch_abs[("f32", tw_n)], ("f32", f"xpay_b{tw_n}"),
+              vmap),
+        entry(f"dslash_eo<double> 18-real batch axis (ensemble run 4m: both members' "
+              f"certification, {tw_ns} columns a launch), xpay_full N={tw_n} timed",
+              ens_counts["float64:batch"], batch_abs[("f64", tw_n)],
+              ("f64", f"xpay_full_b{tw_n}"), vmap),
+        entry("dslash_eo<float> reconstruct-12 (ensemble run 4m: the batch-gate probe columns), "
+              "xpay timed", ens_counts["float32"], max_abs["f32"], ("f32", "xpay")),
+        entry("dslash_eo<double> 18-real (ensemble run 4m: the probe columns' certification), "
+              "xpay_full timed", ens_counts["float64"], max_abs["f64"], ("f64", "xpay_full")),
+        entry(f"dslash_eo<float> reconstruct-12 batch axis (gauge-fix witness 4n: batched CG, "
+              f"{WITNESS_COLUMNS} columns), xpay N={WITNESS_COLUMNS} timed",
+              gf_counts["float32:batch"], batch_abs[("f32", WITNESS_COLUMNS)],
+              ("f32", f"xpay_b{WITNESS_COLUMNS}"), vmap),
+        entry(f"dslash_eo<double> 18-real batch axis (gauge-fix witness 4n: certification, "
+              f"{WITNESS_COLUMNS} columns), xpay_full N={WITNESS_COLUMNS} timed",
+              gf_counts["float64:batch"], batch_abs[("f64", WITNESS_COLUMNS)],
+              ("f64", f"xpay_full_b{WITNESS_COLUMNS}"), vmap),
         entry(f"dslash_eo<float> reconstruct-12 batch axis (three-point sloppy operator, "
               f"forward and flavor-flipped backward solves, {tj_ns} columns a launch), xpay "
               f"N={tj_n} timed", tj_counts["float32:batch"], batch_abs[("f32", tj_n)],

@@ -61,3 +61,19 @@ def t(a, dtype=None) -> torch.Tensor:
 def n(x: torch.Tensor) -> np.ndarray:
     return x.detach().to(torch.float64).numpy() if x.dtype == torch.bfloat16 \
         else x.detach().numpy()
+
+
+def tpuqcd_setup_gauge_phase_as_configured(monkeypatch) -> None:
+    """Make tpuqcd's setup_gauge apply the boundary phase that its config
+    asks for.  It calls apply_boundary_phase(u_full, lat,
+    cfg.gauge.antiperiodic_t) (tpuqcd/cli/common.py:270), whose third
+    parameter is ``eo`` (tpuqcd/fields.py:94): with antiperiodic_t true it
+    indexes the z axis of the full layout, which drops the phase when Lz <
+    Lt, and with false it applies the phase all the same.  The port applies
+    it as configured (ROADMAP.md, Queue 3)."""
+    import tpuqcd.fields as jfields
+    real = jfields.apply_boundary_phase
+
+    def as_configured(u, lat, antiperiodic_t=True):
+        return real(u, lat, eo=False, antiperiodic_t=antiperiodic_t)
+    monkeypatch.setattr(jfields, "apply_boundary_phase", as_configured)

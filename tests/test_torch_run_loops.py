@@ -116,13 +116,15 @@ def test_eigcg_is_in_the_slice_and_refuses_clover():
     raw["action"]["csw"] = 1.0
     with pytest.raises(NotImplementedError, match="eigcg runs on the plain twisted-mass"):
         make_solver(config_from_dict(raw), LAT, u)
+    # MG takes the eigCG config; gauge fixing and ILDG files are in the slice since the
+    # gauge input came
     for key, value, item in (("mg", {"enabled": True, "block": [[2, 2, 2, 2]]}, None),
                              ("action", {"mu_list": [0.1]}, "12"),
-                             ("gauge", {"dims": list(LAT.dims), "fix": "landau"}, "12"),
-                             ("gauge", {"dims": list(LAT.dims), "config_file": "x.ildg"}, "9")):
+                             ("gauge", {"dims": list(LAT.dims), "fix": "landau"}, None),
+                             ("gauge", {"dims": list(LAT.dims), "config_file": "x.ildg"}, None)):
         bad = {**raw_config("plain", "unused.h5"), key: value}
         if item is None:
-            check_in_slice(config_from_dict(bad))       # MG takes the eigCG config
+            check_in_slice(config_from_dict(bad))
             continue
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             check_in_slice(config_from_dict(bad))

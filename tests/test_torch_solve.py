@@ -156,7 +156,9 @@ def test_out_of_slice_config_raises(section, key, value):
         raw["mesh"] = {"nt": 2}
     if key == "epsbar":  # the doublet is in the slice, also on a mesh, but not y-sharded
         raw["mesh"] = {"nt": 2, "ny": 2}
-    if value == "eigcg":  # eigCG is in the slice since the loop run; on a mesh it is not
+    if value == "eigcg" or section == "gauge":
+        # eigCG is in the slice since the loop run, the gauge input (ILDG files,
+        # ensembles, gauge fixing) since it came; on a mesh without epsbar neither is
         check_in_slice(config_from_dict(raw))
         raw["mesh"] = {"nt": 2}
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,7 +1,8 @@
-"""Shared CLI plumbing: arguments, device, scope checks, gauge setup,
+"""Shared CLI plumbing: arguments, device, scope checks, ensemble members,
+gauge setup (an ILDG file, a heatbath, random links; gauge fixing),
 the solver.
 
-Counterpart of ``tpuqcd/cli/common.py:21-77, :183-295, :298-781``.  The
+Counterpart of ``tpuqcd/cli/common.py:21-781``.  The
 device is explicit: ``--device`` defaults to ``cuda`` and raises when
 CUDA is missing; ``--device cpu`` runs the plain PyTorch versions.
 Under torchrun every rank joins the process group first (NCCL for cuda,
@@ -10,7 +11,9 @@ gloo for cpu), and ``--device cuda`` means cuda:LOCAL_RANK.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
+import os
 import sys
 import time
 from typing import NamedTuple
@@ -18,10 +21,10 @@ from typing import NamedTuple
 import torch
 
 from .. import su3
-from ..fields import apply_boundary_phase, gauge_full_to_eo
+from ..fields import apply_boundary_phase, gauge_eo_to_full, gauge_full_to_eo
 from ..lattice import Lattice
 from ..ops.gauge_tools import plaquette
-from ..ops.layout import gauge_to_device
+from ..ops.layout import gauge_from_device, gauge_to_device
 from ..parallel.dist import init_distributed
 from ..phys.propagator import full_to_packed
 from ..utils.config import ConfigError, RunConfig, load_config
@@ -71,7 +74,7 @@ def check_in_slice(cfg: RunConfig, threep: bool = False) -> None:
     if threep and not cfg.physics.t_sinks:
         raise ConfigError("physics.t_sinks is empty: the three-point run needs at least one "
                           "sink timeslice")
-    g, a, mg = cfg.gauge, cfg.action, cfg.mg
+    a, mg = cfg.action, cfg.mg
     # as in tpuqcd, a mesh of one device is no mesh
     mesh = cfg.mesh.nt * cfg.mesh.nz * cfg.mesh.ny > 1
     if mg.enabled and mesh:
@@ -92,50 +95,175 @@ def check_in_slice(cfg: RunConfig, threep: bool = False) -> None:
                 "the new hardware changes the port'); set it to float32")
     if a.mu_list:
         _not_ported("action.mu_list (the multishift mass sweep)", "12, remaining variants")
-    if g.heatbath_n_cfg > 1:
-        _not_ported("gauge.heatbath_n_cfg > 1 (heatbath.generate_ensemble)",
-                    "12, remaining variants")
-    if g.config_files or g.random_seeds:
-        _not_ported("ensemble members (gauge.config_files, random_seeds)",
-                    "9, config-4 physics end to end")
-    if g.config_file:
-        _not_ported("gauge.config_file (ILDG reading)", "9, config-4 physics end to end")
-    if g.fix:
-        _not_ported("gauge.fix (gauge fixing)", "12, remaining variants")
+
+
+def ensemble_members(cfg: RunConfig, device: torch.device):
+    """Yield (ctag, cfg_member) for each gauge configuration of an ensemble
+    run, or a single ("", cfg) in single-config mode
+    (tpuqcd/cli/common.py:80-121).
+
+    Members come from gauge.config_files (ctag: the file's stem), from
+    gauge.random_seeds ("s<seed>") or, with gauge.heatbath_beta and
+    heatbath_n_cfg > 1, from one heatbath chain generated on ``device``
+    ("c<i:04d>", _heatbath_chain_members).  Member i's physics.output gets
+    ".<ctag>" before its suffix; with files, member i+1's file is read
+    on a background thread while member i runs, started once member i's
+    own read is taken (io/prefetch.prefetch_after).  Other
+    output and input files (mg.vec_outfile / vec_infile,
+    physics.eig_outfile / eig_infile) keep one name for all members, as
+    in tpuqcd: the vectors precondition or deflate, and a member's result
+    does not depend on them."""
+    g = cfg.gauge
+    files, seeds = tuple(g.config_files), tuple(g.random_seeds)
+    hb_chain = g.heatbath_beta is not None and g.heatbath_n_cfg > 1
+    if not files and not seeds and not hb_chain:
+        yield "", cfg
+        return
+    if hb_chain:
+        members = _heatbath_chain_members(cfg, device)
+        files = tuple(m[1].config_file for m in members)
+    elif files:
+        members = [(os.path.splitext(os.path.basename(f))[0],
+                    dataclasses.replace(g, config_file=f)) for f in files]
+    else:
+        members = [(f"s{int(s)}", dataclasses.replace(g, random_seed=int(s))) for s in seeds]
+    root, ext = os.path.splitext(cfg.physics.output)
+    for i, (ctag, g_i) in enumerate(members):
+        if files and i + 1 < len(members):
+            from ..io.prefetch import prefetch_after
+            prefetch_after(g_i.config_file, members[i + 1][1].config_file)
+        ph = dataclasses.replace(cfg.physics, output=f"{root}.{ctag}{ext}")
+        yield ctag, dataclasses.replace(cfg, gauge=g_i, physics=ph)
+
+
+def _heatbath_chain_members(cfg: RunConfig, device: torch.device, keep: list | None = None):
+    """The members of ONE heatbath Markov chain (ops/heatbath.generate_ensemble:
+    gauge.heatbath_sweeps to thermalize, then a member every heatbath_skip
+    compound sweeps, the generator on ``device`` seeded with
+    gauge.random_seed, so member 0 is setup_gauge's heatbath gauge), each
+    written to ILDG as hb_b<beta>_<i:04d>.lime under gauge.heatbath_dir
+    (default '<output dir>/ensemble').  Returns [(ctag, gauge params)]
+    whose config_file re-reads the member through the ILDG reader with
+    plaquette_check pinned to the generated plaquette
+    (tpuqcd/cli/common.py:124-178).  ``keep``, a list, receives per member
+    a dict: its in-memory device-layout links "links", "path",
+    "plaquette", "sweeps_seconds" (its sweeps, host clock, device
+    synchronised) and "write" (write_ildg_gauge's seconds by stage)."""
+    from ..io.lime import write_ildg_gauge
+    from ..ops.heatbath import generate_ensemble
+    from ..parallel import dist as tdist
+    if tdist.world_size() > 1:
+        raise NotImplementedError("a heatbath chain (gauge.heatbath_n_cfg > 1) is generated and "
+                                  "written by one process: run it alone, then hand its files "
+                                  "to the ranks as gauge.config_files")
+    g = cfg.gauge
+    lat = Lattice(tuple(g.dims))
+    out_dir = g.heatbath_dir or os.path.join(os.path.dirname(cfg.physics.output) or ".",
+                                             "ensemble")
+    os.makedirs(out_dir, exist_ok=True)
+    gen = torch.Generator(device=device).manual_seed(int(g.random_seed))
+    chain = generate_ensemble(gen, lat, g.heatbath_beta, g.heatbath_n_cfg,
+                              n_therm=g.heatbath_sweeps, n_skip=g.heatbath_skip)
+    members = []
+    t0 = time.perf_counter()
+    for i, u_dev in enumerate(chain):
+        sync(device)
+        sweeps_s = time.perf_counter() - t0
+        plaq = plaquette(u_dev, lat)
+        path = os.path.join(out_dir, f"hb_b{g.heatbath_beta:g}_{i:04d}.lime")
+        wr = write_ildg_gauge(path, gauge_eo_to_full(gauge_from_device(u_dev, lat), lat), lat)
+        log.info("heatbath chain member %d -> %s (plaquette %.8f; sweeps %.3f s, write %.3f s)",
+                 i, path, plaq, sweeps_s, sum(wr.values()))
+        if keep is not None:
+            keep.append({"links": u_dev, "path": path, "plaquette": plaq,
+                         "sweeps_seconds": sweeps_s, "write": wr})
+        members.append((f"c{i:04d}", dataclasses.replace(g, heatbath_beta=None, config_file=path,
+                                                          plaquette_check=plaq)))
+        t0 = time.perf_counter()
+    return members
 
 
 class Gauge(NamedTuple):
     lat: Lattice
     u_pk: torch.Tensor     # packed float32 [4, 2, 3, 3, 2, T, Z, S], boundary phase in
     plaquette: float
-    seconds: float         # generation, host clock, device synchronised
+    #: generation or read and decode, and the gauge fix: host clock, device
+    #: synchronised
+    seconds: float
 
 
-def setup_gauge(cfg: RunConfig, device: torch.device) -> Gauge:
-    """The gauge of gauge.*: a quenched heatbath at gauge.heatbath_beta
-    (thermalized on ``device`` from a cold start, the generator seeded
-    with gauge.random_seed), else random SU(3) links from
-    gauge.random_seed."""
-    lat = Lattice(tuple(cfg.gauge.dims))
+def _read_gauge(path: str, lat: Lattice, device: torch.device, detail: dict) -> torch.Tensor:
+    """The ILDG file's unphased complex device-layout links on ``device``:
+    the payload from io/prefetch.take (the read-ahead's, or read now),
+    decoded on the device; a file whose lattice is not gauge.dims raises."""
+    from ..io.native import ildg_payload_to_device
+    from ..io.prefetch import take
     t0 = time.perf_counter()
-    if cfg.gauge.heatbath_beta is not None:
+    payload = take(path)
+    t1 = time.perf_counter()
+    if payload.lat.dims != lat.dims:
+        raise ConfigError(f"{path} holds a {payload.lat.dims} lattice, but gauge.dims is "
+                          f"{lat.dims}, on which the configuration was validated")
+    u_dev = ildg_payload_to_device(payload.data, lat, payload.precision, device)
+    sync(device)
+    detail.update(take=t1 - t0, read=payload.seconds["read"],
+                  checksum=payload.seconds["checksum"], decode=time.perf_counter() - t1,
+                  scidac_checksum=payload.checksum)
+    log.info("loaded gauge %s dims=%s (%d bit): take %.3f s (read %.3f s, checksum %.3f s), "
+             "decode on %s %.3f s", path, lat.dims, payload.precision, detail["take"],
+             detail["read"], detail["checksum"], device, detail["decode"])
+    return u_dev
+
+
+def setup_gauge(cfg: RunConfig, device: torch.device, detail: dict | None = None) -> Gauge:
+    """The gauge of gauge.*: the ILDG file gauge.config_file (decoded on
+    ``device``), a quenched heatbath at gauge.heatbath_beta (thermalized on
+    ``device`` from a cold start, the generator seeded with
+    gauge.random_seed), else random SU(3) links from gauge.random_seed;
+    then the plaquette check, with gauge.fix the Landau or Coulomb gauge
+    fix on ``device``, and the boundary phase.  ``detail``, a dict,
+    receives the seconds of a file's "take" (the host's wait), "read",
+    "checksum" and "decode" and its verified "scidac_checksum" (None if the
+    file carried none), and of a fix "fix_seconds", "fix_sweeps",
+    and the functional before ("fix_initial") and after each sweep
+    ("fix_history")."""
+    detail = {} if detail is None else detail
+    g = cfg.gauge
+    lat = Lattice(tuple(g.dims))
+    t0 = time.perf_counter()
+    if g.config_file:
+        u_dev = _read_gauge(g.config_file, lat, device, detail)
+    elif g.heatbath_beta is not None:
         from ..ops.heatbath import thermalize
-        gen = torch.Generator(device=device).manual_seed(int(cfg.gauge.random_seed))
-        u_dev = thermalize(gen, lat, cfg.gauge.heatbath_beta, cfg.gauge.heatbath_sweeps)
+        gen = torch.Generator(device=device).manual_seed(int(g.random_seed))
+        u_dev = thermalize(gen, lat, g.heatbath_beta, g.heatbath_sweeps)
         sync(device)
         log.info("heatbath gauge dims=%s beta=%.3f sweeps=%d seed=%d", lat.dims,
-                 cfg.gauge.heatbath_beta, cfg.gauge.heatbath_sweeps, cfg.gauge.random_seed)
+                 g.heatbath_beta, g.heatbath_sweeps, g.random_seed)
     else:
-        gen = torch.Generator().manual_seed(int(cfg.gauge.random_seed))
+        gen = torch.Generator().manual_seed(int(g.random_seed))
         u_dev = gauge_to_device(gauge_full_to_eo(su3.random_gauge(lat, gen, device), lat),
                                 lat)
-        log.info("generated random gauge dims=%s seed=%d", lat.dims, cfg.gauge.random_seed)
+        log.info("generated random gauge dims=%s seed=%d", lat.dims, g.random_seed)
     seconds = time.perf_counter() - t0
     plaq = plaquette(u_dev, lat)
     log.info("plaquette = %.8f", plaq)
-    if cfg.gauge.plaquette_check is not None and abs(plaq - cfg.gauge.plaquette_check) > 1e-5:
-        raise RuntimeError(f"plaquette check failed: {plaq} != {cfg.gauge.plaquette_check}")
-    u_dev = apply_boundary_phase(u_dev, lat, "device", cfg.gauge.antiperiodic_t)
+    if g.plaquette_check is not None and abs(plaq - g.plaquette_check) > 1e-5:
+        raise RuntimeError(f"plaquette check failed: {plaq} != {g.plaquette_check}")
+    if g.fix:
+        # before the boundary phase, on the periodic links (tpuqcd/cli/common.py:253-268)
+        from ..ops.gauge_fix import functional, gauge_fix
+        t0 = time.perf_counter()
+        f0 = functional(u_dev, lat, g.fix)
+        u_dev, hist = gauge_fix(u_dev, lat, gauge=g.fix, n_sweeps=g.fix_sweeps, tol=g.fix_tol)
+        sync(device)
+        fix_s = time.perf_counter() - t0
+        seconds += fix_s
+        detail.update(fix_seconds=fix_s, fix_sweeps=len(hist), fix_initial=f0,
+                      fix_history=hist)
+        log.info("%s gauge fixing: %d sweeps, functional %.8f -> %.8f, %.3f s", g.fix,
+                 len(hist), f0, hist[-1] if hist else f0, fix_s)
+    u_dev = apply_boundary_phase(u_dev, lat, "device", g.antiperiodic_t)
     return Gauge(lat, pack_gauge(u_dev, torch.float32).contiguous(), plaq, seconds)
 
 

@@ -23,6 +23,10 @@ process per card) on the sharded doublet operator, after which rank 0
 gathers x.  Rank 0 computes the independent float64 doublet residual
 with the unsharded kernel and alone prints ``RESULT solve_seconds=...
 relres=... dims=... tol=... ndeg=1``.
+
+With gauge.config_files, gauge.random_seeds or a heatbath chain
+(gauge.heatbath_n_cfg > 1) it solves once per ensemble member
+(common.ensemble_members).
 """
 from __future__ import annotations
 
@@ -37,8 +41,8 @@ from ..solve import (full_system_relres, make_clover_fields, ndeg_full_relres, s
                      solve_ndeg_tm_sharded, solve_tm)
 from ..utils.config import RunConfig
 from ..utils.profile import Profile, solve_flops, sync
-from .common import (Gauge, MGSolver, check_in_slice, log, parse_args, random_source,
-                     setup_gauge)
+from .common import (Gauge, MGSolver, check_in_slice, ensemble_members, log, parse_args,
+                     random_source, setup_gauge)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +70,10 @@ class InvertResult:
 
 def main(argv=None):
     cfg, device = parse_args(__doc__, argv)
-    invert(cfg, device)
+    for ctag, c in ensemble_members(cfg, device):
+        if ctag:
+            log.info("=== ensemble member %s ===", ctag)
+        invert(c, device)
 
 
 def invert(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None) -> InvertResult:

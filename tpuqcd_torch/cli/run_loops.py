@@ -9,7 +9,12 @@ time and spin-colour dilution classes, deflated, solved as one batch with
 and the 64 one-derivative insertions -> with physics.tsm_cheap > 0 the
 truncated solves of tsm_cheap cheap noises and of the same noises, E =
 E_cheap + (E_full - E_cheap, on the same noises) -> with deflation the
-exact low-mode part from the solves w_i = (M_d^dag)^{-1} v_i -> HDF5.
+exact low-mode part from the solves w_i = (M_d^dag)^{-1} v_i -> HDF5; once
+per member of an ensemble (common.ensemble_members), each into its own
+physics.output.  The low-mode part is solved, not taken as diag(1/lambda),
+so the estimate is unbiased for any orthonormal basis: eigenpairs of
+physics.eig_infile from another member's gauge deflate less, and change
+no expectation value.
 
     python -m tpuqcd_torch.cli.run_loops --config examples/loops.yaml
     python -m tpuqcd_torch.cli.run_loops --config examples/loops_strange.yaml --device cpu
@@ -42,7 +47,8 @@ from ..phys.loops_dev import (make_deflate_pk, oneend_lowmode_exact_pk, stochast
                               z4_noises)
 from ..utils.config import RunConfig
 from ..utils.profile import Profile
-from .common import Gauge, check_in_slice, log, make_solver, parse_args, setup_gauge
+from .common import (Gauge, check_in_slice, ensemble_members, log, make_solver, parse_args,
+                     setup_gauge)
 from .run_twop import stage_timer
 
 #: seeds of the noise, the cheap TSM noise and the Lanczos start vector
@@ -222,9 +228,12 @@ def write(cfg: RunConfig, result: LoopsResult) -> None:
 
 def main(argv=None):
     cfg, device = parse_args(__doc__, argv)
-    result = measure(cfg, device)
-    write(cfg, result)
-    log.info("seconds by stage: %s", {k: round(v, 3) for k, v in result.seconds.items()})
+    for ctag, c in ensemble_members(cfg, device):
+        if ctag:
+            log.info("=== ensemble member %s ===", ctag)
+        result = measure(c, device)
+        write(c, result)
+        log.info("seconds by stage: %s", {k: round(v, 3) for k, v in result.seconds.items()})
 
 
 if __name__ == "__main__":

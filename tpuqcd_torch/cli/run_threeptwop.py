@@ -6,7 +6,9 @@ smearing -> 12 Gaussian-smeared sources -> 12 forward solves per flavor as
 one batched stream -> sink smearing -> proton and neutron two-point
 functions -> per baryon, sink time, projector and leg: the sequential
 source, its Gaussian smearing, 12 flavor-flipped backward solves as one
-batch, the 16 ultra-local and 16 one-derivative insertions -> HDF5.
+batch, the 16 ultra-local and 16 one-derivative insertions -> HDF5; once
+per member of an ensemble (common.ensemble_members), each into its own
+physics.output.
 
     python -m tpuqcd_torch.cli.run_threeptwop --config examples/threep.yaml
     python -m tpuqcd_torch.cli.run_threeptwop --config examples/threep.yaml --device cpu
@@ -47,7 +49,8 @@ from ..phys.threep_dev import (backward_prop_pk, project_momenta_pk, proton_seq_
                                threep_one_derivative_all_pk, threep_ultralocal_pk)
 from ..utils.config import RunConfig
 from ..utils.profile import Profile
-from .common import Gauge, check_in_slice, log, make_solver, parse_args, setup_gauge, smeared_gauge
+from .common import (Gauge, check_in_slice, ensemble_members, log, make_solver, parse_args,
+                     setup_gauge, smeared_gauge)
 from .run_twop import smeared_sources, source_tag, stage_timer
 
 #: twisted-mass flavor of each physical quark's forward solve
@@ -185,9 +188,12 @@ def write(cfg: RunConfig, result: ThreepResult) -> None:
 
 def main(argv=None):
     cfg, device = parse_args(__doc__, argv)
-    result = measure(cfg, device)
-    write(cfg, result)
-    log.info("seconds by stage: %s", {k: round(v, 3) for k, v in result.seconds.items()})
+    for ctag, c in ensemble_members(cfg, device):
+        if ctag:
+            log.info("=== ensemble member %s ===", ctag)
+        result = measure(c, device)
+        write(c, result)
+        log.info("seconds by stage: %s", {k: round(v, 3) for k, v in result.seconds.items()})
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Nucleon and meson two-point production run (BASELINE config 4).
 
-Counterpart of ``tpuqcd/cli/run_twop.py``: gauge (random or heatbath) and
+Counterpart of ``tpuqcd/cli/run_twop.py``: gauge (an ILDG file, a heatbath
+or random links; per member of an ensemble, common.ensemble_members) and
 plaquette check -> APE or stout smearing -> 12 Gaussian-smeared sources ->
 12 forward solves per flavor as one batched stream -> sink smearing ->
 proton, neutron and meson correlators -> momentum projection -> HDF5.
@@ -35,7 +36,8 @@ from ..phys.propagator import (assemble_propagator_pk, packed_sources, point_sou
 from ..phys.threep_dev import project_momenta_pk
 from ..utils.config import RunConfig
 from ..utils.profile import Profile, sync
-from .common import Gauge, log, make_solver, parse_args, setup_gauge, smeared_gauge
+from .common import (Gauge, ensemble_members, log, make_solver, parse_args, setup_gauge,
+                     smeared_gauge)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,14 +90,17 @@ def smeared_sources(cfg: RunConfig, lat, src, u_sm: torch.Tensor | None,
 
 
 def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
-            keep_fields: bool = False) -> TwopResult:
+            keep_fields: bool = False, audit=None) -> TwopResult:
     """The two-point measurement of ``cfg`` on ``device``: the correlators
     by dataset group and the seconds by stage.  ``gauge``, what
-    setup_gauge(cfg, device) returned before, saves generating it again."""
+    setup_gauge(cfg, device) returned before, saves generating it again;
+    ``audit`` goes to the solver (Solver.audit: every column, its source
+    and float64 solution)."""
     ph = cfg.physics
     lat, u_pk, plaq, gauge_seconds = setup_gauge(cfg, device) if gauge is None else gauge
     solve = make_solver(cfg, lat, u_pk)
     solve.keep_first = keep_fields
+    solve.audit = audit
     momenta = np.asarray(ph.momenta)
     prof = Profile()
     prof.times["gauge"] = gauge_seconds
@@ -159,9 +164,12 @@ def write(cfg: RunConfig, result: TwopResult) -> None:
 
 def main(argv=None):
     cfg, device = parse_args(__doc__, argv)
-    result = measure(cfg, device)
-    write(cfg, result)
-    log.info("seconds by stage: %s", {k: round(v, 3) for k, v in result.seconds.items()})
+    for ctag, c in ensemble_members(cfg, device):
+        if ctag:
+            log.info("=== ensemble member %s ===", ctag)
+        result = measure(c, device)
+        write(c, result)
+        log.info("seconds by stage: %s", {k: round(v, 3) for k, v in result.seconds.items()})
 
 
 if __name__ == "__main__":

@@ -188,3 +188,16 @@ def thermalize(generator: torch.Generator, lat: Lattice, beta: float, n_sweeps: 
             _reunit(u_sm)
     _reunit(u_sm)
     return gauge_from_sites(u_sm, lat)
+
+
+def generate_ensemble(generator: torch.Generator, lat: Lattice, beta: float, n_cfg: int,
+                      n_therm: int = 200, n_skip: int = 20):
+    """Yield n_cfg gauge configurations (device layout) of ONE Markov chain:
+    thermalize n_therm compound sweeps from the cold start, then a configuration every n_skip sweeps, every draw from
+    ``generator``.  No yielded tensor aliases the next (thermalize works
+    on its own copy), so each is safe to keep."""
+    u = thermalize(generator, lat, beta, n_therm)
+    for c in range(n_cfg):
+        yield u
+        if c + 1 < n_cfg:
+            u = thermalize(generator, lat, beta, n_skip, u0=u)

@@ -2,13 +2,14 @@
 ``examples/``.
 
 Counterpart of ``tpuqcd/utils/config.py`` for the parameter groups the
-port runs: gauge (random or heatbath), action (with the non-degenerate
-doublet's mubar and epsbar), solver (with the multi-RHS batch keys), mg
-(every key of tpuqcd's MGParamsCfg, with the named presets), physics
-(every key of tpuqcd's PhysicsParams), mesh, and the switches of the
-parts not ported yet (ensembles, mass sweeps), which
-``cli/common.check_in_slice`` refuses.  Keys of unported options are
-ignored, so every existing YAML loads.
+port runs: gauge (random, heatbath, an ILDG file, an ensemble of files,
+seeds or heatbath-chain members, gauge fixing: every key of tpuqcd's
+GaugeParams), action (with the non-degenerate doublet's mubar and
+epsbar), solver (with the multi-RHS batch keys), mg (every key of
+tpuqcd's MGParamsCfg, with the named presets), physics (every key of
+tpuqcd's PhysicsParams), mesh, and the switch of the part not ported yet
+(the mass sweep), which ``cli/common.check_in_slice`` refuses.  Keys of
+unported options are ignored, so every existing YAML loads.
 """
 from __future__ import annotations
 
@@ -24,15 +25,27 @@ class GaugeParams:
     random_seed: int = 0
     antiperiodic_t: bool = True
     plaquette_check: Optional[float] = None
+    #: ensemble mode (cli/common.ensemble_members): ILDG paths, or seeds;
+    #: member i's physics.output gets '.<tag>' before its suffix
     config_files: tuple = ()
     random_seeds: tuple = ()
+    #: gauge fixing of the links before the boundary phase (ops/gauge_fix.py):
+    #: "" (none), "landau" or "coulomb"
     fix: str = ""
+    fix_sweeps: int = 200
+    fix_tol: float = 1e-9
     #: quenched heatbath gauge (ops/heatbath.py) when beta is set:
     #: heatbath_sweeps compound sweeps (1 heatbath + 3 overrelaxation)
     #: from a cold start, seeded by random_seed
     heatbath_beta: Optional[float] = None
     heatbath_sweeps: int = 200
+    #: heatbath ensemble (n_cfg > 1): ONE Markov chain, a member every
+    #: heatbath_skip compound sweeps after the thermalization, each
+    #: written to ILDG under heatbath_dir (default '<output dir>/ensemble')
+    #: and read back with its plaquette pinned
     heatbath_n_cfg: int = 1
+    heatbath_skip: int = 20
+    heatbath_dir: str = ""
 
 
 @dataclass(frozen=True)
@@ -197,6 +210,14 @@ def validate_config(cfg: RunConfig) -> None:
         raise ConfigError(f"mg.setup_solver must be bicgstab | cgne, "
                           f"got {cfg.mg.setup_solver!r}")
     g = cfg.gauge
+    if g.fix not in ("", "landau", "coulomb"):
+        raise ConfigError(f"gauge.fix must be '' | landau | coulomb, got {g.fix!r}")
+    if g.config_files and g.random_seeds:
+        raise ConfigError("gauge.config_files and gauge.random_seeds are exclusive ensemble "
+                          "modes: set one")
+    if g.config_file and (g.config_files or g.random_seeds):
+        raise ConfigError("gauge.config_file is the single-config mode; use only "
+                          "gauge.config_files / gauge.random_seeds for ensembles")
     if g.heatbath_beta is not None:
         if g.config_file or g.config_files:
             raise ConfigError("gauge.heatbath_beta generates the gauge in-process: "
@@ -207,6 +228,12 @@ def validate_config(cfg: RunConfig) -> None:
             raise ConfigError("gauge.heatbath_sweeps must be > 0")
         if g.heatbath_n_cfg < 1:
             raise ConfigError("gauge.heatbath_n_cfg must be >= 1")
+        if g.heatbath_n_cfg > 1:
+            if g.heatbath_skip <= 0:
+                raise ConfigError("gauge.heatbath_skip must be > 0 in ensemble mode")
+            if g.random_seeds:
+                raise ConfigError("gauge.heatbath_n_cfg ensemble (one Markov chain) is "
+                                  "exclusive with gauge.random_seeds (per-seed fields)")
     if cfg.mg.enabled:
         _validate_mg(cfg.mg, dims)
     if not 0.0 < cfg.solver.tol < 1.0:
