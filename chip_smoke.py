@@ -24,12 +24,19 @@ Phases, each of which exits non-zero on failure:
    the same parities, daggers and storage types; the MG fine
    operators (DeviceFineLevel.apply and DeviceFineCloverLevel.apply: xpay
    or clover_xpay into the parity views of an MG field, flavor +1 and -1)
-   in each storage type; and halo mode (K6) on an emulated (nt, nz) =
-   (2, 2) decomposition, each shard's faces cut from the global fields
-   with its own t_offset (epilogues none, twist_inv, xpay; both parities;
+   in each storage type; and halo mode (K6) on a one-rank mesh and an
+   emulated (nt, nz) = (2, 2) decomposition, each shard's faces cut from
+   the global fields with its own t_offset (epilogues none, twist_inv,
+   xpay, and the clover epilogues on half-spinor faces; both parities;
    dagger off and on; half-spinor and full faces; float64 and float32
    18-real, float32 and bfloat16 reconstruct-12 links), against the plain
-   version and, stitched, against the unsharded kernel; then the batch
+   version and, stitched, against the unsharded kernel; the overlap
+   engine (parallel/overlap.py: the interior launch with local-periodic
+   wraps, then the slab repairs) on every shard of emulated (2, 2, 1) and
+   (2, 1, 2) meshes, every epilogue (none, twist_inv, xpay, xpay with the
+   kappa scale, clover_inv, clover_xpay), both parities, dagger off and
+   on, float64, float32 and bfloat16, stitched, against the unsharded
+   kernel and the plain version; then the batch
    axis (N = 1, 3, 5 and 12 right-hand sides in one launch at 8^3x16, 5
    a width the batched kernel's column warps do not divide, and
    after 4h-4n at 32^3x64 with exactly the numbers of columns their
@@ -75,9 +82,11 @@ Phases, each of which exits non-zero on failure:
    f. the same doublet solve through solve_ndeg_tm_sharded on a one-rank
       LatticeMesh, whose faces are its own boundary slices (halo mode at
       full width), its x held against 4e's;
-   g. with more than one card only: torchrun of run_invert's doublet path
-      on a mesh nt = 2 or 4 over NCCL, its x held against 4e's (with one
-      card it says so and is no pass);
+   g. with more than one card only: torchrun of run_invert on a mesh nt =
+      2 or 4 over NCCL, the doublet (x against 4e's), twisted mass under
+      fused and under overlap (against 4a's) and MG (against 4b's, the
+      gauge read from c0000's file) (with one card it says so and is no
+      pass);
    h. tpuqcd_torch.cli.run_twop.measure at 32^3x64 on 4b's gauge, as the
       first member of 4m (the chain's c0000, read from its file), direct
       branch: kappa 0.150, mu 0.005, CG, float32 sloppy, rhs_batch
@@ -91,7 +100,20 @@ Phases, each of which exits non-zero on failure:
       file is written and read back;
    i. four point-source columns through solve_tm_mg_batch on 4b's
       hierarchy (lockstep GCR), each certified, one held to the plain
-      float64 operator, beside the seconds of the same four one by one;
+      float64 operator, beside the seconds of the first two one by one
+      (scaled to four);
+   o. 4a's twisted-mass and 4c's twisted-clover solves through
+      solve_tm_sharded on a one-rank LatticeMesh, under the fused policy
+      (halo mode, the shard's own faces) and under overlap (the interior
+      launch; one rank has no repairs): certified by the solver and the
+      plain float64 operator, x against 4a's and 4c's within 1e-8;
+   p. 4b's MG solve through the sharded fine level (mg/shard.py, fused,
+      via cli/common.MGSolver with a LatticeMesh) on a one-rank mesh from
+      the same seed: x against 4b's within 1e-8, certified, the inner
+      iterations and the setup and solve seconds beside 4b's;
+   q. three columns through ShardedEigCGSolver on a one-rank mesh (4l's
+      action, 4b's gauge) beside the one-card EigCGSolver: x within 1e-8,
+      the iterations and the space's size equal, each column certified;
    m. run_twop over the ensemble gauge.config_files = the chain's two
       files, as its main loops it (cli/common.ensemble_members: the second
       file read and checksummed on a background thread while the first
@@ -153,7 +175,12 @@ Phases, each of which exits non-zero on failure:
    reconstruct-12 and 18-real; compute="bf16" beside float32 arithmetic;
    the lockstep CG step at the same N; the heatbath chain's sweeps, the
    ILDG writes and reads (encode, checksum, write; read, checksum,
-   decode), the read-ahead's host wait, and the gauge fix.
+   decode), the read-ahead's host wait, and the gauge fix; halo mode with
+   the twisted-mass and clover epilogues on the one-rank mesh and at the
+   (2, 2) shard, the overlap engine (interior and repairs, and the
+   interior alone) at the (2, 2, 1) and (2, 1, 2) shards beside the fused
+   launch; the solve seconds of 4o-4q beside 4a's, 4b's, 4c's and the
+   one-card eigCG's.
 
 The line before the last is the JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -487,59 +514,136 @@ def compare_fine_apply(dims, dev, clover: bool = False) -> dict:
     return max_abs
 
 
+def _hop_kw(epi, scale, parity, dt, psi0, blocks):
+    """dslash_eo's epilogue arguments of a mode: the clover modes at cell
+    4c's action with the blocks of the output parity, the others at
+    KAPPA, MU."""
+    clover = epi in ("clover_inv", "clover_xpay")
+    kw = dict(epilogue=epi, kappa=CL_KAPPA if clover else KAPPA, mu=CL_MU if clover else MU,
+              xpay_scale=scale, psi0=psi0 if epi in ("xpay", "clover_xpay") else None)
+    if clover:
+        kw["clover"] = blocks[epi][1 - parity].to(dt).contiguous()
+    return kw
+
+
+def _local(m, kw):
+    """The shard's slices of a hop's spinor and clover operands."""
+    return {k: m.shard(v).contiguous() if torch.is_tensor(v) else v for k, v in kw.items()}
+
+
 def compare_halo(dims, dev) -> dict:
     """Halo mode (K6) on a one-rank mesh (grid (1, 1): the whole lattice,
-    its faces its own boundary slices, the shape 4f launches) and on an
-    emulated (2, 2) decomposition (each shard's local fields and faces cut
-    from the global ones by parallel/sharded.cut_halo, its own t_offset):
-    kernel against the plain version on the same operands, and the
-    stitched shards against the unsharded kernel; returns {storage: max
-    abs err against the plain version over both grids}."""
+    its faces its own boundary slices, the shape 4f, 4o-4q launch) and on
+    an emulated (2, 2) decomposition (each shard's local fields and faces
+    cut from the global ones by parallel/sharded.cut_halo, its own
+    t_offset), with the epilogues none, twist_inv, xpay and, but for
+    float32 18-real links, the clover epilogues (half-spinor faces, as the
+    sharded operators ship them): kernel against the plain version on the
+    same operands, and the stitched shards against the unsharded kernel;
+    returns {storage: max abs err against the plain version over both
+    grids}, and {(storage, clover epilogue): ...} apart."""
     from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
     from tpuqcd_torch.parallel.mesh import LatticeMesh
     from tpuqcd_torch.parallel.sharded import cut_halo
     lat, gauges, psi64, psi064 = problem(dims, dev, seed=6)
+    blocks = clover_operands(gauges["f64"], lat)
     grids = {(1, 1): [LatticeMesh(lat, 1, 1, 1, 0)],
              (2, 2): [LatticeMesh(lat, 2, 2, 1, r) for r in range(4)]}
     max_abs = {}
     for name, dt, rows, tol in HALO_STORAGE:
         u = (gauges["f64"] if rows == 3 else gauges["f32"]).to(dt).contiguous()
         psi, psi0 = psi64.to(dt), psi064.to(dt)
-        max_abs[name] = 0.0
-        for mode, epi, _ in MODES[:3]:
+        modes = MODES[:3] + (CLOVER_MODES if name != "f32_18" else ())
+        for mode, epi, scale in modes:
+            key = (name, epi) if epi.startswith("clover") else name
             rel, stitched = dict.fromkeys(grids, 0.0), dict.fromkeys(grids, 0.0)
             for parity in (0, 1):
                 for dagger in (False, True):
-                    kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU)
-                    whole = dslash_eo(u, psi, parity, lat, psi0=psi0 if epi == "xpay" else None,
-                                      **kw).double()
-                    for half in (True, False):
+                    kw = _hop_kw(epi, scale, parity, dt, psi0, blocks)
+                    whole = dslash_eo(u, psi, parity, lat, dagger=dagger, **kw).double()
+                    for half in ((True,) if key != name else (True, False)):
                         for grid, shards in grids.items():
                             for m in shards:
                                 ul, pl, halo = cut_halo(m, u, psi, parity, dagger, half)
-                                p0 = m.shard(psi0).contiguous() if epi == "xpay" else None
-                                k = dslash_eo(ul, pl, parity, m.local_lat, psi0=p0, halo=halo,
-                                              **kw).double()
-                                p = dslash_eo_plain(ul, pl, parity, m.local_lat, psi0=p0,
-                                                    halo=halo, **kw).double()
+                                loc = _local(m, kw)
+                                k = dslash_eo(ul, pl, parity, m.local_lat, dagger=dagger,
+                                              halo=halo, **loc).double()
+                                p = dslash_eo_plain(ul, pl, parity, m.local_lat, dagger=dagger,
+                                                    halo=halo, **loc).double()
                                 torch.cuda.synchronize()
                                 if not torch.isfinite(k).all():
                                     fail(f"{dims} {name} halo {mode} grid {grid}: non-finite "
                                          "kernel output")
                                 err = (k - p).abs().max().item()
-                                max_abs[name] = max(max_abs[name], err)
+                                max_abs[key] = max(max_abs.get(key, 0.0), err)
                                 rel[grid] = max(rel[grid], err / p.abs().max().item())
                                 ref = m.shard(whole)
                                 stitched[grid] = max(stitched[grid], (k - ref).abs().max().item()
                                                      / ref.abs().max().item())
             for grid in grids:
                 ok = rel[grid] <= tol and stitched[grid] <= tol
-                print(f"  {'x'.join(map(str, dims))} {name:6s} halo {mode:9s} grid {grid} "
+                print(f"  {'x'.join(map(str, dims))} {name:6s} halo {mode:16s} grid {grid} "
                       f"max rel err {rel[grid]:.3e} against plain, {stitched[grid]:.3e} "
                       f"{'stitched ' if grid != (1, 1) else ''}against unsharded "
                       f"(tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     fail(f"halo mode disagrees: {dims} {name} {mode} grid {grid}")
+    return max_abs
+
+
+#: the overlap engine's emulated meshes (t, z, y) and its epilogues
+OVERLAP_GRIDS = ((2, 2, 1), (2, 1, 2))
+OVERLAP_MODES = MODES + CLOVER_MODES[:2]
+
+
+def compare_overlap(dims, dev) -> dict:
+    """The overlap engine (parallel/overlap.dslash_overlap: the interior
+    launch on the shard's lattice with local-periodic wraps, the slab
+    repairs) on every shard of emulated (2, 2, 1) and (2, 1, 2) meshes, the
+    faces cut from the global fields (parallel/sharded.cut_halo): every
+    epilogue, both parities, dagger off and on, in each storage type; the
+    stitched result against the unsharded kernel and against the plain
+    version, STORAGE's limits on max|err| / max|ref|; returns {storage:
+    max abs err against the plain version}."""
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.parallel.overlap import dslash_overlap
+    from tpuqcd_torch.parallel.sharded import cut_halo
+    lat, gauges, psi64, psi064 = problem(dims, dev, seed=8)
+    blocks = clover_operands(gauges["f64"], lat)
+    max_abs = {}
+    for name, dt, _, tol in STORAGE:
+        u, psi, psi0 = gauges[name], psi64.to(dt), psi064.to(dt)
+        max_abs[name] = 0.0
+        for mode, epi, scale in OVERLAP_MODES:
+            rel_k, rel_p = dict.fromkeys(OVERLAP_GRIDS, 0.0), dict.fromkeys(OVERLAP_GRIDS, 0.0)
+            for parity in (0, 1):
+                for dagger in (False, True):
+                    kw = _hop_kw(epi, scale, parity, dt, psi0, blocks)
+                    whole = dslash_eo(u, psi, parity, lat, dagger=dagger, **kw).double()
+                    plain = dslash_eo_plain(u, psi, parity, lat, dagger=dagger, **kw).double()
+                    for grid in OVERLAP_GRIDS:
+                        out = torch.empty_like(whole)
+                        for r in range(int(np.prod(grid))):
+                            m = LatticeMesh(lat, *grid, r)
+                            ul, pl, halo = cut_halo(m, u, psi, parity, dagger)
+                            m.shard(out)[...] = dslash_overlap(ul, pl, parity, m, halo,
+                                                               dagger=dagger, **_local(m, kw))
+                        torch.cuda.synchronize()
+                        if not torch.isfinite(out).all():
+                            fail(f"{dims} {name} overlap {mode} grid {grid}: non-finite output")
+                        err = (out - plain).abs().max().item()
+                        max_abs[name] = max(max_abs[name], err)
+                        rel_p[grid] = max(rel_p[grid], err / plain.abs().max().item())
+                        rel_k[grid] = max(rel_k[grid], (out - whole).abs().max().item()
+                                          / whole.abs().max().item())
+            for grid in OVERLAP_GRIDS:
+                ok = rel_p[grid] <= tol and rel_k[grid] <= tol
+                print(f"  {'x'.join(map(str, dims))} {name:4s} overlap {mode:11s} grid {grid} "
+                      f"stitched max rel err {rel_p[grid]:.3e} against plain, {rel_k[grid]:.3e} "
+                      f"against the unsharded kernel (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"the overlap engine disagrees: {dims} {name} {mode} grid {grid}")
     return max_abs
 
 
@@ -924,6 +1028,159 @@ def sharded_path(dev, nd_res):
     return seconds, counts
 
 
+def _counted(fn):
+    """fn() with the launch counts set to 0 just before and read just
+    after; returns (its result, seconds, counts)."""
+    from tpuqcd_torch.ops import dslash_cuda
+    torch.cuda.synchronize()
+    dslash_cuda.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(dslash_cuda.counts)
+
+
+#: the kernels a path on a one-rank mesh launches, by policy and operator:
+#: fused takes halo mode (K6, the shard's own faces), overlap the interior
+#: launch alone (one rank has no repairs)
+MESH_KEYS = {("fused", "tm"): ("float32:halo", "float64:halo"),
+             ("overlap", "tm"): ("float32", "float64"),
+             ("fused", "clover"): ("bfloat16:clover_inv:halo", "bfloat16:clover_xpay:halo",
+                                   "float64:clover_inv:halo", "float64:clover_xpay:halo",
+                                   "float64:halo"),
+             ("overlap", "clover"): ("bfloat16:clover_inv", "bfloat16:clover_xpay",
+                                     "float64:clover_inv", "float64:clover_xpay", "float64")}
+
+
+def mesh_direct_path(dev, ref, clover: bool = False) -> dict:
+    """4o: 4a's twisted-mass solve (or, with ``clover``, 4c's twisted-clover
+    solve) through solve_tm_sharded on a one-rank LatticeMesh, under the
+    fused and the overlap policy: certified by the solver and by the plain
+    float64 operator, x against 4a's (4c's) within X_AGREE, the launch
+    counts of the run, no plain call.  Returns {policy: (seconds, counts)}."""
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.parallel.sharded import (ShardedTMCloverOperatorPC, ShardedTMOperatorPC,
+                                               clover_fields_to, extend_gauge)
+    from tpuqcd_torch.solve import make_clover_fields, solve_tm_sharded
+    lat = Lattice(LARGE)
+    lmesh = LatticeMesh.make(lat, 1)
+    kappa, mu = (CL_KAPPA, CL_MU) if clover else (KAPPA, MU)
+    ug = extend_gauge(lmesh, ref.u_pk.double())
+    if clover:
+        f64 = (ug, *make_clover_fields(ref.u_pk, lat, kappa=kappa, mu=mu, csw=CL_CSW))
+        fields = (clover_fields_to(f64, torch.bfloat16, rows=2),
+                  clover_fields_to(f64, torch.float64))
+        solver = dict(solver="bicgstab", inner_tol=1e-4)
+        a64 = clover_blocks_of(ref.u_pk, lat, kappa, CL_CSW).double()
+    else:
+        fields = (ug.to(torch.float32, rows=2), ug.to(torch.float64))
+        solver, a64 = dict(solver="cg"), None
+    del ug
+    out = {}
+    for policy in ("fused", "overlap"):
+        cls = ShardedTMCloverOperatorPC if clover else ShardedTMOperatorPC
+        op = cls(lat, kappa=kappa, mu=mu, lmesh=lmesh, comm_policy=policy)
+        res, seconds, counts = _counted(lambda: solve_tm_sharded(
+            op, *fields, ref.b_pk, tol=RELRES_MAX, **solver))
+        print(f"  {policy}: launches during the run: {counts}")
+        if counts.get("plain", 0) != 0:
+            fail(f"the sharded solve called the plain version {counts['plain']} times")
+        need_launches(counts, MESH_KEYS[(policy, "clover" if clover else "tm")])
+        rel = plain_full_relres(ref.u_pk.double(), ref.b_pk.double(), res.x, lat, kappa, mu, a64)
+        agree = ((res.x - ref.x).abs().max() / ref.x.abs().max()).item()
+        print(f"  {policy}: certified relres {res.relres:.3e}, plain-operator relres {rel:.3e}, "
+              f"iterations {res.iters} ({'4c' if clover else '4a'}: {ref.iters}), max|x - x(ref)| "
+              f"/ max|x(ref)| = {agree:.3e} (limit {X_AGREE:.0e}), solve wallclock "
+              f"{seconds:.3f} s ({'4c' if clover else '4a'}: {ref.seconds:.3f} s)")
+        if not (res.relres <= RELRES_MAX and rel <= RELRES_MAX and agree <= X_AGREE):
+            fail(f"the sharded solve under {policy} is not certified or does not agree")
+        out[policy] = (seconds, counts)
+    return out
+
+
+def mesh_mg_path(dev, mg_res, gauge):
+    """4p: 4b's solve through the sharded fine level (mg/shard.ShardedFineLevel,
+    the fused policy, via cli/common.MGSolver with a LatticeMesh) on a
+    one-rank mesh: its hops are halo launches with the shard's own faces,
+    bit for bit the unsharded kernel's, so from the same seed the hierarchy
+    and the solve are 4b's: x within X_AGREE of 4b's, certified by the
+    solver and the plain float64 operator, the inner iterations and the
+    seconds beside 4b's.  Returns (setup seconds, solve seconds, counts)."""
+    from tpuqcd_torch.cli.common import MGSolver
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.solve import solve_tm_mg
+    lat = Lattice(LARGE)
+    cfg = mg_config(MG_KAPPA, MG_MU)
+    solver = MGSolver(cfg, lat, gauge.u_pk, LatticeMesh.make(lat, 1), "fused")
+
+    def run():
+        t0 = time.perf_counter()
+        mg = solver.setup(+1)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        return mg, setup, solve_tm_mg(mg, mg_res.b_pk, tol=RELRES_MAX, inner_tol=1e-7)
+    (mg, setup, res), seconds, counts = _counted(run)
+    print(f"  launches during the run: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail(f"the sharded MG called the plain version {counts['plain']} times")
+    need_launches(counts, ("float32:halo", "bfloat16:halo", "float64:halo", "float32:dirs:halo"))
+    rel = plain_full_relres(gauge.u_pk.double(), mg_res.b_pk.double(), res.x, lat, MG_KAPPA,
+                            MG_MU)
+    agree = ((res.x - mg_res.x).abs().max() / mg_res.x.abs().max()).item()
+    st = mg.setup_seconds
+    print(f"  MG setup {setup:.2f} s (null vectors {st['nulls0']:.2f} s, Galerkin probing "
+          f"{st['galerkin0']:.2f} s; 4b: {mg_res.setup_seconds['mg_setup']:.2f} s), solve "
+          f"{seconds - setup:.3f} s (4b: {mg_res.seconds:.3f} s); certified relres "
+          f"{res.relres:.3e}, plain-operator relres {rel:.3e}; inner iterations {res.iters} (4b: "
+          f"{mg_res.iters}), refinements {res.refinements} (4b: {mg_res.refinements}); "
+          f"max|x - x(4b)| / max|x(4b)| = {agree:.3e} (limit {X_AGREE:.0e})")
+    if not (res.relres <= RELRES_MAX and rel <= RELRES_MAX and agree <= X_AGREE):
+        fail("the sharded MG solve is not certified or does not agree with 4b")
+    if res.iters != mg_res.iters:
+        fail(f"the sharded MG took {res.iters} inner iterations, 4b's {mg_res.iters}: on a "
+             "one-rank mesh the hierarchy and the solve are 4b's")
+    return setup, seconds - setup, counts
+
+
+def mesh_eigcg_path(dev, gauge):
+    """4q: three columns through ShardedEigCGSolver on a one-rank mesh (4l's
+    action on 4b's gauge, the fused policy) and through the one-card
+    EigCGSolver from the same sources: every column certified by both and by
+    the plain float64 operator, x within X_AGREE, the iterations and the
+    space's size equal.  Returns (seconds, counts, one-card seconds)."""
+    from tpuqcd_torch.cli.common import random_source
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.solve import EigCGSolver, ShardedEigCGSolver
+    lat = Lattice(LARGE)
+    cols = random_source(lat, dev, seed=41, columns=3)
+    kw = dict(kappa=TWOP_KAPPA, mu=TWOP_MU)
+
+    def solve_all(es):
+        return [es.solve(c, tol=RELRES_MAX) for c in cols], es.space.k
+    (one, k_one), one_s, _ = _counted(lambda: solve_all(EigCGSolver(gauge.u_pk, lat, **kw)))
+    (shd, k_shd), seconds, counts = _counted(lambda: solve_all(
+        ShardedEigCGSolver(gauge.u_pk, lat, LatticeMesh.make(lat, 1), **kw)))
+    print(f"  launches during the sharded run: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail(f"the sharded eigCG called the plain version {counts['plain']} times")
+    need_launches(counts, ("float32:halo", "float64:halo"))
+    agree = max(((a.x - b.x).abs().max() / b.x.abs().max()).item() for a, b in zip(shd, one))
+    rel = max(plain_full_relres(gauge.u_pk.double(), c.double(), r.x, lat, TWOP_KAPPA, TWOP_MU)
+              for c, r in zip(cols, shd))
+    print(f"  sharded: iterations {[r.iters for r in shd]}, space k = {k_shd}, {seconds:.3f} s; "
+          f"one card: iterations {[r.iters for r in one]}, space k = {k_one}, {one_s:.3f} s; "
+          f"certified relres <= {max(r.relres for r in shd):.3e}, plain-operator relres <= "
+          f"{rel:.3e}; max|x - x(one card)| / max|x| = {agree:.3e} (limit {X_AGREE:.0e})")
+    if not (max(r.relres for r in shd + one) <= RELRES_MAX and rel <= RELRES_MAX
+            and agree <= X_AGREE and [r.iters for r in shd] == [r.iters for r in one]
+            and k_shd == k_one):
+        fail("the sharded eigCG is not certified or differs from the one-card run")
+    return seconds, counts, one_s
+
+
 def free_port() -> int:
     """A free TCP port on localhost for torchrun's rendezvous."""
     import socket
@@ -949,40 +1206,76 @@ def invert_rank(argv) -> None:
         torch.save(res.x.cpu(), argv[i + 1])
 
 
-def multi_card_path(nd_res) -> None:
-    """4g: run_invert's doublet path under torchrun on a mesh nt = n over
-    NCCL, n the largest of 2 or 4 that the visible cards hold; its x held
-    against 4e's."""
-    n_cards = torch.cuda.device_count()
-    if n_cards < 2:
-        print(f"  phase 4g not run: torch.cuda.device_count() = {n_cards}; the multi-rank "
-              "NCCL exchange needs one process per card (it is held on the CPU over gloo by "
-              "tests/test_torch_sharded.py)")
-        return
+def torchrun_invert(n: int, cfg: dict, extra=()) -> tuple[str, torch.Tensor, str]:
+    """run_invert of the config ``cfg`` (a dict) under torchrun on n ranks
+    (chip_smoke.py --invert-rank; ``extra``: more arguments, --device cpu
+    for a rehearsal over gloo); returns (rank 0's RESULT line, its gathered
+    x on the CPU, the ranks' output)."""
     import yaml
-    n = 4 if n_cards >= 4 else 2
     with tempfile.TemporaryDirectory() as tmp:
-        cfg, x_path = os.path.join(tmp, "ndeg_mesh.yaml"), os.path.join(tmp, "x.pt")
-        with open(cfg, "w") as f:
-            yaml.safe_dump(ndeg_dict(n), f)      # writes 1e-10 as 1.0e-10, a YAML float
+        path, x_path = os.path.join(tmp, "mesh.yaml"), os.path.join(tmp, "x.pt")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)      # writes 1e-10 as 1.0e-10, a YAML float
         r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
                             str(n), "--master_addr", "localhost", "--master_port",
                             str(free_port()), os.path.abspath(__file__), "--invert-rank",
-                            "--config", cfg, "--save-x", x_path],
-                           capture_output=True, text=True, timeout=600)
+                            "--config", path, "--save-x", x_path, *extra],
+                           capture_output=True, text=True, timeout=600,
+                           env={**os.environ, "TPUQCD_RESOURCE_PATH": tmp})
         line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
         if r.returncode != 0 or len(line) != 1 or not os.path.exists(x_path):
             fail(f"torchrun of {n} ranks: rc {r.returncode}\n{r.stdout[-2000:]}\n"
                  f"{r.stderr[-2000:]}")
-        x = torch.load(x_path)
-    iters = re.findall(r"ndeg solve: .* iters=(\d+)", r.stdout + r.stderr)
-    rel = float(re.search(r"relres=(\S+)", line[0]).group(1))
-    x4e = nd_res.x.cpu()
-    agree = ((x - x4e).abs().max() / x4e.abs().max()).item()
-    print(f"  {n} ranks over NCCL: {line[0]}; iterations {iters[0] if iters else '?'} (4e: "
-          f"{nd_res.iters}); max|x - x(4e)| / max|x(4e)| = {agree:.3e} (limit {X_AGREE:.0e})")
-    if not (rel <= RELRES_MAX and agree <= X_AGREE):
-        fail(f"the {n}-rank doublet solve: relres {rel:.3e}, x against 4e's {agree:.3e}")
+        return line[0], torch.load(x_path), r.stdout + r.stderr
+
+
+def multi_card_path(nd_x, tm_x, mg_x, mg_gauge: dict) -> None:
+    """4g: run_invert under torchrun on a mesh nt = n over NCCL, n the
+    largest of 2 or 4 that the visible cards hold: the doublet (4e's
+    config), twisted mass under the fused and under the overlap policy
+    (4a's), twisted mass under auto (the policies timed, tune_comm_policy's
+    cache in the call's temporary directory), and MG (4b's, its gauge read
+    from c0000's file ``mg_gauge``);
+    each x (on the CPU) held against the one-card cell's."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"  phase 4g not run: torch.cuda.device_count() = {n_cards}; the multi-rank "
+              "NCCL exchange needs one process per card (it is held on the CPU over gloo by "
+              "tests/test_torch_sharded.py, test_torch_sharded_clover.py, "
+              "test_torch_mg_mesh.py, test_torch_mg_mesh_y.py, test_torch_eigcg_mesh.py, "
+              "test_torch_invert_mesh.py; the policy tuner by test_torch_tune.py)")
+        return
+    n = 4 if n_cards >= 4 else 2
+    tm = {"gauge": {"dims": list(LARGE), "random_seed": 1},
+          "action": {"kappa": KAPPA, "mu": MU},
+          "solver": {"solver": "cg", "tol": RELRES_MAX}, "mesh": {"nt": n}}
+    mg = {"gauge": mg_gauge, "action": {"kappa": MG_KAPPA, "mu": MG_MU},
+          "solver": {"tol": RELRES_MAX, "inner_tol": 1e-7, "comm_policy": "fused"},
+          "mg": {"enabled": True, "preset": "near_critical"}, "mesh": {"nt": n}}
+    runs = [("doublet (4e)", ndeg_dict(n), nd_x, "ndeg solve"),
+            ("twisted mass, fused (4a)", {**tm, "solver": {**tm["solver"],
+                                                           "comm_policy": "fused"}}, tm_x,
+             "sharded solve"),
+            ("twisted mass, overlap (4a)", {**tm, "solver": {**tm["solver"],
+                                                             "comm_policy": "overlap"}}, tm_x,
+             "sharded solve"),
+            ("twisted mass, auto (4a; the policy timed on the cards)", tm, tm_x,
+             "sharded solve"),
+            ("MG (4b)", mg, mg_x, "mg solve")]
+    for what, cfg, ref, tag in runs:
+        line, x, log_text = torchrun_invert(n, cfg)
+        iters = re.findall(tag + r": .* iters=(\d+)", log_text)
+        rel = float(re.search(r"relres=(\S+)", line).group(1))
+        agree = ((x - ref).abs().max() / ref.abs().max()).item()
+        print(f"  {what}, {n} ranks over NCCL: {line}; iterations {iters[0] if iters else '?'}; "
+              f"max|x - x(one card)| / max|x| = {agree:.3e} (limit {X_AGREE:.0e})")
+        if not (rel <= RELRES_MAX and agree <= X_AGREE):
+            fail(f"the {n}-rank {what} solve: relres {rel:.3e}, x against one card's {agree:.3e}")
+        if "auto" in what:
+            tuned = re.search(r"comm_policy timed .* -> (\w+)", log_text)
+            if tuned is None:
+                fail(f"the {n}-rank {what} solve did not time the policies")
+            print(f"  comm_policy auto took {tuned.group(1)} (utils/tune.tune_comm_policy)")
 
 
 def per_leg_probing(mg_res):
@@ -1960,6 +2253,136 @@ def halo_timings(dev, card_tag) -> dict:
     return out
 
 
+#: the epilogues of the sharded operators' hops, timed on a mesh
+MESH_TIMED = ("twist_inv", "xpay", "clover_inv", "clover_xpay")
+
+
+def mesh_timings(dev, card_tag) -> dict:
+    """The hops of the sharded operators at 32^3x64, per launch, float32 and
+    bfloat16 reconstruct-12 and float64 18-real: halo mode (K6, half-spinor
+    faces) with each epilogue of MESH_TIMED on the one-rank mesh (the
+    whole lattice, 4o's and 4p's shape) and at the (2, 2) shard size; the
+    overlap engine (interior launch and slab repairs, the faces given as
+    an exchange would leave them) with twist_inv and clover_inv at the
+    (2, 2, 1) and (2, 1, 2) shard sizes beside its interior launch alone
+    and, at (2, 2, 1), the fused launch on the same shard (the (2, 2)
+    row).  The bound is
+    the shard's hop: the spinor, the links, psi0 and the clover blocks
+    where the epilogue reads them and the faces read once, the output
+    written once; plain is the plain version of the same hop (halo mode).
+    Returns {(storage, tag): (ms, plain ms, bound ms, bound by)}, tags
+    halo_<epi>, halo_<epi>_2x2, overlap_<epi>_<grid>, interior_<epi>_<grid>."""
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.parallel.overlap import dslash_overlap
+    from tpuqcd_torch.parallel.sharded import cut_halo
+    lat, gauges, psi64, psi064 = problem(LARGE, dev, seed=9)
+    blocks = clover_operands(gauges["f64"], lat)
+    out = {}
+    for name, dt, rows, _ in STORAGE:
+        u, psi, psi0 = gauges[name], psi64.to(dt), psi064.to(dt)
+        item = psi.element_size()
+
+        def bound_of(m, halo, epi):
+            xpay, clover = epi.endswith("xpay"), epi.startswith("clover")
+            sites = m.local_lat.half_volume
+            faces = sum(x.numel() for x in halo[:6]) * item
+            byts = bytes_per_site(dt, rows, xpay, clover)[1] * sites + faces
+            flops = (FLOP_PER_SITE + (CLOVER_FLOP_PER_SITE if clover else 0)) * sites
+            return bound(byts, flops, dt)
+
+        for epi in MESH_TIMED:
+            kw = _hop_kw(epi, None, 0, dt, psi0, blocks)
+            for grid, tag in (((1, 1, 1), f"halo_{epi}"), ((2, 2, 1), f"halo_{epi}_2x2")):
+                m = LatticeMesh(lat, *grid, 0)
+                ul, pl, halo = cut_halo(m, u, psi, 0)
+                loc = _local(m, kw)
+                k_ms = time_ms(lambda: dslash_eo(ul, pl, 0, m.local_lat, halo=halo, **loc),
+                               reps=50)
+                p_ms = time_ms(lambda: dslash_eo_plain(ul, pl, 0, m.local_lat, halo=halo, **loc),
+                               reps=2, warmup=1)
+                out[(name, tag)] = (k_ms, p_ms, *bound_of(m, halo, epi))
+                print(f"  {'x'.join(map(str, m.local_lat.dims))} {name} recon-{rows * 6} halo "
+                      f"{epi:11s} (grid {grid[:2]}) kernel {k_ms:.4f} ms (bound "
+                      f"{out[(name, tag)][2]:.4f} ms by {out[(name, tag)][3]}, "
+                      f"{out[(name, tag)][2] / k_ms:.1%}) | plain {p_ms:.3f} ms | {card_tag}")
+            if epi not in ("twist_inv", "clover_inv"):
+                continue
+            for grid in OVERLAP_GRIDS:
+                g = "".join(map(str, grid))
+                m = LatticeMesh(lat, *grid, 0)
+                ul, pl, halo = cut_halo(m, u, psi, 0)
+                loc = _local(m, kw)
+                o_ms = time_ms(lambda: dslash_overlap(ul, pl, 0, m, halo, **loc), reps=20)
+                i_ms = time_ms(lambda: dslash_eo(ul, pl, 0, m.local_lat, **loc), reps=50)
+                line = (f"  {'x'.join(map(str, m.local_lat.dims))} {name} recon-{rows * 6} "
+                        f"overlap {epi:10s} (grid {grid}) interior + repairs {o_ms:.4f} ms, "
+                        f"interior alone {i_ms:.4f} ms")
+                b = bound_of(m, halo, epi)
+                p_ms = None
+                if grid[2] == 1:       # K6 (fused) on this shard: the halo_<epi>_2x2 row
+                    line += f", fused launch {out[(name, f'halo_{epi}_2x2')][0]:.4f} ms"
+                    p_ms = out[(name, f"halo_{epi}_2x2")][1]
+                    line += f" | plain {p_ms:.3f} ms"
+                out[(name, f"overlap_{epi}_{g}")] = (o_ms, p_ms, *b)
+                out[(name, f"interior_{epi}_{g}")] = (i_ms, None, None, None)
+                print(line + f" (bound {b[0]:.4f} ms by {b[1]}) | {card_tag}")
+    return out
+
+
+def profile_overlap(dev, card_tag) -> None:
+    """Where an overlap hop's time goes: 10 hops of the overlap engine
+    (dslash_overlap: the interior launch and the slab repairs, the faces
+    given) under torch.profiler at 32^3x64 on the (2, 2, 1) and (2, 1, 2)
+    shards, float32 reconstruct-12 clover_inv at 4c's action.  Prints the
+    wall time of a hop, the card's busy time (the kernels' device time),
+    (also timed without the profiler), the launches and host-to-card
+    copies a hop, and the operators that take the host's time, by self
+    CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.parallel.overlap import dslash_overlap
+    from tpuqcd_torch.parallel.sharded import cut_halo
+    lat, gauges, psi64, _ = problem(LARGE, dev, seed=9)
+    blocks = clover_operands(gauges["f64"], lat)
+    kw = _hop_kw("clover_inv", None, 0, torch.float32, None, blocks)
+    hops = 10
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    for grid in OVERLAP_GRIDS:
+        m = LatticeMesh(lat, *grid, 0)
+        ul, pl, halo = cut_halo(m, gauges["f32"], psi64.float(), 0)
+        loc = _local(m, kw)
+        plain_wall = time_ms(lambda: dslash_overlap(ul, pl, 0, m, halo, **loc), reps=20, warmup=3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(hops):
+                dslash_overlap(ul, pl, 0, m, halo, **loc)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / hops * 1e3
+        ev = prof.key_averages()
+        busy = sum(dev_us(e) for e in ev) / hops / 1e3
+        per = {e.key: e.count / hops for e in ev}
+        launches = per.get("cudaLaunchKernel", 0) + per.get("cuLaunchKernel", 0)
+        h2d = sum(c for k, c in per.items() if "HtoD" in k)
+        busy_s = (f"{busy:.3f} ms ({busy / wall:.1%} of the wall time)" if busy > 0
+                  else "not measured (the profiler saw no device time)")
+        print(f"  overlap hop profile, f32 recon-12 clover_inv, grid {grid} "
+              f"({'x'.join(map(str, m.local_lat.dims))}): {plain_wall:.3f} ms a hop, {wall:.3f} ms "
+              f"under the profiler, card busy {busy_s}; {launches:.0f} kernel launches and {h2d:.0f} "
+              f"host-to-card copies a hop {card_tag}")
+        cpu_ops = sorted((e for e in ev if e.self_cpu_time_total > 0),
+                         key=lambda e: e.self_cpu_time_total, reverse=True)
+        for e in cpu_ops[:12]:
+            print(f"    {e.key[:44]:44s} {e.count / hops:6.1f} calls a hop, self CPU "
+                  f"{e.self_cpu_time_total / hops / 1e3:.3f} ms, device {dev_us(e) / hops / 1e3:.3f} "
+                  "ms a hop")
+        del ul, pl, halo, loc
+    torch.cuda.empty_cache()
+
+
 def new_timings(dev, card_tag, widths) -> dict:
     """The modes of the two-point slice at 32^3x64, per launch: the batched
     launch at N = 1, 2, 4, 12 and every N of ``widths``, the numbers of
@@ -2109,13 +2532,22 @@ def main() -> None:
     fine_abs = compare_fine_apply(LARGE, dev)
     compare_fine_apply(SMALL, dev, clover=True)
     fine_cl_abs = compare_fine_apply(LARGE, dev, clover=True)
-    say("phase 3: halo mode (K6) on a one-rank mesh and an emulated (2, 2) decomposition")
+    say("phase 3: halo mode (K6) on a one-rank mesh and an emulated (2, 2) decomposition, "
+        "with the twisted-mass and the clover epilogues")
     compare_halo(SMALL, dev)
     halo_abs = compare_halo(LARGE, dev)
+    say("phase 3: the overlap engine on emulated (2, 2, 1) and (2, 1, 2) meshes")
+    compare_overlap(SMALL, dev)
+    overlap_abs = compare_overlap(LARGE, dev)
+    torch.cuda.empty_cache()
     r8_abs, bf16c_abs = new_compares(dev)
 
     say("phase 4a: main path, tpuqcd_torch.cli.run_invert (CG) at 32^3x64")
     res, counts = main_path(dev)
+    say("phase 4o: 4a's solve through solve_tm_sharded on a one-rank LatticeMesh, fused and "
+        "overlap")
+    mo_tm = mesh_direct_path(dev, res)
+    tm_x = res.x.cpu()
     res = slim(res)
     say(f"phase 4b: the gauge: a heatbath chain (beta {MG_BETA}, seed 0) of two members "
         f"written to ILDG, {MG_SWEEPS} sweeps to c0000 and {CHAIN_SKIP} more to c0001; c0000 "
@@ -2130,17 +2562,29 @@ def main() -> None:
     say("phase 4i: four point-source columns in lockstep on 4b's hierarchy "
           "(solve_tm_mg_batch)")
     mgb_batch_s, mgb_single_s, _, mgb_counts = mg_batch_path(dev, mg_res.mg, gauge.u_pk)
+    mg_res = dataclasses.replace(mg_res, mg=None)
+    torch.cuda.empty_cache()
+    say("phase 4p: 4b's MG solve through the sharded fine level on a one-rank LatticeMesh")
+    mp_setup_s, mp_solve_s, mp_counts = mesh_mg_path(dev, mg_res, gauge)
+    mg_x = mg_res.x.cpu()
     mg_res = slim(mg_res)
     say("phase 4c: main path, run_invert (twisted clover, BiCGStab bf16) at 32^3x64")
     cl_res, cl_counts = clover_path(dev)
+    say("phase 4o: 4c's solve through solve_tm_sharded on a one-rank LatticeMesh, fused and "
+        "overlap")
+    mo_cl = mesh_direct_path(dev, cl_res, clover=True)
     say("phase 4d: main path, run_invert (twisted clover, MG) at 32^3x64")
     mgc_res, mgc_counts = mg_path(dev, gauge, clover=True)
     say("phase 4e: main path, run_invert (non-degenerate doublet, CG) at 32^3x64")
     nd_res, nd_counts = ndeg_path(dev)
     say("phase 4f: the doublet solve on a one-rank LatticeMesh (halo mode) at 32^3x64")
     sh_seconds, sh_counts = sharded_path(dev, nd_res)
-    say("phase 4g: run_invert's doublet path on a mesh of cards (torchrun, NCCL)")
-    multi_card_path(nd_res)
+    say("phase 4g: run_invert on a mesh of cards (torchrun, NCCL): the doublet, twisted mass "
+        "fused, overlap and auto, MG")
+    multi_card_path(nd_res.x.cpu(), tm_x, mg_x,
+                    {"dims": list(LARGE), "config_file": chain["files"][0],
+                     "plaquette_check": chain["plaquettes"][0]})
+    del tm_x, mg_x
     nd_res, mgc_res, cl_res = slim(nd_res), slim(mgc_res), slim(cl_res)
     say("phase 4m: main path, run_twop over the ensemble gauge.config_files = [c0000, c0001] "
         "at 32^3x64, as its main loops it (member c0000 is cell 4h)")
@@ -2175,6 +2619,10 @@ def main() -> None:
     tl_res, tl_counts, tl_cg_counts, tl_cg_seconds, tl_widths = eigcg_path(dev, gauge)
     tl_n, tl_ns = max(tl_widths), ", ".join(map(str, tl_widths))
     torch.cuda.empty_cache()
+    say("phase 4q: three columns through ShardedEigCGSolver on a one-rank LatticeMesh beside "
+        "the one-card EigCGSolver")
+    mq_seconds, mq_counts, mq_one_s = mesh_eigcg_path(dev, gauge)
+    torch.cuda.empty_cache()
     widths = sorted({*tw_widths, *tj_widths, *tk_widths, *tl_widths, MGB_COLUMNS,
                      WITNESS_COLUMNS})
     say("phase 3: the batch axis at 32^3x64 with the numbers of columns 4h's, 4i's, 4j's, "
@@ -2196,6 +2644,16 @@ def main() -> None:
           f"matvecs, {nd_res.refinements} refinements; on the one-rank mesh {sh_seconds:.3f} s "
           f"{card_tag}")
     t.update(new_timings(dev, card_tag, widths))
+    t.update(mesh_timings(dev, card_tag))
+    profile_overlap(dev, card_tag)
+    for what, mo in (("twisted mass (4a's)", mo_tm), ("twisted clover (4c's)", mo_cl)):
+        print(f"  {what} solve on a one-rank mesh (4o): fused {mo['fused'][0]:.3f} s, overlap "
+              f"{mo['overlap'][0]:.3f} s {card_tag}")
+    print(f"  MG on a one-rank mesh (4p): setup {mp_setup_s:.2f} s, solve {mp_solve_s:.3f} s "
+          f"(4b: setup {mg_res.setup_seconds['mg_setup']:.2f} s, solve {mg_res.seconds:.3f} s) "
+          f"{card_tag}")
+    print(f"  eigCG, 3 columns on a one-rank mesh (4q): {mq_seconds:.3f} s, on one card "
+          f"{mq_one_s:.3f} s {card_tag}")
     tw_audit = next(iter(ens_stats.values()))[2]
     print("  two-point run (4h, member c0000 of 4m) seconds by stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in tw_seconds.items())
@@ -2364,6 +2822,66 @@ def main() -> None:
               f"certification, {tl_ns} columns a launch), xpay_full N={tl_n} timed",
               tl_cg_counts["float64:batch"], batch_abs[("f64", tl_n)],
               ("f64", f"xpay_full_b{tl_n}"), vmap),
+        # the sharded operators on a one-rank mesh (4o, 4p, 4q): halo mode
+        # with every epilogue, and the overlap engine's interior launch
+        entry("dslash_eo<float> reconstruct-12 halo twist_inv/xpay (K6 with K2, sharded "
+              "twisted-mass sloppy operator 4o fused), xpay timed on the one-rank mesh",
+              mo_tm["fused"][1]["float32:halo"], halo_abs["f32"], ("f32", "halo_xpay"), k6),
+        entry("dslash_eo<double> 18-real halo twist_inv/xpay/none (K6 with K2, sharded "
+              "certification 4o fused), xpay timed on the one-rank mesh",
+              mo_tm["fused"][1]["float64:halo"], halo_abs["f64"], ("f64", "halo_xpay"), k6),
+        entry("dslash_eo<bf16> reconstruct-12 halo clover_inv (K6 with K3, sharded clover "
+              "BiCGStab sloppy operator 4o fused), timed on the one-rank mesh",
+              mo_cl["fused"][1]["bfloat16:clover_inv:halo"], halo_abs[("bf16", "clover_inv")],
+              ("bf16", "halo_clover_inv"), k6),
+        entry("dslash_eo<bf16> reconstruct-12 halo clover_xpay (K6 with K3, sharded clover "
+              "BiCGStab sloppy operator 4o fused), timed on the one-rank mesh",
+              mo_cl["fused"][1]["bfloat16:clover_xpay:halo"], halo_abs[("bf16", "clover_xpay")],
+              ("bf16", "halo_clover_xpay"), k6),
+        entry("dslash_eo<double> 18-real halo clover_inv (K6 with K3, sharded clover "
+              "certification 4o fused), timed on the one-rank mesh",
+              mo_cl["fused"][1]["float64:clover_inv:halo"], halo_abs[("f64", "clover_inv")],
+              ("f64", "halo_clover_inv"), k6),
+        entry("dslash_eo<double> 18-real halo clover_xpay (K6 with K3, sharded clover "
+              "certification 4o fused), timed on the one-rank mesh",
+              mo_cl["fused"][1]["float64:clover_xpay:halo"], halo_abs[("f64", "clover_xpay")],
+              ("f64", "halo_clover_xpay"), k6),
+        entry("dslash_eo<float> reconstruct-12 halo xpay_full (K6 with K2, sharded MG fine "
+              "operator 4p), xpay timed on the one-rank mesh", mp_counts["float32:halo"],
+              halo_abs["f32"], ("f32", "halo_xpay"), k6),
+        entry("dslash_eo<bf16> reconstruct-12 halo xpay_full (K6 with K2, sharded MG smoother "
+              "4p), xpay timed on the one-rank mesh", mp_counts["bfloat16:halo"],
+              halo_abs["bf16"], ("bf16", "halo_xpay"), k6),
+        entry("dslash_eo<double> 18-real halo xpay_full (K6 with K2, sharded MG certification "
+              "4p), xpay timed on the one-rank mesh", mp_counts["float64:halo"],
+              halo_abs["f64"], ("f64", "halo_xpay"), k6),
+        entry("dslash_eo<float> reconstruct-12 halo dirs (K6 with K4, sharded MG Galerkin "
+              "probing 4p, one leg a launch), one dirs leg timed unsharded",
+              mp_counts["float32:dirs:halo"], dirs_abs["f32"], ("f32", "dirs"),
+              "tpuqcd/ops/dslash_pallas.py:428"),
+        entry("dslash_eo<float> reconstruct-12 halo twist_inv/xpay (K6 with K2, sharded eigCG "
+              "normal operator 4q), xpay timed on the one-rank mesh", mq_counts["float32:halo"],
+              halo_abs["f32"], ("f32", "halo_xpay"), k6),
+        entry("dslash_eo<double> 18-real halo (K6, sharded eigCG prepare, residuals and "
+              "reconstruction 4q), xpay timed on the one-rank mesh", mq_counts["float64:halo"],
+              halo_abs["f64"], ("f64", "halo_xpay"), k6),
+        entry("dslash_eo<float> reconstruct-12 overlap interior + slab repairs "
+              "(parallel/overlap.py; sharded twisted-mass sloppy operator 4o overlap, interior "
+              "launches on one rank), twist_inv timed at the (2, 2, 1) shard",
+              mo_tm["overlap"][1]["float32"], overlap_abs["f32"],
+              ("f32", "overlap_twist_inv_221"), "tpuqcd/parallel/overlap.py:181"),
+        entry("dslash_eo<double> 18-real overlap interior + slab repairs (sharded "
+              "certification 4o overlap), twist_inv timed at the (2, 2, 1) shard",
+              mo_tm["overlap"][1]["float64"], overlap_abs["f64"],
+              ("f64", "overlap_twist_inv_221"), "tpuqcd/parallel/overlap.py:181"),
+        entry("dslash_eo<bf16> reconstruct-12 overlap interior + slab repairs, clover_inv "
+              "(sharded clover sloppy operator 4o overlap), timed at the (2, 2, 1) shard",
+              mo_cl["overlap"][1]["bfloat16:clover_inv"], overlap_abs["bf16"],
+              ("bf16", "overlap_clover_inv_221"), "tpuqcd/parallel/overlap.py:181"),
+        entry("dslash_eo<double> 18-real overlap interior + slab repairs, clover_inv "
+              "(sharded clover certification 4o overlap), timed at the (2, 2, 1) shard",
+              mo_cl["overlap"][1]["float64:clover_inv"], overlap_abs["f64"],
+              ("f64", "overlap_clover_inv_221"), "tpuqcd/parallel/overlap.py:181"),
         # on no path, in tpuqcd as here: held in phase 3, timed in phase 5
         entry("dslash_eo<float> reconstruct-8 (K5; no caller but dslash_eo, on no path), xpay "
               "timed", 0, r8_abs["f32"], ("f32", "xpay_r8"),

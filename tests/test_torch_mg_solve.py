@@ -202,7 +202,8 @@ def test_mg_solver_builds_a_flavor_on_first_use_and_dumps(tmp_path):
 
 
 @pytest.mark.parametrize("raw", [
-    # twisted clover is in the slice; its sharded multigrid is not
+    # the sharded multigrid, twisted mass and clover, is in run_invert's slice; the
+    # physics programs on a mesh are not
     {"mg": {"enabled": True}, "action": {"csw": 1.0}, "mesh": {"nt": 2}},
     {"mg": {"enabled": True, "gcr_dtype": "bfloat16"}},
     {"mg": {"enabled": True, "vec_dtype": "bfloat16"}},
@@ -213,10 +214,15 @@ def test_unported_mg_configurations_raise(raw):
     raw = {**raw, "gauge": {"dims": [8, 8, 8, 8], **raw.get("gauge", {})}}
     if "heatbath_n_cfg" in raw["gauge"]:
         # the heatbath chain is in the slice since the gauge input came; with MG on a
-        # mesh it is not
+        # mesh it is run_invert's, not the physics programs'
         check_in_slice(config_from_dict(raw))
         raw = {**raw, "mg": {"enabled": True}, "mesh": {"nt": 2}}
     cfg = config_from_dict(raw)
+    if "mesh" in raw:
+        check_in_slice(cfg, invert=True)
+        with pytest.raises(NotImplementedError, match="item 14, physics on a mesh"):
+            check_in_slice(cfg)
+        return
     with pytest.raises(NotImplementedError) as e:
         check_in_slice(cfg)
     assert "not ported" in str(e.value)

@@ -117,14 +117,17 @@ def test_eigcg_is_in_the_slice_and_refuses_clover():
     with pytest.raises(NotImplementedError, match="eigcg runs on the plain twisted-mass"):
         make_solver(config_from_dict(raw), LAT, u)
     # MG takes the eigCG config; gauge fixing and ILDG files are in the slice since the
-    # gauge input came
+    # gauge input came; a mesh is run_invert's (the sharded eigCG), not the loop run's
     for key, value, item in (("mg", {"enabled": True, "block": [[2, 2, 2, 2]]}, None),
                              ("action", {"mu_list": [0.1]}, "12"),
                              ("gauge", {"dims": list(LAT.dims), "fix": "landau"}, None),
-                             ("gauge", {"dims": list(LAT.dims), "config_file": "x.ildg"}, None)):
+                             ("gauge", {"dims": list(LAT.dims), "config_file": "x.ildg"}, None),
+                             ("mesh", {"nt": 2}, "14")):
         bad = {**raw_config("plain", "unused.h5"), key: value}
         if item is None:
             check_in_slice(config_from_dict(bad))
             continue
+        if key == "mesh":
+            check_in_slice(config_from_dict(bad), invert=True)
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             check_in_slice(config_from_dict(bad))

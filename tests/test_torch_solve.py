@@ -149,19 +149,26 @@ def test_cuda_device_without_cuda_raises():
     ("gauge", "fix", "landau"), ("gauge", "random_seeds", [1, 2]),
     ("gauge", "config_files", ["a.lime", "b.lime"]), ("solver", "solver", "eigcg")])
 def test_out_of_slice_config_raises(section, key, value):
+    """The mass sweep stays out of the slice; on a mesh everything else is
+    run_invert's, and the physics programs refuse the mesh (ROADMAP item 14)."""
     raw = {"gauge": {"dims": [4, 4, 4, 8]}, section: {key: value}}
     if section == "gauge":
         raw["gauge"][key] = value
-    if key == "csw":    # twisted clover is in the slice; its sharded solve is not
+    if key == "csw":    # twisted clover is in the slice, and so is its sharded solve
         raw["mesh"] = {"nt": 2}
-    if key == "epsbar":  # the doublet is in the slice, also on a mesh, but not y-sharded
+    if key == "epsbar":  # the doublet is in the slice, also on a y-sharded mesh
         raw["mesh"] = {"nt": 2, "ny": 2}
     if value == "eigcg" or section == "gauge":
         # eigCG is in the slice since the loop run, the gauge input (ILDG files,
-        # ensembles, gauge fixing) since it came; on a mesh without epsbar neither is
+        # ensembles, gauge fixing) since it came; on a mesh both are run_invert's
         check_in_slice(config_from_dict(raw))
         raw["mesh"] = {"nt": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if key == "mu_list":
+        with pytest.raises(NotImplementedError, match="item 12"):
+            check_in_slice(config_from_dict(raw), invert=True)
+        return
+    check_in_slice(config_from_dict(raw), invert=True)
+    with pytest.raises(NotImplementedError, match="item 14, physics on a mesh"):
         check_in_slice(config_from_dict(raw))
 
 

@@ -6,7 +6,11 @@ a random or quenched heatbath gauge (``ops/heatbath.py``), with the
 even-odd Wilson hop as a hand-written CUDA kernel for Hopper
 (``csrc/dslash_eo.cu``, bound in ``ops/dslash_cuda.py``; its epilogues
 apply the twisted-mass or clover site term, its leg modes feed the MG
-Galerkin probing).  The clover term is ``ops/clover.py``.  Module names
+Galerkin probing).  The clover term is ``ops/clover.py``.  On a mesh of
+ranks (``parallel/``: one process per card under torchrun) the solves
+run sharded, the hop by the kernel's halo mode or by the interior/
+exterior split of ``parallel/overlap.py``, the multigrid's fine level in
+``mg/shard.py``.  Module names
 mirror ``tpuqcd`` so that each counterpart is easy to find; the field
 layouts at every public function are the same as there:
 

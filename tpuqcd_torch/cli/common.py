@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import logging
 import os
 import sys
@@ -68,25 +69,24 @@ def _not_ported(what: str, item: str):
                               f"(ROADMAP.md, Queue 1 item {item})")
 
 
-def check_in_slice(cfg: RunConfig, threep: bool = False) -> None:
+def is_mesh(cfg: RunConfig) -> bool:
+    """Whether cfg.mesh spans several ranks (as in tpuqcd, a mesh of one
+    device is no mesh)."""
+    return cfg.mesh.nt * cfg.mesh.nz * cfg.mesh.ny > 1
+
+
+def check_in_slice(cfg: RunConfig, threep: bool = False, invert: bool = False) -> None:
     """Refuse the configurations the port does not run yet; with ``threep``
-    (the three-point run) also one without physics.t_sinks."""
+    (the three-point run) also one without physics.t_sinks.  ``invert``
+    (run_invert) takes a mesh, the physics programs do not."""
     if threep and not cfg.physics.t_sinks:
         raise ConfigError("physics.t_sinks is empty: the three-point run needs at least one "
                           "sink timeslice")
     a, mg = cfg.action, cfg.mg
-    # as in tpuqcd, a mesh of one device is no mesh
-    mesh = cfg.mesh.nt * cfg.mesh.nz * cfg.mesh.ny > 1
-    if mg.enabled and mesh:
-        _not_ported("mg.enabled with mesh (the sharded multigrid)", "13, multi-device")
-    if mesh and a.epsbar == 0.0:
-        _not_ported("mesh without action.epsbar (the sharded twisted-mass and clover solves, "
-                    "with make_solver's mesh branch)", "9 and 13, multi-device")
-    if mesh and cfg.mesh.ny > 1:
-        _not_ported("mesh.ny > 1 (a y-sharded mesh, on the overlap engine)", "13, multi-device")
-    if mesh and cfg.solver.comm_policy == "overlap":
-        _not_ported("solver.comm_policy: overlap (the interior/exterior split)",
-                    "13, multi-device")
+    if is_mesh(cfg) and not invert:
+        _not_ported("a mesh for run_twop, run_threeptwop and run_loops (their smearing, "
+                    "contractions, projections, sequential sources and loops on shards; "
+                    "run_invert takes a mesh)", "14, physics on a mesh")
     for key in ("gcr_dtype", "vec_dtype"):
         if mg.enabled and getattr(mg, key) != "float32":
             raise NotImplementedError(
@@ -286,18 +286,79 @@ def smeared_gauge(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor) -> torch.Ten
     return pack_gauge(u_dev, torch.float32).contiguous()
 
 
-def _mg_fine_level(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor, flavor: int):
+def _mg_fine_level(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor, flavor: int,
+                   lmesh=None, comm_policy: str = "fused"):
     """The twisted-mass or, with action.csw, the twisted-clover fine level
-    of the action config; the A blocks come from the float32 gauge."""
+    of the action config; the A blocks come from the float32 gauge.  With
+    a LatticeMesh the level of this rank's shard (mg/shard.ShardedFineLevel,
+    its hops under ``comm_policy``)."""
     from ..mg.device import DeviceFineCloverLevel, DeviceFineLevel
     a, u32 = cfg.action, u_pk.to(torch.float32)
     tb = -1 if cfg.gauge.antiperiodic_t else 1
+    cl_pk = None
     if a.csw != 0.0:
         from ..solve import clover_pk_from_gauge
         cl_pk = clover_pk_from_gauge(u32, lat, kappa=a.kappa, csw=a.csw)
+    if lmesh is not None:
+        from ..mg.shard import ShardedFineLevel
+        from ..parallel.dist import local_shard
+        return ShardedFineLevel.build(
+            lmesh, local_shard(u32, lmesh), a.kappa, a.mu, flavor, tb, comm_policy,
+            None if cl_pk is None else local_shard(cl_pk, lmesh))
+    if cl_pk is not None:
         return DeviceFineCloverLevel(lat, u32, cl_pk, a.kappa, a.mu, flavor=flavor,
                                      t_boundary=tb)
     return DeviceFineLevel(lat, u32, a.kappa, a.mu, flavor, t_boundary=tb)
+
+
+def comm_policy(cfg: RunConfig, lmesh, device: torch.device, tune_operands=None) -> str:
+    """The communication policy of the sharded hops
+    (tpuqcd/cli/common.py:552-584): a y-sharded mesh takes overlap (the
+    halo kernel has no y faces); solver.comm_policy fused or overlap is
+    taken as it is; auto takes fused on one rank and on the CPU, else the
+    faster on the cards: ``tune_operands()`` gives (the operator of either
+    policy by name -> one apply, a shard to apply it to, the cache tag)
+    for utils/tune.tune_comm_policy."""
+    if lmesh.ny > 1:
+        return "overlap"
+    if cfg.solver.comm_policy in ("fused", "overlap"):
+        return cfg.solver.comm_policy
+    if lmesh.size == 1 or device.type != "cuda" or tune_operands is None:
+        return "fused"
+    from ..utils.tune import tune_comm_policy
+    fns, b_loc, tag = tune_operands()
+    winner = tune_comm_policy(lmesh.lat, lmesh, fns, b_loc, tag=tag)
+    log.info("comm_policy auto -> %s", winner)
+    return winner
+
+
+def _tuning(cfg: RunConfig, lmesh, halo_gauge, u_pk: torch.Tensor, clover=None):
+    """tune_operands for comm_policy: the sloppy operator of the action
+    (twisted mass, or twisted clover with action.csw: cache tag "tm" or
+    "clover") applied under either policy; ``halo_gauge()`` gives the
+    float64 HaloGauge, ``clover`` make_clover_fields's fields when the
+    caller has them (else they are made here)."""
+    from ..parallel.dist import local_shard
+    from ..parallel.sharded import (ShardedTMCloverOperatorPC, ShardedTMOperatorPC,
+                                    clover_fields_to)
+    a, tb = cfg.action, -1 if cfg.gauge.antiperiodic_t else 1
+    sdt = torch.bfloat16 if cfg.solver.sloppy_dtype == "bfloat16" else torch.float32
+
+    def operands():
+        ug = halo_gauge()
+        if a.csw == 0.0:
+            cls, tag, fields = ShardedTMOperatorPC, "tm", ug.to(sdt, rows=2)
+        else:
+            from ..solve import make_clover_fields
+            cl = clover if clover is not None else make_clover_fields(
+                u_pk, lmesh.lat, kappa=a.kappa, mu=a.mu, csw=a.csw)
+            cls, tag = ShardedTMCloverOperatorPC, "clover"
+            fields = clover_fields_to((ug, *(local_shard(c, lmesh) for c in cl)), sdt, rows=2)
+        ops = {p: cls(lmesh.lat, kappa=a.kappa, mu=a.mu, t_boundary=tb, lmesh=lmesh,
+                      comm_policy=p) for p in ("fused", "overlap")}
+        b = torch.ones((2, 4, 3, *lmesh.local_lat.site_shape), dtype=sdt, device=ug.u.device)
+        return {p: (lambda x, op=op: op.apply(fields, x)) for p, op in ops.items()}, b, tag
+    return operands
 
 
 def mg_params(cfg: RunConfig):
@@ -320,17 +381,24 @@ class MGSolver:
     solve first asks for it, or by ``setup(flavor)``; tpuqcd builds both
     flavors up front.  The results are the same."""
 
-    def __init__(self, cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor):
+    def __init__(self, cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor, lmesh=None,
+                 comm_policy: str = "fused"):
         self.cfg, self.lat, self.u_pk = cfg, lat, u_pk
+        self.lmesh, self.comm_policy = lmesh, comm_policy
         self.params = mg_params(cfg)
         self.hierarchies = {}
+        if lmesh is not None and (cfg.mg.vec_infile or cfg.mg.vec_outfile):
+            raise NotImplementedError("mg.vec_infile/vec_outfile are single-card: drop them "
+                                      "from the config when mesh spans several ranks, as in "
+                                      "tpuqcd (cli/common.py:398-401)")
 
     def setup(self, flavor: int = +1):
         if flavor not in self.hierarchies:
             from ..utils.checkpoint import load_device_mg, save_device_mg
             from ..mg.dsolve import DeviceMG
             m = self.cfg.mg
-            lv = _mg_fine_level(self.cfg, self.lat, self.u_pk, flavor)
+            lv = _mg_fine_level(self.cfg, self.lat, self.u_pk, flavor, self.lmesh,
+                                self.comm_policy)
             if m.vec_infile:
                 mg = load_device_mg(f"{m.vec_infile}.f{flavor:+d}.npz", lv, self.params)
                 log.info("MG hierarchy loaded (flavor %+d)", flavor)
@@ -363,14 +431,15 @@ class MGSolver:
 
 
 class Solver:
-    """tpuqcd's make_solver for one card (cli/common.py:329-781): the
-    solves of the two-point run on packed fields of the run's device.
+    """tpuqcd's make_solver (cli/common.py:329-781): the solves of the
+    physics programs and of run_invert on packed fields of the run's device.
 
         solve = make_solver(cfg, lat, u_pk)
         x = solve.packed_src(b_pk, flavor=+1)          # [2(par), 2(ri), ...] float32
         xs = solve.packed_src_batch(b_pks, flavor=-1)  # [n, 2(par), 2(ri), ...] float32
         x = solve.packed(b_full)                       # from a full-layout source
         x_full = solve(b_full)                         # complex128 [T, Z, Y, X, 4, 3]
+        res = solve.solve_local(b_loc, flavor=+1)      # on a mesh: this rank's shard
 
     With mg.enabled the MG branch (MGSolver; the batch in chunks of
     solver.rhs_batch columns in lockstep); else with solver.solver eigcg
@@ -387,9 +456,17 @@ class Solver:
     ``x_first`` (for an independent residual).  ``audit``, when set, is
     called as audit(b_pks, x, flavor) after every solver call with its
     sources [n, 2(par), 2(ri), ...] and their float64 solutions, before
-    these are rounded to float32 (an independent check of every column)."""
+    these are rounded to float32 (an independent check of every column).
 
-    lmesh = None
+    On a mesh of several ranks (cfg.mesh; tpuqcd/cli/common.py:479-665)
+    every branch runs sharded: ``lmesh`` is this rank's LatticeMesh and
+    ``policy`` the communication policy (comm_policy), the direct branch
+    solve.solve_tm_sharded on the sharded twisted-mass or clover operator,
+    the MG branch mg/shard.ShardedFineLevel, eigCG
+    solve.ShardedEigCGSolver.  Each rank shards the sources it is given
+    (every rank holds the same), the columns go one at a time, and
+    packed_src returns the whole solution on every rank."""
+
     keep_first = False
     audit = None
 
@@ -397,9 +474,13 @@ class Solver:
         self.cfg, self.lat, self.u_pk = cfg, lat, u_pk
         self.rhs_batch = max(1, int(cfg.solver.rhs_batch))
         self.records: list[dict] = []
-        self.mg = MGSolver(cfg, lat, u_pk) if cfg.mg.enabled else None
+        self.lmesh, self.policy = None, None
+        if is_mesh(cfg):
+            from ..parallel.mesh import LatticeMesh
+            m = cfg.mesh
+            self.lmesh = LatticeMesh.make(lat, m.nt, m.nz, m.ny)
         self.eigcg = None
-        if self.mg is None and cfg.solver.solver == "eigcg":
+        if not cfg.mg.enabled and cfg.solver.solver == "eigcg":
             if cfg.action.csw != 0.0:
                 raise NotImplementedError(
                     "solver: eigcg runs on the plain twisted-mass operator only; with "
@@ -407,10 +488,50 @@ class Solver:
                     "clover term)")
             self.eigcg = {}
         self.clover = None
-        if self.mg is None and cfg.action.csw != 0.0:
+        if not cfg.mg.enabled and cfg.action.csw != 0.0:
             from ..solve import make_clover_fields
             self.clover = make_clover_fields(u_pk, lat, kappa=cfg.action.kappa,
                                              mu=cfg.action.mu, csw=cfg.action.csw)
+        self.sharded = None
+        if self.lmesh is not None:
+            self._setup_mesh()
+        self.mg = (MGSolver(cfg, lat, u_pk, self.lmesh, self.policy) if cfg.mg.enabled
+                   else None)
+
+    def _setup_mesh(self):
+        """The mesh's policy and, on the direct branch, the sharded operators
+        of both flavors and their operands."""
+        from ..parallel.dist import local_shard
+        from ..parallel.sharded import (ShardedTMCloverOperatorPC, ShardedTMOperatorPC,
+                                        clover_fields_to, extend_gauge)
+        cfg, lmesh, a = self.cfg, self.lmesh, self.cfg.action
+
+        @functools.lru_cache(maxsize=None)
+        def halo_gauge():
+            """The float64 HaloGauge (one face exchange), built when the
+            direct branch or the tuner reads it: the MG and eigCG levels
+            exchange their own."""
+            return extend_gauge(lmesh, local_shard(self.u_pk.to(torch.float64), lmesh))
+
+        direct = not cfg.mg.enabled and self.eigcg is None
+        self.policy = comm_policy(cfg, lmesh, self.u_pk.device,
+                                  _tuning(cfg, lmesh, halo_gauge, self.u_pk, self.clover))
+        log.info("lattice mesh: %d x %d x %d ranks over (T, Z, Y), comm_policy %s -> %s",
+                 lmesh.nt, lmesh.nz, lmesh.ny, cfg.solver.comm_policy, self.policy)
+        if not direct:
+            return
+        sdt = torch.bfloat16 if cfg.solver.sloppy_dtype == "bfloat16" else torch.float32
+        kw = dict(kappa=a.kappa, mu=a.mu, t_boundary=-1 if cfg.gauge.antiperiodic_t else 1,
+                  lmesh=lmesh, comm_policy=self.policy)
+        ug = halo_gauge()
+        if self.clover is None:
+            ops = {f: ShardedTMOperatorPC(lmesh.lat, flavor=f, **kw) for f in (+1, -1)}
+            fields = (ug.to(sdt, rows=2), ug.to(torch.float64))
+        else:
+            ops = {f: ShardedTMCloverOperatorPC(lmesh.lat, flavor=f, **kw) for f in (+1, -1)}
+            f64 = (ug, *(local_shard(c, lmesh) for c in self.clover))
+            fields = (clover_fields_to(f64, sdt, rows=2), clover_fields_to(f64, torch.float64))
+        self.sharded = (ops, *fields)
 
     def put(self, arr: torch.Tensor) -> torch.Tensor:
         """A packed array onto the solver's device."""
@@ -437,20 +558,26 @@ class Solver:
         self.records.append(rec)
 
     def _eigcg_solver(self, flavor: int):
-        """The flavor's EigCGSolver, made at its first solve."""
+        """The flavor's EigCGSolver (ShardedEigCGSolver on a mesh), made at
+        its first solve."""
         if flavor not in self.eigcg:
-            from ..solve import EigCGSolver
+            from ..solve import EigCGSolver, ShardedEigCGSolver
             a = self.cfg.action
-            self.eigcg[flavor] = EigCGSolver(
-                self.u_pk, self.lat, kappa=a.kappa, mu=a.mu, flavor=flavor,
-                t_boundary=-1 if self.cfg.gauge.antiperiodic_t else 1)
+            kw = dict(kappa=a.kappa, mu=a.mu, flavor=flavor,
+                      t_boundary=-1 if self.cfg.gauge.antiperiodic_t else 1)
+            if self.lmesh is None:
+                self.eigcg[flavor] = EigCGSolver(self.u_pk, self.lat, **kw)
+            else:
+                from ..parallel.dist import local_shard
+                self.eigcg[flavor] = ShardedEigCGSolver(
+                    local_shard(self.u_pk, self.lmesh), self.lat, self.lmesh,
+                    comm_policy=self.policy, **kw)
         return self.eigcg[flavor]
 
-    def packed_src(self, b_pk: torch.Tensor, flavor: int = +1, probe: bool = False,
-                   first_column: int = 0):
-        """One packed source -> the packed float32 solution (probe: it is
-        the batch gate's first column; first_column: its index in a batch)."""
-        b_pk, more = self.put(b_pk), {}
+    def _solve(self, b_pk: torch.Tensor, flavor: int, probe: bool = False):
+        """One source (on a mesh: this rank's shard) -> (SolveResult, the
+        record's extra keys)."""
+        more = {}
         if self.mg is not None:
             res = self.mg(b_pk, flavor)
         elif self.eigcg is not None:
@@ -460,11 +587,38 @@ class Solver:
             log.info("  eigcg solve: relres=%.2e iters=%d (space k=%d)", res.relres, res.iters,
                      es.space.k)
             more["space"] = es.space.k
+        elif self.sharded is not None:
+            from ..solve import solve_tm_sharded
+            ops, fields_s, fields_hp = self.sharded
+            c = self.cfg.solver
+            res = solve_tm_sharded(ops[int(flavor)], fields_s, fields_hp, b_pk, tol=c.tol,
+                                   maxiter=c.maxiter, inner_tol=c.inner_tol, solver=c.solver)
+            log.info("  sharded solve: relres=%.2e iters=%d", res.relres, res.iters)
         else:
             from ..solve import solve_tm
             res = solve_tm(self.u_pk, b_pk, self.lat, **self._kw(flavor))
             log.info("  solve: relres=%.2e iters=%d%s", res.relres, res.iters,
                      " (batch-gate probe)" if probe else "")
+        return res, more
+
+    def solve_local(self, b_loc: torch.Tensor, flavor: int = +1):
+        """On a mesh: this rank's shard of a packed source -> the SolveResult
+        with this rank's shard of x (every rank calls it)."""
+        if self.lmesh is None:
+            raise ValueError("solve_local solves on a mesh; use packed_src on one card")
+        return self._solve(b_loc, flavor)[0]
+
+    def packed_src(self, b_pk: torch.Tensor, flavor: int = +1, probe: bool = False,
+                   first_column: int = 0):
+        """One packed source -> the packed float32 solution (probe: it is
+        the batch gate's first column; first_column: its index in a batch)."""
+        b_pk = self.put(b_pk)
+        if self.lmesh is None:
+            res, more = self._solve(b_pk, flavor, probe)
+        else:
+            from ..parallel.dist import local_shard
+            res, more = self._solve(local_shard(b_pk, self.lmesh), flavor)
+            res = res._replace(x=self.lmesh.all_gather(res.x))
         self._record(flavor, res, first_column, probe=probe, **more)
         if self.audit is not None:
             self.audit(b_pk[None], res.x[None], flavor)
@@ -490,9 +644,9 @@ class Solver:
         solver.rhs_batch_gate_iters matvecs the others run in batches of
         solver.rhs_batch_gate_chunk (tpuqcd/cli/common.py:728-774).  eigCG
         solves the columns one after the other, each deflated by what the
-        ones before it harvested."""
+        ones before it harvested, and so does every branch on a mesh."""
         b_pks = self.put(b_pks)
-        if self.eigcg is not None:
+        if self.eigcg is not None or self.lmesh is not None:
             return torch.stack([self.packed_src(b, flavor, first_column=i)
                                 for i, b in enumerate(b_pks)])
         n, batch_n, lead = b_pks.shape[0], self.rhs_batch, None
@@ -520,10 +674,12 @@ class Solver:
         return packed_to_full(self.packed(b_full, flavor), self.lat)
 
 
-def make_solver(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor) -> Solver:
-    """The solver of the physics programs (see Solver); refuses what the
-    port does not run yet."""
-    check_in_slice(cfg)
+def make_solver(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor,
+                invert: bool = False) -> Solver:
+    """The solver of the physics programs (see Solver) or, with ``invert``,
+    of run_invert, which takes a mesh; refuses what the port does not run
+    yet."""
+    check_in_slice(cfg, invert=invert)
     if cfg.action.epsbar != 0.0:
         raise NotImplementedError("make_solver solves the light (degenerate) twisted-mass "
                                   "quark; action.epsbar selects run_invert's doublet solve")

@@ -16,13 +16,25 @@ independent float64 |b - M x| / |b| of the two-parity system, with the
 clover term when csw != 0.  gflops counts the twisted-mass Dslash flops
 of the sloppy matvecs, as tpuqcd does, for clover too.
 
+With a mesh of more than one rank (``mesh.nt/nz/ny``; torchrun, one
+process per card, NCCL, or gloo with ``--device cpu``) every solve runs
+sharded (cli/common.Solver's mesh branch: solve_tm_sharded on the sharded
+twisted-mass or clover operator, the sharded MG fine level, or the
+sharded eigCG with ``solver: eigcg``), under the communication policy of
+``solver.comm_policy`` (fused, overlap; auto times both on the cards; a
+y-sharded mesh takes overlap).  Rank 0 gathers x, computes the
+independent float64 residual with the unsharded operator and alone
+prints the RESULT line, with ``mesh=... comm_policy=...`` added.
+
+    torchrun --nproc_per_node 2 -m tpuqcd_torch.cli.run_invert \
+        --config examples/invert_mesh.yaml --device cpu
+
 ``action.epsbar`` != 0 solves the non-degenerate doublet (tpuqcd's
 _main_ndeg) for a two-column source from seed 99, by CG inside the f64
-defect correction; with a mesh of more than one rank (torchrun, one
-process per card) on the sharded doublet operator, after which rank 0
-gathers x.  Rank 0 computes the independent float64 doublet residual
-with the unsharded kernel and alone prints ``RESULT solve_seconds=...
-relres=... dims=... tol=... ndeg=1``.
+defect correction; on a mesh on the sharded doublet operator, after
+which rank 0 gathers x.  Rank 0 computes the independent float64 doublet
+residual with the unsharded kernel and alone prints ``RESULT
+solve_seconds=... relres=... dims=... tol=... ndeg=1``.
 
 With gauge.config_files, gauge.random_seeds or a heatbath chain
 (gauge.heatbath_n_cfg > 1) it solves once per ensemble member
@@ -35,14 +47,16 @@ import dataclasses
 import torch
 
 from ..parallel import dist as tdist
+from ..parallel.dist import local_shard
 from ..parallel.mesh import LatticeMesh
-from ..parallel.sharded import ShardedNdegTMOperatorPC
+from ..parallel.sharded import ShardedNdegTMOperatorPC, extend_gauge
 from ..solve import (full_system_relres, make_clover_fields, ndeg_full_relres, solve_ndeg_tm,
                      solve_ndeg_tm_sharded, solve_tm)
 from ..utils.config import RunConfig
 from ..utils.profile import Profile, solve_flops, sync
-from .common import (Gauge, MGSolver, check_in_slice, ensemble_members, log, parse_args,
-                     random_source, setup_gauge)
+from .common import (Gauge, MGSolver, check_in_slice, comm_policy,
+                     ensemble_members, is_mesh, log, make_solver, parse_args, random_source,
+                     setup_gauge)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +74,8 @@ class InvertResult:
     #: seconds of the stages before the solve: "gauge", for MG the
     #: hierarchy's "nulls0", "galerkin0", ... and their sum "mg_setup", for
     #: a direct clover solve the clover construction "clover", on a mesh the
-    #: gauge face exchange "halo"
+    #: solver's set-up "halo" (the gauge face exchange, the policy, and the
+    #: clover construction of a direct clover solve)
     setup_seconds: dict
     u_pk: torch.Tensor     # the packed float32 gauge the solve ran on
     b_pk: torch.Tensor     # the packed float32 source
@@ -79,7 +94,7 @@ def main(argv=None):
 def invert(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None) -> InvertResult:
     """The solve of ``cfg`` on ``device``; ``gauge``, what setup_gauge(cfg,
     device) returned before, saves generating it again."""
-    check_in_slice(cfg)
+    check_in_slice(cfg, invert=True)
     log.info("solver.backend=%s selects nothing in the port: the tensors' device "
              "(%s) runs the CUDA kernel or, on the CPU, its plain version",
              cfg.solver.backend, device)
@@ -87,6 +102,8 @@ def invert(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None) -> 
     setup_seconds = {"gauge": gauge_seconds}
     if cfg.action.epsbar != 0.0:
         return _invert_ndeg(cfg, device, lat, u_pk, plaq, setup_seconds)
+    if is_mesh(cfg):
+        return _invert_mesh(cfg, device, lat, u_pk, plaq, setup_seconds)
     b_pk = random_source(lat, device)
     kappa, mu, csw = cfg.action.kappa, cfg.action.mu, cfg.action.csw
     prof = Profile()
@@ -134,6 +151,56 @@ def invert(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None) -> 
                         setup_seconds=setup_seconds, u_pk=u_pk, b_pk=b_pk, mg=mg)
 
 
+def _invert_mesh(cfg: RunConfig, device: torch.device, lat, u_pk, plaq,
+                 setup_seconds) -> InvertResult:
+    """The twisted-mass or twisted-clover solve, direct, MG or eigCG, on the
+    mesh of cfg.mesh (cli/common.Solver's mesh branch): every rank solves
+    its shard of the seed-99 source, rank 0 gathers x and computes the
+    independent float64 residual with the unsharded operator."""
+    a = cfg.action
+    if not tdist.all_processes_agree(plaq, "plaquette"):
+        raise RuntimeError("the ranks built different gauges")
+    b_pk = random_source(lat, device)
+    prof = Profile()
+    with prof.phase("halo"):
+        solver = make_solver(cfg, lat, u_pk, invert=True)
+        sync(device)
+    setup_seconds["halo"] = prof.times["halo"]
+    lmesh, mg = solver.lmesh, None
+    if solver.mg is not None:
+        with prof.phase("mg_setup"):
+            mg = solver.mg.setup(+1)
+            sync(device)
+        setup_seconds.update(mg.setup_seconds, mg_setup=prof.times["mg_setup"])
+    with prof.phase("solve"):
+        res = solver.solve_local(local_shard(b_pk, lmesh), +1)
+        sync(device)
+    direct = solver.sharded is not None
+    if direct:
+        prof.add_flops("solve", solve_flops(lat, res.iters))
+    t = prof.times["solve"]
+    log.info("solver: relres=%.2e iters=%d refinements=%d", res.relres, res.iters,
+             res.refinements)
+    x = lmesh.gather(res.x)
+    rel = float("nan")
+    if x is not None:
+        clover_pk = None
+        if a.csw != 0.0:
+            clover_pk = solver.clover[0] if solver.clover is not None else None
+        rel = full_system_relres(u_pk, b_pk, x, lat, kappa=a.kappa, mu=a.mu, csw=a.csw,
+                                 clover_pk=clover_pk)
+    rel = tdist.broadcast_float(rel, device)
+    gf = prof.flops["solve"] / t / 1e9 if direct else 0.0
+    if tdist.rank() == 0:
+        log.info("wallclock %.3f s (%.1f GFLOP/s), certified |r|/|b| = %.3e", t, gf, rel)
+        print(f"RESULT solve_seconds={t:.3f} relres={rel:.3e} gflops={gf:.1f} "
+              f"dims={lat.dims} tol={cfg.solver.tol} mesh={lmesh.nt}x{lmesh.nz}x{lmesh.ny} "
+              f"comm_policy={solver.policy}")
+    return InvertResult(seconds=t, relres=rel, solver_relres=res.relres, iters=res.iters,
+                        refinements=res.refinements, gflops=gf, x=x, plaquette=plaq,
+                        setup_seconds=setup_seconds, u_pk=u_pk, b_pk=b_pk, mg=mg)
+
+
 def _invert_ndeg(cfg: RunConfig, device: torch.device, lat, u_pk, plaq,
                  setup_seconds) -> InvertResult:
     """The non-degenerate doublet solve (tpuqcd/cli/run_invert.py:146-249),
@@ -148,20 +215,32 @@ def _invert_ndeg(cfg: RunConfig, device: torch.device, lat, u_pk, plaq,
     prof = Profile()
     if m.nt * m.nz * m.ny > 1:
         lmesh = LatticeMesh.make(lat, m.nt, m.nz, m.ny)
-        log.info("ndeg lattice mesh: %d x %d x %d ranks over (T, Z, Y), comm_policy %s -> "
-                 "fused", m.nt, m.nz, m.ny, cfg.solver.comm_policy)
         if not tdist.all_processes_agree(plaq, "plaquette"):
             raise RuntimeError("the ranks built different gauges")
-        op = ShardedNdegTMOperatorPC(lat, kappa=a.kappa, mubar=a.mubar, epsbar=a.epsbar,
-                                     t_boundary=tb, lmesh=lmesh)
         with prof.phase("halo"):
-            ug = op.extend_gauge(tdist.local_shard(u_pk, lmesh))
+            ug = extend_gauge(lmesh, local_shard(u_pk, lmesh))
             fields_s, fields_hp = ug.to(sloppy, rows=2), ug.to(torch.float64)
+
+            def make_op(policy):
+                return ShardedNdegTMOperatorPC(lat, kappa=a.kappa, mubar=a.mubar,
+                                               epsbar=a.epsbar, t_boundary=tb, lmesh=lmesh,
+                                               comm_policy=policy)
+
+            def tune_operands():
+                """The doublet operator's apply under either policy."""
+                b = torch.ones((2, 2, 4, 3, *lmesh.local_lat.site_shape), dtype=sloppy,
+                               device=device)
+                return ({p: (lambda x, op=make_op(p): op.apply(fields_s, x))
+                         for p in ("fused", "overlap")}, b, "ndeg")
+            policy = comm_policy(cfg, lmesh, device, tune_operands)
+            op = make_op(policy)
             sync(device)
+        log.info("ndeg lattice mesh: %d x %d x %d ranks over (T, Z, Y), comm_policy %s -> "
+                 "%s", m.nt, m.nz, m.ny, cfg.solver.comm_policy, policy)
         setup_seconds["halo"] = prof.times["halo"]
         with prof.phase("solve"):
-            res = solve_ndeg_tm_sharded(op, fields_s, fields_hp,
-                                        tdist.local_shard(b_pk, lmesh), **solver_kw)
+            res = solve_ndeg_tm_sharded(op, fields_s, fields_hp, local_shard(b_pk, lmesh),
+                                        **solver_kw)
             sync(device)
         x = lmesh.gather(res.x)
     else:

@@ -108,6 +108,10 @@ class _FineHops:
         return torch.randn(shape, generator=generator, dtype=torch.float32,
                            device=self.device)
 
+    def transfer(self, block, v_pk: torch.Tensor) -> "DeviceFineTransfer":
+        """The fine transfer of null vectors v_pk [n, *field shape]."""
+        return DeviceFineTransfer.from_pk(self.lat, block, v_pk)
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceFineLevel(_FineHops):
@@ -344,6 +348,11 @@ class _Transfer:
     def Vc(self) -> int:
         return int(np.prod(self.dims_c))
 
+    @property
+    def n_agg(self) -> int:
+        """The aggregates this transfer holds (Vc, or a shard's share)."""
+        return self.v.shape[1]
+
     def gram_linv(self) -> torch.Tensor:
         """Linv from the raw vectors: the Gram matrix of each (chirality,
         aggregate), Cholesky and triangular inverse (utils/pkalg)."""
@@ -360,7 +369,7 @@ class _Transfer:
         rb = r[None] if single else r
         B = rb.shape[0]
         rc = self.linv @ (self.v.mH @ self._to_agg(rb))       # [2, Nagg, n, B]
-        c = rc.permute(3, 0, 2, 1).reshape(B, self.n_c, self.Vc)
+        c = rc.permute(3, 0, 2, 1).reshape(B, self.n_c, self.n_agg)
         out = torch.stack([c.real, c.imag], dim=1)
         return out[0] if single else out
 
@@ -368,7 +377,7 @@ class _Transfer:
         """[(B,) 2, N, Vc] -> fine field (or the batch [B, ...] of them)."""
         single = xc.ndim == 3
         xb = xc[None] if single else xc
-        c = torch.complex(xb[:, 0], xb[:, 1]).reshape(-1, 2, self.n_vec, self.Vc)
+        c = torch.complex(xb[:, 0], xb[:, 1]).reshape(-1, 2, self.n_vec, self.n_agg)
         tmp = self.linv.mH @ c.permute(1, 3, 2, 0)             # [2, Nagg, n, B]
         out = self._from_agg(self.v @ tmp)
         return out[0] if single else out

@@ -13,6 +13,11 @@ kernel launch, every transfer and coarse apply one batched product, with
 one scalar per column (utils/pkalg, cols=True).  Columns that have converged
 keep polishing until every column meets the tolerance, and the iteration
 count is the common one.
+
+A sharded fine level (mg/shard.ShardedFineLevel) makes the hierarchy
+run on a LatticeMesh: the fine level's reductions sum over the ranks
+(``_scope``), the coarse levels are replicated and reduce locally, and
+its columns go one at a time.
 """
 from __future__ import annotations
 
@@ -22,12 +27,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..solvers import reductions
 from ..solvers.krylov_pk import (GCRResultPk, _gcr_cycle, bicgstab_fixed_pk, cg_fixed_pk,
                                  gcr_fixed_pk, mr_smoother_pk)
 from ..utils import pkalg as pk
 from ..utils.profile import sync
-from .device import (DeviceCoarseTransfer, DeviceFineLevel, DeviceFineTransfer,
-                     build_coarse_device, g5_fine)
+from .device import DeviceCoarseTransfer, DeviceFineLevel, build_coarse_device, g5_fine
 
 
 @dataclasses.dataclass
@@ -94,18 +99,20 @@ class DeviceMG:
         if generator is None:
             generator = torch.Generator(device=fine.device).manual_seed(params.seed)
         self.params = params
+        self.lmesh = getattr(fine, "lmesh", None)
         self.levels, self.transfers = [fine], []
         self.setup_seconds = {}
         level = fine
         for depth, nv in enumerate(params.n_vec):
             t0 = time.perf_counter()
-            nulls = self._gen_null_vectors(level, nv, params.setup_iters, generator,
-                                           params.setup_solver)
+            with self._scope(depth):
+                nulls = self._gen_null_vectors(level, nv, params.setup_iters, generator,
+                                               params.setup_solver)
             sync(fine.device)
             self.setup_seconds[f"nulls{depth}"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             if depth == 0:
-                tr = DeviceFineTransfer.from_pk(fine.lat, params.block[depth], nulls)
+                tr = fine.transfer(params.block[depth], nulls)
             else:
                 tr = DeviceCoarseTransfer.from_pk(level.dims, level.n, params.block[depth],
                                                   nulls)
@@ -135,6 +142,7 @@ class DeviceMG:
         _check_params(params)
         mg = cls.__new__(cls)
         mg.params = params
+        mg.lmesh = getattr(fine, "lmesh", None)
         mg.levels = [fine, *coarse_levels]
         mg.transfers = list(transfers)
         mg.setup_seconds = {}
@@ -170,11 +178,21 @@ class DeviceMG:
             buf[i] = x
         return buf
 
+    def _scope(self, depth: int):
+        """The reductions of level ``depth``: over the mesh's ranks on a
+        sharded fine level (mg/shard.py), local on the replicated coarse
+        levels and on one card."""
+        return reductions.over(self.lmesh if depth == 0 else None)
+
     # --- the cycle -----------------------------------------------------------
 
     def _vcycle(self, depth: int, b: torch.Tensor, cols: bool = False) -> torch.Tensor:
         """One V-cycle from level ``depth`` down on one field, or with
         ``cols`` on a batch [N, 2(ri), ...] in lockstep."""
+        with self._scope(depth):
+            return self._vcycle_level(depth, b, cols)
+
+    def _vcycle_level(self, depth: int, b: torch.Tensor, cols: bool) -> torch.Tensor:
         p = self.params
         lv = self.levels[depth]
         if depth == len(self.levels) - 1:
@@ -201,6 +219,11 @@ class DeviceMG:
         return self._vcycle(0, r)
 
     # --- N right-hand sides in lockstep ---------------------------------------
+
+    def _single_card(self, what: str) -> None:
+        if self.lmesh is not None:
+            raise NotImplementedError(f"{what}: a sharded hierarchy solves its columns one "
+                                      "at a time, as tpuqcd's (cli/common.py:452-456)")
 
     def batch_bytes(self, n_rhs: int) -> int:
         """Device memory solve_certified_batch holds at its peak for n_rhs
@@ -231,6 +254,7 @@ class DeviceMG:
         [N, 2(ri), 2(par), 4, 3, T, Z, S] float32, until every column meets
         tol (tpuqcd/mg/dsolve.py:349).  relres is a list, one per column;
         iters the common count.  A zero column stays zero."""
+        self._single_card("solve_batch")
         bsq = pk.norm2(b, cols=True)
         live = bsq > 0
         bnorm = torch.sqrt(torch.where(live, bsq, torch.ones_like(bsq)))
@@ -261,6 +285,7 @@ class DeviceMG:
         layout, relres a list, iters the inner iterations (common to the
         columns).  Raises MemoryError before allocating when the GCR basis
         of N columns does not fit the card (batch_bytes)."""
+        self._single_card("solve_certified_batch")
         self._check_batch_fits(b.shape[0])
         if inner_tol is None:
             inner_tol = self.params.inner_tol
@@ -297,6 +322,10 @@ class DeviceMG:
         """MG-preconditioned flexible GCR on M x = b in float32.  The
         right-hand side is normalized first: the epsilon floors of
         utils/pkalg are set for O(1) fields."""
+        with self._scope(0):
+            return self._solve(b, tol, maxiter)
+
+    def _solve(self, b: torch.Tensor, tol: float, maxiter: int) -> GCRResultPk:
         bsq = pk.norm2(b).item()
         if bsq == 0.0:
             return GCRResultPk(x=torch.zeros_like(b), relres=0.0, iters=0, converged=True)
@@ -325,6 +354,11 @@ class DeviceMG:
         if hp != "float64":
             raise NotImplementedError(f"hp={hp!r}: only float64 certification is ported "
                                       "(the df64 path exists for a TPU without fast f64)")
+        with self._scope(0):
+            return self._solve_certified(b, tol, inner_tol, maxiter, max_refine, verbose)
+
+    def _solve_certified(self, b, tol, inner_tol, maxiter, max_refine,
+                         verbose) -> CertifiedResult:
         if inner_tol is None:
             inner_tol = self.params.inner_tol
         if self._hp is None:

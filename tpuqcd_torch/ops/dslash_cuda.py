@@ -134,7 +134,11 @@ def reset_counts() -> None:
 
 
 class Halo(NamedTuple):
-    """The face operands of a shard's hop (see the module docstring)."""
+    """The face operands of a shard's hop (see the module docstring).
+    A shard of a y-sharded mesh also carries its y faces y_m, y_p [2(ri),
+    ns, 3, T, Z, X/2] and the mu=1 links of the y-1 face u_y [R, 3,
+    2(ri), T, Z, X/2], which only the overlap engine reads
+    (parallel/overlap.py): the kernel refuses them."""
     t_m: torch.Tensor
     t_p: torch.Tensor
     z_m: torch.Tensor
@@ -143,6 +147,9 @@ class Halo(NamedTuple):
     u_z: torch.Tensor
     t_offset: int
     t_global: int
+    y_m: torch.Tensor | None = None
+    y_p: torch.Tensor | None = None
+    u_y: torch.Tensor | None = None
 
     @property
     def spins(self) -> int:
@@ -341,6 +348,9 @@ def _check_halo(halo: Halo, u, psi, lat, legs_out):
     """Validate the face operands; returns them as (name, tensor) pairs."""
     if legs_out:
         raise ValueError("halo mode composes with the summed hop only, not legs_out")
+    if halo.y_m is not None:
+        raise ValueError("halo mode reads t and z faces only; a shard of a y-sharded mesh "
+                         "takes the overlap engine (parallel/overlap.py)")
     T, Z, S = lat.site_shape
     ns = halo.spins
     if ns not in (2, 4):

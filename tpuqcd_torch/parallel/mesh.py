@@ -6,8 +6,8 @@ so a y-chunk of S is a y-decomposition), in tpuqcd's device order: rank =
 (it * nz + iz) * ny + iy.  Each rank holds the local block of extent
 (Lt/nt, Lz/nz, Ly/ny); every local extent that is split is even, so the
 even-odd checkerboard in local coordinates is the global one.  Face
-exchange is in parallel/sharded.py; reductions over the mesh in
-solvers/reductions.py.
+exchange is in parallel/sharded.py (split from the compute in
+parallel/overlap.py); reductions over the mesh in solvers/reductions.py.
 
     lmesh = LatticeMesh.make(lat, nt=2, nz=2)     # needs a group of 4 ranks
     psi_loc = lmesh.shard(psi)                    # [..., T, Z, S] -> local block
@@ -76,9 +76,13 @@ class LatticeMesh:
         return ((it % self.nt) * self.nz + iz % self.nz) * self.ny + iy % self.ny
 
     def neighbour(self, axis: str, step: int) -> int:
-        """The rank ``step`` places along ``axis`` ("t" or "z"), periodic."""
+        """The rank ``step`` places along ``axis`` ("t", "z" or "y"), periodic."""
         it, iz, iy = self.coords
-        return self.rank_of(it + step, iz, iy) if axis == "t" else self.rank_of(it, iz + step, iy)
+        d = {"t": (step, 0, 0), "z": (0, step, 0), "y": (0, 0, step)}[axis]
+        return self.rank_of(it + d[0], iz + d[1], iy + d[2])
+
+    def axis_size(self, axis: str) -> int:
+        return {"t": self.nt, "z": self.nz, "y": self.ny}[axis]
 
     @property
     def local_dims(self) -> tuple[int, int]:
@@ -109,6 +113,24 @@ class LatticeMesh:
         """This rank's block of a field whose last axes are [T, Z, S] (a view)."""
         return x[(..., *self._block(*self.coords))]
 
+    def _assemble(self, parts) -> torch.Tensor:
+        """The whole field from every rank's block, in rank order."""
+        T, Z, S = self.lat.Lt, self.lat.Lz, self.lat.Ly * self.lat.Lx // 2
+        out = parts[0].new_empty((*parts[0].shape[:-3], T, Z, S))
+        for r, part in enumerate(parts):
+            blk = LatticeMesh(self.lat, self.nt, self.nz, self.ny, r)
+            out[(..., *blk._block(*blk.coords))] = part
+        return out
+
+    def all_gather(self, x_loc: torch.Tensor) -> torch.Tensor:
+        """The whole field on every rank from every rank's block."""
+        if self.size == 1:
+            return x_loc
+        x_loc = x_loc.contiguous()
+        parts = [torch.empty_like(x_loc) for _ in range(self.size)]
+        dist.all_gather(parts, x_loc)
+        return self._assemble(parts)
+
     def gather(self, x_loc: torch.Tensor) -> torch.Tensor | None:
         """The whole field on rank 0 from every rank's block (None on the
         other ranks); a mesh of one rank returns its block."""
@@ -119,9 +141,4 @@ class LatticeMesh:
         dist.gather(x_loc, parts, dst=0)
         if self.rank != 0:
             return None
-        T, Z, S = self.lat.Lt, self.lat.Lz, self.lat.Ly * self.lat.Lx // 2
-        out = x_loc.new_empty((*x_loc.shape[:-3], T, Z, S))
-        for r, part in enumerate(parts):
-            blk = LatticeMesh(self.lat, self.nt, self.nz, self.ny, r)
-            out[(..., *blk._block(*blk.coords))] = part
-        return out
+        return self._assemble(parts)

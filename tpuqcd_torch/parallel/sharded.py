@@ -1,13 +1,17 @@
 """Sharded Dslash and operators: face exchange over torch.distributed and
-one halo-mode kernel launch per hop.
+one halo-mode kernel launch per hop, or the interior/exterior split.
 
-Counterpart of ``tpuqcd/parallel/sharded.py`` under the fused
-communication policy: each hop exchanges the spinor's t and z faces with
+Counterpart of ``tpuqcd/parallel/sharded.py``.  Under the ``fused``
+communication policy each hop exchanges the spinor's t and z faces with
 the neighbour ranks (``dist.batch_isend_irecv`` on contiguous buffers;
 on an axis of one rank the faces are the shard's own boundary slices)
 and launches the Dslash kernel in halo mode (ops/dslash_cuda, K6), which
-reads them where a leg steps past the local edge.  The gauge faces are
-exchanged once per gauge (extend_gauge).
+reads them where a leg steps past the local edge.  Under ``overlap`` the
+hop goes through parallel/overlap.py: the faces are posted first, the
+kernel runs on the local lattice with local-periodic wraps while they
+travel, and the boundary slabs are repaired once they arrive.  A
+y-sharded mesh takes ``overlap``: K6 has no y faces.  The gauge faces
+are exchanged once per gauge (extend_gauge).
 
 Faces travel as half-spinors (tpuqcd's default): only
 (1 -+ gamma_mu) psi enters a leg and the projector has rank 2, so a face
@@ -20,25 +24,31 @@ reals are the 48 B a float32 half-spinor would take.  The operators always
 ship half-spinor faces; exchange_faces and cut_halo take ``half=False``
 for the tests of the kernel's full-face mode.
 
-Not ported yet (ROADMAP Queue 1 item 13): the interior/exterior overlap
-engine (parallel/overlap.py), a y-sharded mesh, ShardedTMCloverOperatorPC.
-
     lmesh = LatticeMesh.make(lat, nt=2)
     op = ShardedTMOperatorPC(lat, kappa=0.115, mu=0.05, lmesh=lmesh)
     ug = op.extend_gauge(lmesh.shard(u_pk).contiguous())
     y_loc = op.apply(ug, lmesh.shard(psi).contiguous())
+    op = ShardedTMCloverOperatorPC(lat, kappa=0.115, mu=0.05, lmesh=lmesh,
+                                   comm_policy="overlap")
+    fields = op.extend_fields(u_loc, cl_loc, clinv_plus_loc, clinv_minus_loc)
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.distributed as dist
 
 from ..gammas import HALF_PROJ_MINUS, HALF_PROJ_PLUS
-from ..operators import PackedNdegTMOperatorPC, PackedTMOperatorPC
+from ..operators import PackedNdegTMOperatorPC, PackedTMCloverOperatorPC, PackedTMOperatorPC
 from ..ops.dslash_cuda import Halo, dslash_eo
 from .mesh import LatticeMesh
+
+#: the communication policies: the K6 halo launch, or the interior/exterior split
+COMM_POLICIES = ("fused", "overlap")
+#: the axes of the spinor faces, their direction mu and site dim of [T, Z, S]
+FACE_AXES = (("t", 3), ("z", 2), ("y", 1))
 
 
 def half_tables(dagger: bool):
@@ -49,26 +59,28 @@ def half_tables(dagger: bool):
     return HALF_PROJ_MINUS, HALF_PROJ_PLUS
 
 
+@functools.lru_cache(maxsize=None)
+def _projector_terms(entries: tuple, device: torch.device, dtype: torch.dtype):
+    """A 2x4 complex half-projector (``entries`` row-major; 0, +-1, +-i, two
+    of them not 0 in each row) acting on a packed spinor, as the two terms
+    of each of its 4 real outputs (re and im of 2 spins): the packed input
+    rows (ri, spin) [4, 2] and their signs [4, 2, 1] on ``device``."""
+    c = torch.tensor(entries, dtype=torch.complex128).reshape(2, 4)
+    m = torch.stack([torch.cat([c.real, -c.imag], 1),
+                     torch.cat([c.imag, c.real], 1)]).reshape(4, 8)
+    rows = torch.stack([torch.nonzero(r).flatten() for r in m])
+    sign = torch.gather(m, 1, rows)[..., None]
+    return rows.to(device), sign.to(device=device, dtype=dtype)
+
+
 def hproj_pk(psi: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     """A 2x4 half-projector (entries 0, +-1, +-i) on a packed spinor
-    [2(ri), 4, 3, ...] -> [2(ri), 2, 3, ...], by adds and sign flips."""
-    re, im = psi[0], psi[1]
-    rows_r, rows_i = [], []
-    for s in range(2):
-        r = i_ = None
-        for k in range(4):
-            c = complex(tab[s, k])
-            if c == 0:
-                continue
-            if c.imag == 0:          # +-1
-                tr, ti = (re[k], im[k]) if c.real > 0 else (-re[k], -im[k])
-            else:                    # +-i: (i b z).re = -b z.im, .im = b z.re
-                tr, ti = (-im[k], re[k]) if c.imag > 0 else (im[k], -re[k])
-            r = tr if r is None else r + tr
-            i_ = ti if i_ is None else i_ + ti
-        rows_r.append(r)
-        rows_i.append(i_)
-    return torch.stack([torch.stack(rows_r), torch.stack(rows_i)])
+    [2(ri), 4, 3, ...] -> [2(ri), 2, 3, ...]: each output is a sum of two
+    input rows with signs, exact."""
+    rows, sign = _projector_terms(tuple(tab.flatten().tolist()), psi.device, psi.dtype)
+    x = psi.reshape(8, -1)
+    out = sign[:, 0] * x[rows[:, 0]] + sign[:, 1] * x[rows[:, 1]]
+    return out.reshape(2, 2, *psi.shape[2:])
 
 
 def _ships_half(half: bool, dtype: torch.dtype) -> bool:
@@ -76,15 +88,55 @@ def _ships_half(half: bool, dtype: torch.dtype) -> bool:
     return half and dtype != torch.bfloat16
 
 
-def _pack_faces(lo: torch.Tensor, hi: torch.Tensor, mu: int, dagger: bool, half: bool):
-    """The slices a shard sends: its last slice (the t-1 or z-1 face of
-    the rank above, read by backward legs) and its first (the t+1 or z+1
-    face of the rank below, read by forward legs), contiguous, projected
-    when ``half``."""
-    if not _ships_half(half, lo.dtype):
-        return lo.contiguous(), hi.contiguous()
+def boundary_slice(x: torch.Tensor, axis: str, first: bool, xh: int) -> torch.Tensor:
+    """The first or last slice of a field [..., T, Z, S] along ``axis``,
+    the slice dim kept; a y slice is the Xh-wide row at the start or the
+    end of the y-major S axis."""
+    if axis == "t":
+        return x[..., :1, :, :] if first else x[..., -1:, :, :]
+    if axis == "z":
+        return x[..., :1, :] if first else x[..., -1:, :]
+    return x[..., :xh] if first else x[..., -xh:]
+
+
+def _face(x: torch.Tensor, axis: str, mu: int, table, half: bool) -> torch.Tensor:
+    """A face slab as it travels: t and z faces without their unit dim
+    ([2(ri), ns, 3, Z, S] or [.., T, S]), y faces [2(ri), ns, 3, T, Z, Xh];
+    projected with ``table`` when half-spinors ship."""
+    if axis == "t":
+        x = x[..., 0, :, :]
+    elif axis == "z":
+        x = x[..., 0, :]
+    return hproj_pk(x, table[mu]) if _ships_half(half, x.dtype) else x.contiguous()
+
+
+def pack_faces(lmesh: LatticeMesh, psi: torch.Tensor, dagger: bool, half: bool = True,
+               axes=("t", "z", "y")):
+    """The faces a shard sends along ``axes``, by axis: (its last slice,
+    read by the backward legs of the rank above; its first slice, read by
+    the forward legs of the rank below), projected when ``half``."""
     fwd, bwd = half_tables(dagger)
-    return hproj_pk(lo, bwd[mu]), hproj_pk(hi, fwd[mu])
+    xh = lmesh.lat.Lx // 2
+    return {axis: (_face(boundary_slice(psi, axis, False, xh), axis, mu, bwd, half),
+                   _face(boundary_slice(psi, axis, True, xh), axis, mu, fwd, half))
+            for axis, mu in FACE_AXES if axis in axes}
+
+
+def _p2p_ops(lmesh: LatticeMesh, axis: str, up: torch.Tensor, down: torch.Tensor | None,
+             tag: int):
+    """The sends and receives of one axis' ring; returns (ops, the buffer
+    for what the previous rank sent up, the buffer for what the next rank
+    sent down)."""
+    nxt, prv = lmesh.neighbour(axis, +1), lmesh.neighbour(axis, -1)
+    from_below = torch.empty_like(up)
+    ops = [dist.P2POp(dist.isend, up, nxt, tag=tag),
+           dist.P2POp(dist.irecv, from_below, prv, tag=tag)]
+    from_above = None
+    if down is not None:
+        from_above = torch.empty_like(down)
+        ops += [dist.P2POp(dist.isend, down, prv, tag=tag + 1),
+                dist.P2POp(dist.irecv, from_above, nxt, tag=tag + 1)]
+    return ops, from_below, from_above
 
 
 def _ring(lmesh: LatticeMesh, axis: str, up: torch.Tensor, down: torch.Tensor | None):
@@ -92,29 +144,22 @@ def _ring(lmesh: LatticeMesh, axis: str, up: torch.Tensor, down: torch.Tensor | 
     previous one; returns (what the previous rank sent up, what the next
     rank sent down).  The receive from below is this shard's -1 face.  On
     an axis of one rank the shard is its own neighbour."""
-    n = lmesh.nt if axis == "t" else lmesh.nz
-    if n == 1:
+    if lmesh.axis_size(axis) == 1:
         return up, down
-    nxt, prv = lmesh.neighbour(axis, +1), lmesh.neighbour(axis, -1)
-    from_below = torch.empty_like(up)
-    ops = [dist.P2POp(dist.isend, up, nxt, tag=0), dist.P2POp(dist.irecv, from_below, prv, tag=0)]
-    from_above = None
-    if down is not None:
-        from_above = torch.empty_like(down)
-        ops += [dist.P2POp(dist.isend, down, prv, tag=1),
-                dist.P2POp(dist.irecv, from_above, nxt, tag=1)]
+    ops, from_below, from_above = _p2p_ops(lmesh, axis, up, down, 0)
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return from_below, from_above
 
 
 def exchange_faces(lmesh: LatticeMesh, psi: torch.Tensor, dagger: bool, half: bool = True):
-    """The four spinor faces of a local spinor [2(ri), 4, 3, T, Z, S]:
-    (t-1, t+1, z-1, z+1), each [2(ri), ns, 3, Z or T, S]; ns = 2 with
+    """The spinor faces of a local spinor [2(ri), 4, 3, T, Z, S]: (t-1,
+    t+1, z-1, z+1), each [2(ri), ns, 3, Z or T, S], and on a y-sharded
+    mesh y-1, y+1 [2(ri), ns, 3, T, Z, Xh] after them; ns = 2 with
     ``half``, but for bfloat16."""
-    t_m, t_p = _ring(lmesh, "t", *_pack_faces(psi[:, :, :, -1], psi[:, :, :, 0], 3, dagger, half))
-    z_m, z_p = _ring(lmesh, "z", *_pack_faces(psi[..., -1, :], psi[..., 0, :], 2, dagger, half))
-    return t_m, t_p, z_m, z_p
+    axes = ("t", "z", "y") if lmesh.ny > 1 else ("t", "z")
+    sent = pack_faces(lmesh, psi, dagger, half, axes)
+    return tuple(f for axis in axes for f in _ring(lmesh, axis, *sent[axis]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,24 +167,40 @@ class HaloGauge:
     """A shard's gauge with the links its backward legs read across an
     edge: u [4, 2, R, 3, 2, T, Z, S] local; u_t [2(par), R, 3, 2, Z, S]
     the mu=3 links of the t-1 face; u_z [2(par), R, 3, 2, T, S] the mu=2
-    links of the z-1 face."""
+    links of the z-1 face; on a y-sharded mesh u_y [2(par), R, 3, 2, T, Z,
+    Xh] the mu=1 links of the y-1 face."""
     u: torch.Tensor
     u_t: torch.Tensor
     u_z: torch.Tensor
+    u_y: torch.Tensor | None = None
 
     def to(self, dtype: torch.dtype, rows: int = 3) -> "HaloGauge":
         """The same gauge in ``dtype``; rows=2 keeps the reconstruct-12 rows."""
-        return HaloGauge(self.u[:, :, :rows].to(dtype).contiguous(),
-                         self.u_t[:, :rows].to(dtype).contiguous(),
-                         self.u_z[:, :rows].to(dtype).contiguous())
+        def cast(x, lead):
+            if x is None:
+                return None
+            return x[(slice(None),) * lead + (slice(0, rows),)].to(dtype).contiguous()
+        return HaloGauge(cast(self.u, 2), cast(self.u_t, 1), cast(self.u_z, 1),
+                         cast(self.u_y, 1))
+
+    def halo(self, lmesh: LatticeMesh, faces, parity: int) -> Halo:
+        """The Halo of a hop from source parity ``parity`` with the spinor
+        faces of exchange_faces (or overlap.PendingFaces.wait)."""
+        y = (*faces[4:6], self.u_y[parity]) if lmesh.ny > 1 else ()
+        return Halo(*faces[:4], self.u_t[parity], self.u_z[parity], lmesh.t_offset,
+                    lmesh.lat.Lt, *y)
 
 
 def extend_gauge(lmesh: LatticeMesh, u_loc: torch.Tensor) -> HaloGauge:
     """The one-time gauge exchange: the mu=3 links of the rank below's
-    last t slice and the mu=2 links of its last z slice, both parities."""
+    last t slice, the mu=2 links of its last z slice and, on a y-sharded
+    mesh, the mu=1 links of its last y row, both parities."""
     u_t, _ = _ring(lmesh, "t", u_loc[3, :, :, :, :, -1].contiguous(), None)
     u_z, _ = _ring(lmesh, "z", u_loc[2, :, :, :, :, :, -1].contiguous(), None)
-    return HaloGauge(u_loc.contiguous(), u_t, u_z)
+    u_y = None
+    if lmesh.ny > 1:
+        u_y, _ = _ring(lmesh, "y", u_loc[1, ..., -(lmesh.lat.Lx // 2):].contiguous(), None)
+    return HaloGauge(u_loc.contiguous(), u_t, u_z, u_y)
 
 
 def cut_halo(lmesh: LatticeMesh, u: torch.Tensor, psi: torch.Tensor, src_parity: int,
@@ -147,40 +208,55 @@ def cut_halo(lmesh: LatticeMesh, u: torch.Tensor, psi: torch.Tensor, src_parity:
     """One-process emulation of a shard's exchange: its local gauge and
     spinor and the Halo it would receive, cut from the global gauge
     [4, 2, R, 3, 2, Lt, Lz, S] and spinor [2(ri), 4, 3, Lt, Lz, S] (what
-    chip_smoke.py and the tests hold the kernel's halo mode with)."""
-    if lmesh.ny != 1:
-        raise NotImplementedError("a y-sharded mesh (ROADMAP Queue 1 item 13)")
-    it, iz, _ = lmesh.coords
+    chip_smoke.py and the tests hold the kernel's halo mode and the
+    overlap engine with).  On a y-sharded mesh the Halo carries the y
+    faces and face links too (the overlap engine's; K6 refuses them)."""
+    it, iz, iy = lmesh.coords
     (Tl, Zl), T, Z = lmesh.local_dims, lmesh.lat.Lt, lmesh.lat.Lz
+    Yl, Y, xh = lmesh.local_y, lmesh.lat.Ly, lmesh.lat.Lx // 2
     ts, zs = slice(it * Tl, (it + 1) * Tl), slice(iz * Zl, (iz + 1) * Zl)
+    ys = slice(iy * Yl * xh, (iy + 1) * Yl * xh)
     tm, tp, zm, zp = (it * Tl - 1) % T, (it + 1) * Tl % T, (iz * Zl - 1) % Z, (iz + 1) * Zl % Z
+    ym, yp = (iy * Yl - 1) % Y, (iy + 1) * Yl % Y
     fwd, bwd = half_tables(dagger)
 
     def face(x, mu, table):
         return hproj_pk(x, table[mu]) if _ships_half(half, x.dtype) else x.contiguous()
 
-    halo = Halo(face(psi[:, :, :, tm, zs], 3, bwd), face(psi[:, :, :, tp, zs], 3, fwd),
-                face(psi[:, :, :, ts, zm], 2, bwd), face(psi[:, :, :, ts, zp], 2, fwd),
-                u[3, src_parity, :, :, :, tm, zs].contiguous(),
-                u[2, src_parity, :, :, :, ts, zm].contiguous(), lmesh.t_offset, T)
-    return u[..., ts, zs, :].contiguous(), psi[..., ts, zs, :].contiguous(), halo
+    def row(y):
+        return slice(y * xh, (y + 1) * xh)
+
+    y = ()
+    if lmesh.ny > 1:
+        y = (face(psi[..., ts, zs, row(ym)], 1, bwd), face(psi[..., ts, zs, row(yp)], 1, fwd),
+             u[1, src_parity, ..., ts, zs, row(ym)].contiguous())
+    halo = Halo(face(psi[:, :, :, tm, zs, ys], 3, bwd), face(psi[:, :, :, tp, zs, ys], 3, fwd),
+                face(psi[:, :, :, ts, zm, ys], 2, bwd), face(psi[:, :, :, ts, zp, ys], 2, fwd),
+                u[3, src_parity, :, :, :, tm, zs, ys].contiguous(),
+                u[2, src_parity, :, :, :, ts, zm, ys].contiguous(), lmesh.t_offset, T, *y)
+    return u[..., ts, zs, ys].contiguous(), psi[..., ts, zs, ys].contiguous(), halo
 
 
-def _check_mesh(lmesh: LatticeMesh | None):
+def check_policy(lmesh: LatticeMesh | None, comm_policy: str) -> None:
     if lmesh is None:
         raise ValueError("a sharded operator needs lmesh")
-    if lmesh.ny != 1:
-        raise NotImplementedError("a y-sharded mesh needs the overlap engine, which is not "
-                                  "ported yet (ROADMAP Queue 1 item 13)")
+    if comm_policy not in COMM_POLICIES:
+        raise ValueError(f"comm_policy must be one of {COMM_POLICIES}, got {comm_policy!r}")
+    if lmesh.ny > 1 and comm_policy != "overlap":
+        raise ValueError("a y-sharded mesh needs comm_policy 'overlap': the kernel's halo "
+                         "mode reads t and z faces only")
 
 
 def sharded_hop(lmesh: LatticeMesh, ug: HaloGauge, psi: torch.Tensor, parity: int,
-                dagger: bool = False, **kw) -> torch.Tensor:
-    """One face exchange (half-spinor faces) and one halo-mode launch on a
-    shard; ``kw`` are dslash_eo's epilogue arguments."""
-    t_m, t_p, z_m, z_p = exchange_faces(lmesh, psi, dagger)
-    halo = Halo(t_m, t_p, z_m, z_p, ug.u_t[parity], ug.u_z[parity], lmesh.t_offset,
-                lmesh.lat.Lt)
+                dagger: bool = False, comm_policy: str = "fused", **kw) -> torch.Tensor:
+    """One hop on a shard: under ``fused`` one face exchange (half-spinor
+    faces) and one halo-mode launch, under ``overlap`` the interior/exterior
+    split (parallel/overlap.overlap_hop); ``kw`` are dslash_eo's epilogue,
+    dirs and out arguments."""
+    if comm_policy == "overlap":
+        from .overlap import overlap_hop
+        return overlap_hop(lmesh, ug, psi, parity, dagger, **kw)
+    halo = ug.halo(lmesh, exchange_faces(lmesh, psi, dagger), parity)
     return dslash_eo(ug.u, psi, parity, lmesh.local_lat, dagger=dagger, halo=halo, **kw)
 
 
@@ -188,23 +264,58 @@ def sharded_hop(lmesh: LatticeMesh, ug: HaloGauge, psi: torch.Tensor, parity: in
 class ShardedTMOperatorPC(PackedTMOperatorPC):
     """PackedTMOperatorPC on a shard of a LatticeMesh: the same Schur
     operator (apply, apply_dagger, normal, prepare, reconstruct,
-    apply_full) on local fields, every hop through sharded_hop.  ``u`` is
-    a HaloGauge (extend_gauge); the same class serves the sloppy operator
-    (reconstruct-12 rows, float32) and the float64 certification one."""
+    apply_full) on local fields, every hop through sharded_hop under
+    ``comm_policy``.  ``u`` is a HaloGauge (extend_gauge); the same class
+    serves the sloppy operator (reconstruct-12 rows, float32 or bfloat16)
+    and the float64 certification one."""
     lmesh: LatticeMesh | None = None
+    comm_policy: str = "fused"
 
     def __post_init__(self):
-        _check_mesh(self.lmesh)
+        check_policy(self.lmesh, self.comm_policy)
 
     def extend_gauge(self, u_loc: torch.Tensor) -> HaloGauge:
         return extend_gauge(self.lmesh, u_loc)
 
     def _hop(self, u, psi, parity, dagger=False, epilogue="none", flavor=None, psi0=None,
              xpay_scale=None):
-        return sharded_hop(self.lmesh, u, psi, parity, dagger, epilogue=epilogue,
-                           kappa=self.kappa, mu=self.mu,
+        return sharded_hop(self.lmesh, u, psi, parity, dagger, self.comm_policy,
+                           epilogue=epilogue, kappa=self.kappa, mu=self.mu,
                            flavor=self.flavor if flavor is None else flavor, psi0=psi0,
                            t_boundary=self.t_boundary, xpay_scale=xpay_scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedTMCloverOperatorPC(PackedTMCloverOperatorPC):
+    """PackedTMCloverOperatorPC on a shard of a LatticeMesh
+    (tpuqcd/parallel/sharded.py:334-534): the clover blocks are site-local,
+    so the operand tuple's clover arrays are the shard's slices and need no
+    exchange; every hop, with its fused clover_inv or clover_xpay epilogue,
+    goes through sharded_hop under ``comm_policy``.  Operand tuple
+    (extend_fields): (HaloGauge, cl_pk, clinv_plus, clinv_minus)."""
+    lmesh: LatticeMesh | None = None
+    comm_policy: str = "fused"
+
+    def __post_init__(self):
+        check_policy(self.lmesh, self.comm_policy)
+
+    def extend_fields(self, u_loc, cl_loc, clinv_plus_loc, clinv_minus_loc):
+        """The gauge's one-time face exchange beside the shard's clover arrays."""
+        return (extend_gauge(self.lmesh, u_loc), cl_loc.contiguous(),
+                clinv_plus_loc.contiguous(), clinv_minus_loc.contiguous())
+
+    def _hop(self, u, psi, parity, dagger=False, epilogue="none", flavor=None, psi0=None,
+             clover=None):
+        return sharded_hop(self.lmesh, u, psi, parity, dagger, self.comm_policy,
+                           epilogue=epilogue, kappa=self.kappa, mu=self.mu,
+                           flavor=self.flavor if flavor is None else flavor, psi0=psi0,
+                           t_boundary=self.t_boundary, clover=clover)
+
+
+def clover_fields_to(fields, dtype: torch.dtype, rows: int = 3):
+    """A sharded clover operand tuple with the gauge in ``dtype`` (rows=2:
+    reconstruct-12) and the clover arrays in ``dtype``."""
+    return (fields[0].to(dtype, rows), *(c.to(dtype).contiguous() for c in fields[1:]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,13 +324,15 @@ class ShardedNdegTMOperatorPC(PackedNdegTMOperatorPC):
     flavor-diagonal hop goes through sharded_hop, one launch per flavor;
     the flavor-mixing site terms are site-local and need no exchange."""
     lmesh: LatticeMesh | None = None
+    comm_policy: str = "fused"
 
     def __post_init__(self):
-        _check_mesh(self.lmesh)
+        check_policy(self.lmesh, self.comm_policy)
 
     def extend_gauge(self, u_loc: torch.Tensor) -> HaloGauge:
         return extend_gauge(self.lmesh, u_loc)
 
     def _hop(self, u, chi, parity, dagger):
         return torch.stack([sharded_hop(self.lmesh, u, chi[f], parity, dagger,
-                                        t_boundary=self.t_boundary) for f in (0, 1)])
+                                        self.comm_policy, t_boundary=self.t_boundary)
+                            for f in (0, 1)])

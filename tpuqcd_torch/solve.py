@@ -20,13 +20,14 @@ full_system_relres applies.
 
 The non-degenerate doublet (solve_ndeg_tm, b and x [2(fl), 2(par), 2(ri),
 4, 3, T, Z, S]) runs the same loop with CG.  On a LatticeMesh,
-solve_ndeg_tm_sharded runs it on the local shards with every reduction
-summed over the ranks; the same sharded operator certifies in float64
-(tpuqcd needs an XLA twin there, its kernel being float32 only).  The
-sharded twisted-mass solve comes with make_solver's mesh branch.
+solve_tm_sharded and solve_ndeg_tm_sharded run it on the local shards
+with every reduction summed over the ranks; the same sharded operator
+certifies in float64 (tpuqcd needs an XLA twin there, its kernel being
+float32 only).
 
 EigCGSolver keeps tpuqcd's incremental eigCG for a sequence of sources:
-one deflation space per instance, grown by every solve.
+one deflation space per instance, grown by every solve;
+ShardedEigCGSolver is its twin on a mesh.
 """
 from __future__ import annotations
 
@@ -271,6 +272,29 @@ def solve_ndeg_tm_sharded(op, fields_s, fields_hp, b_pk: torch.Tensor, *,
                           maxiter=maxiter, inner_tol=inner_tol, solver="cg")
 
 
+def _gauge_dtype(fields) -> torch.dtype:
+    """The dtype of a sharded operand: a HaloGauge or a clover tuple."""
+    return (fields[0] if isinstance(fields, tuple) else fields).u.dtype
+
+
+def solve_tm_sharded(op, fields_s, fields_hp, b_pk: torch.Tensor, *, tol: float = 1e-10,
+                     maxiter: int = 5000, inner_tol: float = 1e-5,
+                     solver: str = "cg") -> SolveResult:
+    """The twisted-mass(-clover) system on a LatticeMesh
+    (tpuqcd/solve.py:169-192): op a ShardedTMOperatorPC or
+    ShardedTMCloverOperatorPC, fields_s and fields_hp its sloppy and
+    float64 operands (a HaloGauge, or parallel/sharded.clover_fields_to's
+    tuple; the iteration runs in fields_s's dtype), b_pk this rank's shard
+    of [2(par), 2(ri), 4, 3, T, Z, S].  The same operator, on the float64
+    operands, certifies (tpuqcd needs an XLA twin there).  Every rank
+    calls it; x is this rank's shard, relres the global one."""
+    if solver not in ("cg", "bicgstab"):
+        raise ValueError(f"solver must be cg or bicgstab, got {solver!r}")
+    with reductions.over(op.lmesh):
+        return _certified(op, fields_s, fields_hp, b_pk, sdt=_gauge_dtype(fields_s), tol=tol,
+                          maxiter=maxiter, inner_tol=inner_tol, solver=solver)
+
+
 def ndeg_full_relres(u_pk: torch.Tensor, b_pk: torch.Tensor, x_pk: torch.Tensor,
                      lat: Lattice, *, kappa: float, mubar: float, epsbar: float) -> float:
     """Float64 |b - M_nd x| / |b| of the two-parity doublet system, fields
@@ -365,6 +389,31 @@ class EigCGSolver:
             x += res.x.to(torch.float64)
         return SolveResult(x=pc.reconstruct(u_hp, x, b_hp), relres=rel, iters=total,
                            refinements=nref)
+
+
+class ShardedEigCGSolver(EigCGSolver):
+    """EigCGSolver on a LatticeMesh (tpuqcd/solve.py:370-411): the sloppy
+    and float64 operators are one ShardedTMOperatorPC on the shard's
+    HaloGauge (reconstruct-12 float32, 18-real float64), every dot product
+    of eigCG, of the Rayleigh-Ritz step and of the space's absorb sums over
+    the ranks, and the deflation basis holds local shards.  u_loc is this
+    rank's gauge shard; solve takes and returns shards."""
+
+    def __init__(self, u_loc: torch.Tensor, lat: Lattice, lmesh, *, kappa: float, mu: float,
+                 flavor: int = +1, t_boundary: int = -1, comm_policy: str = "fused"):
+        from .parallel.sharded import ShardedTMOperatorPC
+        from .solvers.eigcg import EigCGSpace
+        self.lat, self.lmesh = lat, lmesh
+        self.pc = ShardedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=flavor,
+                                      t_boundary=t_boundary, lmesh=lmesh,
+                                      comm_policy=comm_policy)
+        ug = self.pc.extend_gauge(u_loc.to(torch.float64))
+        self.u32, self.u_hp = ug.to(torch.float32, rows=2), ug.to(torch.float64)
+        self.space = EigCGSpace.empty()
+
+    def solve(self, b_pk: torch.Tensor, **kw) -> SolveResult:
+        with reductions.over(self.lmesh):
+            return super().solve(b_pk, **kw)
 
 
 def solve_tm_mg(mg, b_pk: torch.Tensor, *, tol: float = 1e-10,

@@ -27,7 +27,9 @@ _MESH: contextvars.ContextVar = contextvars.ContextVar("tpuqcd_torch_reduce_mesh
 
 @contextlib.contextmanager
 def over(lmesh):
-    """Reductions inside the block sum over the ranks of ``lmesh``."""
+    """Reductions inside the block sum over the ranks of ``lmesh``; over(None)
+    makes them local again (the replicated coarse levels of a sharded
+    multigrid).  utils/pkalg's reductions follow the same scope."""
     token = _MESH.set(lmesh)
     try:
         yield
@@ -35,9 +37,16 @@ def over(lmesh):
         _MESH.reset(token)
 
 
-def _summed(s: torch.Tensor) -> torch.Tensor:
+def active() -> bool:
+    """Whether reductions sum over several ranks here."""
     lmesh = _MESH.get()
-    if lmesh is not None and lmesh.size > 1:
+    return lmesh is not None and lmesh.size > 1
+
+
+def summed(s: torch.Tensor) -> torch.Tensor:
+    """A partial sum of local shards summed over the ranks of the mesh in
+    scope (in place); itself outside ``over``."""
+    if active():
         dist.all_reduce(s)
     return s
 
@@ -51,21 +60,21 @@ def norm2(x: torch.Tensor) -> torch.Tensor:
     if x.is_complex():
         return norm2(torch.view_as_real(x))
     v = _f64(x)
-    return _summed(torch.dot(v, v))
+    return summed(torch.dot(v, v))
 
 
 def redot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Re <x, y> = Re sum conj(x) y as a float64 0-d tensor."""
     if x.is_complex():
         return redot(torch.view_as_real(x), torch.view_as_real(y))
-    return _summed(torch.dot(_f64(x), _f64(y)))
+    return summed(torch.dot(_f64(x), _f64(y)))
 
 
 def cdot(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """<x, y> = sum conj(x) y of complex fields as a (re, im) float64 pair."""
     xr, xi = _f64(x.real), _f64(x.imag)
     yr, yi = _f64(y.real), _f64(y.imag)
-    s = _summed(torch.stack([torch.dot(xr, yr) + torch.dot(xi, yi),
+    s = summed(torch.stack([torch.dot(xr, yr) + torch.dot(xi, yi),
                              torch.dot(xr, yi) - torch.dot(xi, yr)]))
     return s[0], s[1]
 
@@ -80,9 +89,9 @@ def norm2_cols(x: torch.Tensor) -> torch.Tensor:
     """sum |x_i|^2 of every field of a batch [N, ...] as float64 [N]: one
     reduction over the flattened columns."""
     v = _cols64(x)
-    return _summed(torch.linalg.vecdot(v, v))
+    return summed(torch.linalg.vecdot(v, v))
 
 
 def redot_cols(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Re <x_i, y_i> of every field of two batches [N, ...] as float64 [N]."""
-    return _summed(torch.linalg.vecdot(_cols64(x), _cols64(y)))
+    return summed(torch.linalg.vecdot(_cols64(x), _cols64(y)))

@@ -70,9 +70,10 @@ class SolverParams:
     #: parsed so that tpuqcd's YAMLs load; the port's tensor device picks
     #: the kernel or the plain version
     backend: str = "pallas"              # pallas | xla
-    #: multi-device hop: "fused" (face exchange + halo-mode kernel) is the
-    #: port's one engine, and "auto" selects it; "overlap" (the
-    #: interior/exterior split) is not ported (check_in_slice)
+    #: multi-device hop: "fused" (face exchange + halo-mode kernel) or
+    #: "overlap" (the interior/exterior split, parallel/overlap.py); "auto"
+    #: takes fused on one rank and on the CPU, overlap on a y-sharded mesh,
+    #: else the faster of the two on the cards (utils/tune.tune_comm_policy)
     comm_policy: str = "auto"            # auto | fused | overlap
     #: propagator columns solved per batched multi-RHS call (1 =
     #: sequential).  The MG path holds about rhs_batch * (2 + 2 * restart)
@@ -253,6 +254,23 @@ def validate_config(cfg: RunConfig) -> None:
             raise ConfigError("the ndeg doublet path (action.epsbar != 0) supports the plain "
                               "mixed-precision CG solver only (no mg/eigcg/csw yet)")
     _validate_mesh(cfg.mesh, dims, cfg.solver.comm_policy)
+    if cfg.mg.enabled:
+        _validate_mg_mesh(cfg.mg, cfg.mesh, dims)
+
+
+def _validate_mg_mesh(mg: MGParamsCfg, mesh: MeshParams, dims) -> None:
+    """tpuqcd's sharded-MG check: the fine aggregates stay shard-local, so
+    the first block divides every local extent that is split."""
+    if mesh.nt * mesh.nz * mesh.ny == 1:
+        return
+    _, ly, lz, lt = dims
+    bt, bz, by, _ = mg.block[0]
+    for name, extent, n, b in (("T", lt, mesh.nt, bt), ("Z", lz, mesh.nz, bz),
+                               ("Y", ly, mesh.ny, by)):
+        if n > 1 and (extent // n) % b:
+            raise ConfigError(f"sharded MG needs the local {name} extent {extent // n} "
+                              f"divisible by the {name.lower()}-block {b} (aggregates must "
+                              f"stay shard-local)")
 
 
 def _validate_physics(ph: PhysicsParams, dims) -> None:

@@ -12,6 +12,9 @@ field's dtype, so a bfloat16 field is updated in bfloat16 arithmetic.
 The epsilon floors (sdiv 1e-30, Cholesky 1e-12) are tpuqcd's; the MG
 solve normalizes its right-hand side to them (mg/dsolve.DeviceMG.solve).
 
+On a LatticeMesh the reductions sum over the ranks inside
+``solvers.reductions.over(lmesh)``, as the float64 ones do.
+
 A batch of N fields [N, 2(ri), ...] (tpuqcd vmaps this algebra over the
 right-hand sides, mg/dsolve.py:316-347) goes through the same functions
 with ``cols=True``: the re/im axis is then axis 1, the reductions return
@@ -22,6 +25,8 @@ passes ``cols`` on, so its loops run the N columns in lockstep.
 from __future__ import annotations
 
 import torch
+
+from ..solvers import reductions
 
 
 def _ri(x: torch.Tensor, cols: bool):
@@ -43,19 +48,28 @@ def cdot(x: torch.Tensor, y: torch.Tensor, dtype=torch.float32, cols: bool = Fal
         xf, yf = x.flatten(2), y.flatten(2)                       # [N, 2, M]
         re = torch.linalg.vecdot(xf, yf).sum(1)
         im = torch.linalg.vecdot(xf[:, 0], yf[:, 1]) - torch.linalg.vecdot(xf[:, 1], yf[:, 0])
+        re, im = _summed_pair(re, im)
         return _per_column(re, x), _per_column(im, x)
     re = torch.dot(x.reshape(-1), y.reshape(-1))
     im = torch.dot(x[0].reshape(-1), y[1].reshape(-1)) - torch.dot(x[1].reshape(-1),
                                                                   y[0].reshape(-1))
-    return re, im
+    return _summed_pair(re, im)
+
+
+def _summed_pair(re: torch.Tensor, im: torch.Tensor):
+    """(re, im) summed over the mesh's ranks in one all-reduce."""
+    if not reductions.active():
+        return re, im
+    s = reductions.summed(torch.stack([re, im]))
+    return s[0], s[1]
 
 
 def norm2(x: torch.Tensor, dtype=torch.float32, cols: bool = False) -> torch.Tensor:
     if cols:
         xf = x.to(dtype).flatten(2)
-        return _per_column(torch.linalg.vecdot(xf, xf).sum(1), x)
+        return _per_column(reductions.summed(torch.linalg.vecdot(xf, xf).sum(1)), x)
     v = x.reshape(-1).to(dtype)
-    return torch.dot(v, v)
+    return reductions.summed(torch.dot(v, v))
 
 
 def _axpy_into(out, ar, ai, x, y, sign: float, cols: bool) -> torch.Tensor:
