@@ -9,8 +9,8 @@ Phases, each of which exits non-zero on failure:
 2. the build of tpuqcd_torch/csrc/ with nvcc for sm_90a (dslash_eo_inst.cu
    once per storage type, arithmetic type and link format, side by side,
    linked with dslash_eo.cu), its seconds, and ptxas' registers, shared
-   bytes and spills of each kernel instantiation, the single and the
-   batched kernel apart;
+   bytes and spills of each kernel instantiation, the single, the pair
+   (bfloat16, two sites a thread) and the batched kernel apart;
 3. the Dslash kernel against its plain PyTorch version on the card, at
    8^3x16 and 32^3x64, in every mode the solves run (epilogues none,
    twist_inv, xpay and xpay with the kappa scale; both source parities;
@@ -36,7 +36,12 @@ Phases, each of which exits non-zero on failure:
    (2, 1, 2) meshes, every epilogue (none, twist_inv, xpay, xpay with the
    kappa scale, clover_inv, clover_xpay), both parities, dagger off and
    on, float64, float32 and bfloat16, stitched, against the unsharded
-   kernel and the plain version; then the batch
+   kernel and the plain version; the bfloat16 pair kernel bit for bit
+   against the one-site kernel on the same operands at 32^3x64 (every
+   epilogue with float32 and bfloat16 arithmetic, both parities, dagger
+   off and on, whole, into MG parity views, and in halo mode on the
+   one-rank mesh and every (2, 2) shard with half and full faces), within
+   1e-2 of the plain version, and Xh odd on the one-site kernel; then the batch
    axis (N = 1, 3, 5 and 12 right-hand sides in one launch at 8^3x16, 5
    a width the batched kernel's column warps do not divide, and
    after 4h-4n at 32^3x64 with exactly the numbers of columns their
@@ -51,9 +56,9 @@ Phases, each of which exits non-zero on failure:
    against its plain version and against float32 arithmetic, 5% of the
    largest value);
 4. the main paths, each with the kernel's launch counts set to 0 just
-   before it and read just after, the certified residual, and an
-   independent float64 residual of the solution through the plain
-   version:
+   before it and read just after (no bfloat16 launch on the one-site
+   kernel), the certified residual, and an independent float64 residual
+   of the solution through the plain version:
    a. tpuqcd_torch.cli.run_invert at 32^3x64 (random gauge seed 1,
       kappa 0.115, mu 0.08, CG, tol 1e-10);
    b. run_invert's multigrid path at 32^3x64 on the gauge of 4b and every
@@ -168,7 +173,9 @@ Phases, each of which exits non-zero on failure:
    type the solves use and for the legs_out and dirs modes, and halo mode
    on the one-rank mesh and at the (2, 2) shard size beside the plain hop
    on the same volume, beside the plain version, with GFLOP/s, effective
-   GB/s and the bound (compulsory bytes at 3.35 TB/s); the batched launch
+   GB/s and the bound (compulsory bytes at 3.35 TB/s), each bfloat16 row
+   (the pair kernel) with the one-site kernel on the same operands beside
+   it, and one dirs leg in halo mode; the batched launch
    at N = 1, 2, 4, 12 and at the numbers of columns 4h's-4n's launches
    had, each beside N single launches of the same columns in the same run
    and their ratio, and twist_inv at 4h's width; reconstruct-8 beside
@@ -295,8 +302,9 @@ def card() -> tuple[str, str]:
 
 def build() -> float:
     """Build the kernel library; print one line per kernel instantiation
-    (translation unit, single or batched kernel, its template arguments as
-    mangled, registers, shared bytes, spill stores and loads)."""
+    (translation unit, single, pair or batched kernel, its template
+    arguments as mangled, registers, shared bytes, spill stores and
+    loads)."""
     from tpuqcd_torch.ops.dslash_cuda import library
     library.get()
     unit = name = spill = ""
@@ -308,7 +316,8 @@ def build() -> float:
         elif "spill stores" in ln:
             spill = ln.strip()
         elif "Used" in ln and "registers" in ln and name:
-            kind = "batch " if "batch_kernel" in name else "single"
+            kind = ("batch " if "batch_kernel" in name else
+                    "pair  " if "dslash_eo_kernelILi2E" in name else "single")
             args = re.sub(r"^.*?kernel", "", name).split("Ev")[0]   # the template arguments
             print(f"  ptxas {unit} {kind} {args}: {ln.split(':', 1)[-1].strip()}; {spill}")
             name = spill = ""
@@ -588,6 +597,108 @@ def compare_halo(dims, dev) -> dict:
                       f"(tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     fail(f"halo mode disagrees: {dims} {name} {mode} grid {grid}")
+    return max_abs
+
+
+#: the bfloat16 modes of the pair kernel: MODES and CLOVER_MODES
+PAIR_MODES = MODES + CLOVER_MODES
+
+
+def compare_pairs(dims, dev) -> dict:
+    """The pair kernel (two sites a thread, bfloat16x2 accesses) against the
+    one-site kernel on the same operands (ops/dslash_cuda.dslash_eo_one_site),
+    bit for bit, in every bfloat16 mode: PAIR_MODES with float32 and
+    (PAIR_MODES but the clover xpay scale) bfloat16 arithmetic, both
+    parities, dagger off and on; whole, in halo mode on the one-rank mesh
+    and on every shard of the emulated (2, 2) decomposition with
+    half-spinor and full faces, and into the parity views of an MG field;
+    and against the plain version (STORAGE's 1e-2; BF16C_TOL for bfloat16
+    arithmetic) at parity 0, dagger off.  The pair launch counts under the
+    mode's key, the one-site launch under the same key with ":one_site".
+    A lattice with Xh odd (10x4x4x8) takes the one-site kernel.  Returns
+    {(compute, mode): max abs err of the pair kernel against the plain
+    version}."""
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.ops import dslash_cuda
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_one_site, dslash_eo_plain
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.parallel.sharded import cut_halo
+    lat, gauges, psi64, psi064 = problem(dims, dev, seed=10)
+    blocks = clover_operands(gauges["f64"], lat)
+    u, psi, psi0 = gauges["bf16"], psi64.bfloat16(), psi064.bfloat16()
+    field = torch.stack([psi, psi0], dim=1)                 # [2(ri), 2(par), ...]
+    meshes = [LatticeMesh(lat, 1, 1, 1, 0)] + [LatticeMesh(lat, 2, 2, 1, r) for r in range(4)]
+    max_abs = {}
+
+    def same(k, o, what):
+        torch.cuda.synchronize()
+        if not torch.isfinite(k.float()).all():
+            fail(f"{what}: non-finite pair kernel output")
+        if not torch.equal(k, o):
+            d = (k.double() - o.double()).abs().max().item()
+            fail(f"{what}: the pair kernel differs from the one-site kernel by {d:.3e}")
+
+    for compute in ("f32", "bf16"):
+        tol = 1e-2 if compute == "f32" else BF16C_TOL
+        for mode, epi, scale in PAIR_MODES:
+            if compute == "bf16" and mode == "clover_xpay_full":
+                continue
+            n_same, rel = 0, 0.0
+            for parity in (0, 1):
+                for dagger in (False, True):
+                    kw = _hop_kw(epi, scale, parity, torch.bfloat16, psi0, blocks)
+                    kw.update(dagger=dagger, compute=compute)
+                    what = (f"{'x'.join(map(str, dims))} pair {compute} {mode} parity {parity} "
+                            f"dagger {dagger}")
+                    dslash_cuda.reset_counts()
+                    k = dslash_eo(u, psi, parity, lat, **kw)
+                    o = dslash_eo_one_site(u, psi, parity, lat, **kw)
+                    keys = sorted(dslash_cuda.counts)
+                    if len(keys) != 2 or keys[1] != keys[0] + ":one_site":
+                        fail(f"{what}: launch keys {keys}")
+                    same(k, o, what)
+                    n_same += 1
+                    if (parity, dagger) == (0, False):
+                        p = dslash_eo_plain(u, psi, parity, lat, **kw).double()
+                        err = (k.double() - p).abs().max().item()
+                        max_abs[(compute, mode)] = err
+                        rel = err / p.abs().max().item()
+                    # into the parity views of an MG field, psi0 the other parity
+                    a, b = torch.empty_like(field), torch.empty_like(field)
+                    kv = dict(kw, psi0=field[:, parity] if kw["psi0"] is not None else None)
+                    dslash_eo(u, field[:, 1 - parity], 1 - parity, lat, out=a[:, parity], **kv)
+                    dslash_eo_one_site(u, field[:, 1 - parity], 1 - parity, lat, out=b[:, parity],
+                                       **kv)
+                    same(a[:, parity], b[:, parity], what + " MG views")
+                    n_same += 1
+                    for m in meshes:
+                        for half in (True, False):
+                            ul, pl, halo = cut_halo(m, u, psi, parity, dagger, half)
+                            loc = _local(m, kw)
+                            k = dslash_eo(ul, pl, parity, m.local_lat, halo=halo, **loc)
+                            o = dslash_eo_one_site(ul, pl, parity, m.local_lat, halo=halo, **loc)
+                            same(k, o, f"{what} halo grid {(m.nt, m.nz)} rank {m.rank} "
+                                 f"{'half' if half else 'full'} faces")
+                            n_same += 1
+            ok = rel <= tol
+            print(f"  {'x'.join(map(str, dims))} bf16 pair {compute} {mode:16s} bit for bit the "
+                  f"one-site kernel in {n_same} launches (whole, MG views, halo (1, 1) and (2, 2) "
+                  f"half and full); max rel err {rel:.3e} against plain (tol {tol:.0e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the pair kernel disagrees with the plain version: {dims} {compute} {mode}")
+    # Xh odd: pair_sites refuses, the one-site kernel runs and counts so
+    odd = Lattice((10, 4, 4, 8))
+    _, g_odd, x64, _ = problem(odd.dims, dev, seed=11)
+    dslash_cuda.reset_counts()
+    k = dslash_eo(g_odd["bf16"], x64.bfloat16(), 0, odd, epilogue="twist_inv", kappa=KAPPA, mu=MU)
+    p = dslash_eo_plain(g_odd["bf16"], x64.bfloat16(), 0, odd, epilogue="twist_inv", kappa=KAPPA,
+                        mu=MU).double()
+    rel = _agree(k, p, "Xh odd, the one-site kernel", 1e-2)[1]
+    if dict(dslash_cuda.counts) != {"bfloat16:one_site": 1, "plain": 1}:
+        fail(f"Xh odd: launch keys {dict(dslash_cuda.counts)}, not bfloat16:one_site")
+    print(f"  10x4x4x8 (Xh odd) bf16 twist_inv: one-site kernel (bfloat16:one_site), max rel err "
+          f"{rel:.3e} against plain")
     return max_abs
 
 
@@ -899,9 +1010,15 @@ def counted_invert(cfg, dev, gauge=None, flavors=False):
 
 
 def need_launches(counts, keys) -> None:
+    """Fails unless the path launched each kernel of keys, and if any of its
+    bfloat16 single launches took the one-site kernel (every operand of the
+    main paths is one the pair kernel takes)."""
     for key in keys:
         if counts.get(key, 0) <= 0:
             fail(f"the main path did not launch the {key} kernel: {counts}")
+    one_site = {k: v for k, v in counts.items() if k.endswith(":one_site") and v}
+    if one_site:
+        fail(f"the main path's bfloat16 launches took the one-site kernel: {one_site}")
 
 
 def check_plain(res, lat, kappa, mu, csw=0.0) -> float:
@@ -2159,9 +2276,29 @@ def bound(byts: float, flops: float, dt) -> tuple[float, str]:
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
+def one_site_beside(label, key, row, pair, one_site, card_tag) -> dict:
+    """A bfloat16 row (ms, plain ms, bound ms, bound by) of the pair kernel
+    timed again beside the one-site kernel on the same operands, in turns
+    (pair, one-site, one-site, pair; 50 launches each after 10 to warm
+    up), each the least of its turns, with their shares of the bound.
+    Returns {(storage, tag): the pair kernel's row, (storage, tag +
+    ":one_site"): the one-site kernel's, with the same plain time}."""
+    _, p_ms, b_ms, b_by = row
+    turns = {"pair": [], "one": []}
+    for which in ("pair", "one", "one", "pair"):
+        turns[which].append(time_ms(pair if which == "pair" else one_site, reps=50, warmup=10))
+    k_ms, o_ms = min(turns["pair"]), min(turns["one"])
+    print(f"{label} in turns: pair kernel {k_ms:.4f} ms ({b_ms / k_ms:.1%} of its bound), "
+          f"one-site kernel {o_ms:.4f} ms ({b_ms / o_ms:.1%}); bound {b_ms:.4f} ms by {b_by} | "
+          f"{card_tag}")
+    return {key: (k_ms, p_ms, b_ms, b_by), (key[0], key[1] + ":one_site"): (o_ms, p_ms, b_ms, b_by)}
+
+
 def timings(dev, card_tag) -> dict:
-    """{(storage, mode): (kernel ms, plain ms, bound ms, bound by)}."""
-    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    """{(storage, mode): (kernel ms, plain ms, bound ms, bound by)}; a
+    bfloat16 mode also ``mode + ":one_site"``, the one-site kernel's time
+    on the same operands."""
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_one_site, dslash_eo_plain
     lat, gauges, psi64, psi064 = problem(LARGE, dev, seed=2)
     a_pk = clover_blocks_of(gauges["f64"], lat, CL_KAPPA, CL_CSW)[1]   # at the output parity
     sites = lat.half_volume
@@ -2176,7 +2313,7 @@ def timings(dev, card_tag) -> dict:
             kw = dict(epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale,
                       psi0=psi0 if xpay else None, clover=cl if clover else None)
             k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, **kw), reps=50)
-            p_ms = time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw), reps=3, warmup=1)
+            p_ms = time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw), reps=1, warmup=1)
             flops = (FLOP_PER_SITE + (CLOVER_FLOP_PER_SITE if clover else 0)) * sites
             naive, comp = (b * sites for b in bytes_per_site(dt, rows, xpay, clover))
             b_ms, b_by = bound(comp, flops, dt)
@@ -2187,11 +2324,16 @@ def timings(dev, card_tag) -> dict:
                   f"{comp / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; bound "
                   f"{b_ms:.4f} ms by {b_by}) | plain {p_ms:.3f} ms | {card_tag}")
             out[(name, mode)] = (k_ms, p_ms, b_ms, b_by)
+            if name == "bf16":
+                out.update(one_site_beside(
+                    f"  {dims} bf16 recon-12 {mode:11s}", (name, mode), out[(name, mode)],
+                    lambda: dslash_eo(u, psi, 0, lat, **kw),
+                    lambda: dslash_eo_one_site(u, psi, 0, lat, **kw), card_tag))
     # legs_out (f32, reconstruct-12, the probing operand): one spinor and 8
     # links read, 8 spinors written per output site, 8 legs without the sum
     u, psi = gauges["f32"], psi64.float()
     k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, legs_out=True), reps=50)
-    p_ms = time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, legs_out=True), reps=3, warmup=1)
+    p_ms = time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, legs_out=True), reps=1, warmup=1)
     byts = (96 + 8 * 48 + 8 * 96) * sites
     b_ms, b_by = bound(byts, (FLOP_PER_SITE - 7 * 24) * sites, torch.float32)
     print(f"  {dims} f32 recon-12 legs_out kernel {k_ms:.4f} ms "
@@ -2201,7 +2343,7 @@ def timings(dev, card_tag) -> dict:
     out[("f32", "legs_out")] = (k_ms, p_ms, b_ms, b_by)
     # one dirs leg (the per-leg probing path): one spinor, one link, one store
     k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, dirs=((3, +1),)), reps=50)
-    p_ms = time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, dirs=((3, +1),)), reps=3, warmup=1)
+    p_ms = time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, dirs=((3, +1),)), reps=1, warmup=1)
     b_ms, b_by = bound((96 + 48 + 96) * sites, FLOP_PER_SITE // 8 * sites, torch.float32)
     print(f"  {dims} f32 recon-12 dirs (t, +1) kernel {k_ms:.4f} ms (bound {b_ms:.4f} ms by "
           f"{b_by}) | plain {p_ms:.3f} ms | {card_tag}")
@@ -2216,14 +2358,17 @@ def halo_timings(dev, card_tag) -> dict:
     and at the (2, 2) shard size (32^2 x 16 x 32), beside the plain hop on
     the same local volume.  The bound reads the spinor, the links and the
     faces (12 reals a face site, the face links) once and writes the
-    output once.  Returns {(storage, "halo_none" | "halo_none_2x2" |
-    "none_2x2"): (kernel ms, plain ms, bound ms, bound by)}."""
-    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    output once; bfloat16 with the one-site kernel beside the pair kernel.
+    On the one-rank mesh also one float32 dirs leg, (t, +1), in halo mode.
+    Returns {(storage, "halo_none" | "halo_none_2x2" | "none_2x2", and for
+    bfloat16 the first two with ":one_site"; float32 "halo_dirs"): (kernel
+    ms, plain ms, bound ms, bound by)}."""
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_one_site, dslash_eo_plain
     from tpuqcd_torch.parallel.mesh import LatticeMesh
     from tpuqcd_torch.parallel.sharded import cut_halo
     lat, gauges, psi64, _ = problem(LARGE, dev, seed=7)
     out = {}
-    for name, dt, rows, _ in HALO_STORAGE[:3]:
+    for name, dt, rows, _ in HALO_STORAGE:
         u = (gauges["f64"] if rows == 3 else gauges["f32"]).to(dt).contiguous()
         psi = psi64.to(dt)
         item = psi.element_size()
@@ -2234,7 +2379,7 @@ def halo_timings(dev, card_tag) -> dict:
             T, Z, S = llat.site_shape
             sites = llat.half_volume
             k_ms = time_ms(lambda: dslash_eo(ul, pl, 0, llat, halo=halo), reps=50)
-            p_ms = time_ms(lambda: dslash_eo_plain(ul, pl, 0, llat, halo=halo), reps=3, warmup=1)
+            p_ms = time_ms(lambda: dslash_eo_plain(ul, pl, 0, llat, halo=halo), reps=1, warmup=1)
             faces = sum(x.numel() for x in halo[:6]) * item
             byts = (24 + 8 * rows * 6 + 24) * item * sites + faces
             b_ms, b_by = bound(byts, FLOP_PER_SITE * sites, dt)
@@ -2244,12 +2389,30 @@ def halo_timings(dev, card_tag) -> dict:
                     f"compulsory with {faces / 1e6:.2f} MB of faces = "
                     f"{byts / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; bound "
                     f"{b_ms:.4f} ms by {b_by}) | plain {p_ms:.3f} ms")
+            if grid == (1, 1) and name == "f32":
+                # one dirs leg in halo mode (K6 x K4, the sharded per-leg probing):
+                # the t+1 neighbour (the face at the edge), one link, one store
+                d_ms = time_ms(lambda: dslash_eo(ul, pl, 0, llat, halo=halo, dirs=((3, +1),)),
+                               reps=50)
+                dp_ms = time_ms(lambda: dslash_eo_plain(ul, pl, 0, llat, halo=halo,
+                                                        dirs=((3, +1),)), reps=1, warmup=0)
+                d_b, d_by = bound((24 + rows * 6 + 24) * item * sites, FLOP_PER_SITE // 8 * sites,
+                                  dt)
+                out[(name, "halo_dirs")] = (d_ms, dp_ms, d_b, d_by)
+                print(f"  {'x'.join(map(str, llat.dims))} f32 recon-12 halo dirs (t, +1) (grid "
+                      f"{grid}) kernel {d_ms:.4f} ms (bound {d_b:.4f} ms by {d_by}, "
+                      f"{d_b / d_ms:.1%}) | plain {dp_ms:.3f} ms | {card_tag}")
             if grid != (1, 1):
                 # K1 none on the same local volume, periodic in the shard
                 n_ms = time_ms(lambda: dslash_eo(ul, pl, 0, llat), reps=50)
                 out[(name, "none_2x2")] = (n_ms, None, None, None)
                 line += f" | K1 none on the shard {n_ms:.4f} ms"
             print(line + f" | {card_tag}")
+            if name == "bf16":
+                out.update(one_site_beside(
+                    f"  {'x'.join(map(str, llat.dims))} bf16 recon-12 halo none (grid {grid})",
+                    (name, tag), out[(name, tag)], lambda: dslash_eo(ul, pl, 0, llat, halo=halo),
+                    lambda: dslash_eo_one_site(ul, pl, 0, llat, halo=halo), card_tag))
     return out
 
 
@@ -2269,10 +2432,12 @@ def mesh_timings(dev, card_tag) -> dict:
     row).  The bound is
     the shard's hop: the spinor, the links, psi0 and the clover blocks
     where the epilogue reads them and the faces read once, the output
-    written once; plain is the plain version of the same hop (halo mode).
-    Returns {(storage, tag): (ms, plain ms, bound ms, bound by)}, tags
-    halo_<epi>, halo_<epi>_2x2, overlap_<epi>_<grid>, interior_<epi>_<grid>."""
-    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
+    written once; plain is the plain version of the same hop (halo mode),
+    timed once.  bfloat16's halo rows have the one-site kernel on the same
+    operands beside the pair kernel (``:one_site``).  Returns {(storage,
+    tag): (ms, plain ms, bound ms, bound by)}, tags halo_<epi>,
+    halo_<epi>_2x2, overlap_<epi>_<grid>, interior_<epi>_<grid>."""
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_one_site, dslash_eo_plain
     from tpuqcd_torch.parallel.mesh import LatticeMesh
     from tpuqcd_torch.parallel.overlap import dslash_overlap
     from tpuqcd_torch.parallel.sharded import cut_halo
@@ -2300,12 +2465,19 @@ def mesh_timings(dev, card_tag) -> dict:
                 k_ms = time_ms(lambda: dslash_eo(ul, pl, 0, m.local_lat, halo=halo, **loc),
                                reps=50)
                 p_ms = time_ms(lambda: dslash_eo_plain(ul, pl, 0, m.local_lat, halo=halo, **loc),
-                               reps=2, warmup=1)
+                               reps=1, warmup=0)
                 out[(name, tag)] = (k_ms, p_ms, *bound_of(m, halo, epi))
                 print(f"  {'x'.join(map(str, m.local_lat.dims))} {name} recon-{rows * 6} halo "
                       f"{epi:11s} (grid {grid[:2]}) kernel {k_ms:.4f} ms (bound "
                       f"{out[(name, tag)][2]:.4f} ms by {out[(name, tag)][3]}, "
                       f"{out[(name, tag)][2] / k_ms:.1%}) | plain {p_ms:.3f} ms | {card_tag}")
+                if name == "bf16":
+                    out.update(one_site_beside(
+                        f"  {'x'.join(map(str, m.local_lat.dims))} bf16 recon-12 halo {epi:11s} "
+                        f"(grid {grid[:2]})", (name, tag), out[(name, tag)],
+                        lambda: dslash_eo(ul, pl, 0, m.local_lat, halo=halo, **loc),
+                        lambda: dslash_eo_one_site(ul, pl, 0, m.local_lat, halo=halo, **loc),
+                        card_tag))
             if epi not in ("twist_inv", "clover_inv"):
                 continue
             for grid in OVERLAP_GRIDS:
@@ -2431,7 +2603,7 @@ def new_timings(dev, card_tag, widths) -> dict:
         k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, **kw_b), reps=20)
         s_ms = time_ms(lambda: [dslash_eo(u, psi[i], 0, lat, psi0=psi0[i] if xpay else None,
                                           **kw) for i in range(n)], reps=10)
-        p_ms = (time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw_b), reps=2, warmup=1)
+        p_ms = (time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw_b), reps=1, warmup=1)
                 if n in widths else None)
         byts = (n * (3 if xpay else 2) * 24 + 8 * rows * 6) * item * sites
         report(name, f"{mode}_b{n}", f"{name} recon-{rows * 6} {mode} batch N={n:2d} "
@@ -2452,7 +2624,7 @@ def new_timings(dev, card_tag, widths) -> dict:
             for reals, u in links.items():
                 kw = dict(epilogue=epi, kappa=KAPPA, mu=MU, psi0=psi0 if xpay else None)
                 k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, **kw), reps=50)
-                p_ms = (time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw), reps=3, warmup=1)
+                p_ms = (time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, **kw), reps=1, warmup=1)
                         if reals == 8 else None)
                 byts = ((3 if xpay else 2) * 24 + 8 * reals) * item * sites
                 report(name, f"{mode}_r{reals}", f"{name} {reals}-real links {mode}", k_ms, p_ms,
@@ -2467,7 +2639,7 @@ def new_timings(dev, card_tag, widths) -> dict:
         for compute in ("f32", "bf16"):
             k_ms = time_ms(lambda: dslash_eo(u, psi, 0, lat, compute=compute, **kw), reps=50)
             p_ms = time_ms(lambda: dslash_eo_plain(u, psi, 0, lat, compute=compute, **kw),
-                           reps=3, warmup=1)
+                           reps=1, warmup=1)
             report("bf16", f"{mode}_c{compute}", f"bf16 recon-12 {mode} compute={compute}", k_ms,
                    p_ms, byts, FLOP_PER_SITE * sites, torch.bfloat16)
     # the lockstep CG step: the normal operator on N columns, 20 steps
@@ -2482,7 +2654,7 @@ def new_timings(dev, card_tag, widths) -> dict:
         def steps():
             _cg_cycle_cols(lambda v: pc.normal(u, v), b, never, budget, live)
 
-        ms = time_ms(steps, reps=2, warmup=1) / 20
+        ms = time_ms(steps, reps=1, warmup=1) / 20
         print(f"  {dims} lockstep CG step (f32 normal operator, 4 batched launches) N={n:2d}: "
               f"{ms:.3f} ms a step, {ms / n:.3f} ms a column | {card_tag}")
         out[("f32", f"cg_step_b{n}")] = (ms, None, None, None)
@@ -2536,6 +2708,9 @@ def main() -> None:
         "with the twisted-mass and the clover epilogues")
     compare_halo(SMALL, dev)
     halo_abs = compare_halo(LARGE, dev)
+    say("phase 3: the bfloat16 pair kernel bit for bit against the one-site kernel on the "
+        "same operands, and against the plain version")
+    pair_abs = compare_pairs(LARGE, dev)
     say("phase 3: the overlap engine on emulated (2, 2, 1) and (2, 1, 2) meshes")
     compare_overlap(SMALL, dev)
     overlap_abs = compare_overlap(LARGE, dev)
@@ -2713,16 +2888,16 @@ def main() -> None:
               counts["float64"], max_abs["f64"], ("f64", "xpay_full")),
         entry("dslash_eo<float> reconstruct-12 (MG fine operator), xpay_full timed",
               mg_counts["float32"], fine_abs["f32"], ("f32", "xpay_full")),
-        entry("dslash_eo<bf16> reconstruct-12 (MG smoother), xpay_full timed",
+        entry("dslash_eo<bf16> pair reconstruct-12 (MG smoother), xpay_full timed",
               mg_counts["bfloat16"], fine_abs["bf16"], ("bf16", "xpay_full")),
         entry("dslash_eo<double> 18-real (MG certification operator), xpay_full timed",
               mg_counts["float64"], fine_abs["f64"], ("f64", "xpay_full")),
         entry("dslash_eo<float> reconstruct-12 legs_out (K4, MG Galerkin probing)",
               mg_counts["float32:legs_out"], legs_abs["f32"], ("f32", "legs_out")),
-        entry("dslash_eo<bf16> reconstruct-12 clover_inv (K3, clover BiCGStab sloppy operator)",
+        entry("dslash_eo<bf16> pair reconstruct-12 clover_inv (K3, clover BiCGStab sloppy operator)",
               cl_counts["bfloat16:clover_inv"], clover_abs[("bf16", "clover_inv")],
               ("bf16", "clover_inv"), k3),
-        entry("dslash_eo<bf16> reconstruct-12 clover_xpay (K3, clover BiCGStab sloppy operator)",
+        entry("dslash_eo<bf16> pair reconstruct-12 clover_xpay (K3, clover BiCGStab sloppy operator)",
               cl_counts["bfloat16:clover_xpay"], clover_abs[("bf16", "clover_xpay")],
               ("bf16", "clover_xpay"), k3),
         entry("dslash_eo<double> 18-real clover_inv (K3, clover certification operator)",
@@ -2733,7 +2908,7 @@ def main() -> None:
               ("f64", "clover_xpay"), k3),
         entry("dslash_eo<float> reconstruct-12 clover_xpay (K3, MG fine clover operator)",
               mgc_counts["float32:clover_xpay"], fine_cl_abs["f32"], ("f32", "clover_xpay"), k3),
-        entry("dslash_eo<bf16> reconstruct-12 clover_xpay (K3, MG clover smoother)",
+        entry("dslash_eo<bf16> pair reconstruct-12 clover_xpay (K3, MG clover smoother)",
               mgc_counts["bfloat16:clover_xpay"], fine_cl_abs["bf16"], ("bf16", "clover_xpay"),
               k3),
         entry("dslash_eo<double> 18-real clover_xpay (K3, MG clover certification operator)",
@@ -2830,11 +3005,11 @@ def main() -> None:
         entry("dslash_eo<double> 18-real halo twist_inv/xpay/none (K6 with K2, sharded "
               "certification 4o fused), xpay timed on the one-rank mesh",
               mo_tm["fused"][1]["float64:halo"], halo_abs["f64"], ("f64", "halo_xpay"), k6),
-        entry("dslash_eo<bf16> reconstruct-12 halo clover_inv (K6 with K3, sharded clover "
+        entry("dslash_eo<bf16> pair reconstruct-12 halo clover_inv (K6 with K3, sharded clover "
               "BiCGStab sloppy operator 4o fused), timed on the one-rank mesh",
               mo_cl["fused"][1]["bfloat16:clover_inv:halo"], halo_abs[("bf16", "clover_inv")],
               ("bf16", "halo_clover_inv"), k6),
-        entry("dslash_eo<bf16> reconstruct-12 halo clover_xpay (K6 with K3, sharded clover "
+        entry("dslash_eo<bf16> pair reconstruct-12 halo clover_xpay (K6 with K3, sharded clover "
               "BiCGStab sloppy operator 4o fused), timed on the one-rank mesh",
               mo_cl["fused"][1]["bfloat16:clover_xpay:halo"], halo_abs[("bf16", "clover_xpay")],
               ("bf16", "halo_clover_xpay"), k6),
@@ -2849,15 +3024,15 @@ def main() -> None:
         entry("dslash_eo<float> reconstruct-12 halo xpay_full (K6 with K2, sharded MG fine "
               "operator 4p), xpay timed on the one-rank mesh", mp_counts["float32:halo"],
               halo_abs["f32"], ("f32", "halo_xpay"), k6),
-        entry("dslash_eo<bf16> reconstruct-12 halo xpay_full (K6 with K2, sharded MG smoother "
+        entry("dslash_eo<bf16> pair reconstruct-12 halo xpay_full (K6 with K2, sharded MG smoother "
               "4p), xpay timed on the one-rank mesh", mp_counts["bfloat16:halo"],
               halo_abs["bf16"], ("bf16", "halo_xpay"), k6),
         entry("dslash_eo<double> 18-real halo xpay_full (K6 with K2, sharded MG certification "
               "4p), xpay timed on the one-rank mesh", mp_counts["float64:halo"],
               halo_abs["f64"], ("f64", "halo_xpay"), k6),
         entry("dslash_eo<float> reconstruct-12 halo dirs (K6 with K4, sharded MG Galerkin "
-              "probing 4p, one leg a launch), one dirs leg timed unsharded",
-              mp_counts["float32:dirs:halo"], dirs_abs["f32"], ("f32", "dirs"),
+              "probing 4p, one leg a launch), one dirs leg (t, +1) timed on the one-rank mesh",
+              mp_counts["float32:dirs:halo"], dirs_abs["f32"], ("f32", "halo_dirs"),
               "tpuqcd/ops/dslash_pallas.py:428"),
         entry("dslash_eo<float> reconstruct-12 halo twist_inv/xpay (K6 with K2, sharded eigCG "
               "normal operator 4q), xpay timed on the one-rank mesh", mq_counts["float32:halo"],
@@ -2874,7 +3049,7 @@ def main() -> None:
               "certification 4o overlap), twist_inv timed at the (2, 2, 1) shard",
               mo_tm["overlap"][1]["float64"], overlap_abs["f64"],
               ("f64", "overlap_twist_inv_221"), "tpuqcd/parallel/overlap.py:181"),
-        entry("dslash_eo<bf16> reconstruct-12 overlap interior + slab repairs, clover_inv "
+        entry("dslash_eo<bf16> pair reconstruct-12 overlap interior + slab repairs, clover_inv "
               "(sharded clover sloppy operator 4o overlap), timed at the (2, 2, 1) shard",
               mo_cl["overlap"][1]["bfloat16:clover_inv"], overlap_abs["bf16"],
               ("bf16", "overlap_clover_inv_221"), "tpuqcd/parallel/overlap.py:181"),
@@ -2886,10 +3061,20 @@ def main() -> None:
         entry("dslash_eo<float> reconstruct-8 (K5; no caller but dslash_eo, on no path), xpay "
               "timed", 0, r8_abs["f32"], ("f32", "xpay_r8"),
               "tpuqcd/ops/dslash_pallas.py:247"),
-        entry("dslash_eo<bf16, compute bf16> reconstruct-12 (no caller but dslash_eo, on no "
+        entry("dslash_eo<bf16, compute bf16> pair reconstruct-12 (no caller but dslash_eo, on no "
               "path), xpay_full timed", 0, bf16c_abs, ("bf16", "xpay_full_cbf16"),
               "tpuqcd/ops/dslash_pallas.py:705"),
     ]
+    # the one-site bfloat16 kernel: the shapes pair_sites refuses, on no main path
+    path_counts = [counts, mg_counts, pl_counts, mgb_counts, mp_counts, cl_counts, mgc_counts,
+                   nd_counts, sh_counts, tw_counts, ens_counts, gf_counts, tj_counts, tk_counts,
+                   tl_counts, tl_cg_counts, mq_counts,
+                   *(mo[policy][1] for mo in (mo_tm, mo_cl) for policy in ("fused", "overlap"))]
+    kernels.append(entry(
+        "dslash_eo<bf16> one-site reconstruct-12 (the shapes ops/dslash_cuda.pair_sites refuses: "
+        "Xh odd, a misaligned view; on no main path), xpay_full timed on the pair row's operands",
+        sum(v for c in path_counts for k, v in c.items() if k.endswith(":one_site")),
+        pair_abs[("f32", "xpay_full")], ("bf16", "xpay_full:one_site")))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,8 +3,10 @@
 of MG probing (K4: dirs, legs_out), the clover epilogues (K3:
 clover_inv, clover_xpay), the MG fine operators' xpay and clover_xpay
 on parity views, halo mode (K6) on emulated shards of a (2, 2) grid with
-the doublet solve through it, the batch axis, reconstruct-8 links (K5),
-compute="bf16", and the two- and three-point runs through them.  Marked ``gpu``;
+the doublet solve through it, the bfloat16 pair kernel bit for bit against
+the one-site kernel and the one-site kernel where pair_sites refuses (Xh
+odd), the batch axis, reconstruct-8 links (K5), compute="bf16", and the
+two- and three-point runs through them.  Marked ``gpu``;
 skips without CUDA.
 
 It imports neither jax nor tpuqcd, so it runs on a machine that has only
@@ -337,6 +339,78 @@ def test_run_invert_ndeg_and_one_rank_mesh_go_through_the_kernel(cuda):
     assert dslash_cuda.counts["float32:halo"] > 0 and dslash_cuda.counts["float64:halo"] > 0
     assert dslash_cuda.counts["plain"] == 0 and dslash_cuda.counts["float32"] == 0
     assert ((sh.x - res.x).abs().max() / res.x.abs().max()).item() <= 1e-8
+
+
+# --- the bfloat16 pair kernel ------------------------------------------------
+
+PAIR_MODES = {**MODES, "clover_inv": ("clover_inv", None), "clover_xpay": ("clover_xpay", None)}
+
+
+@pytest.mark.parametrize("mode", sorted(PAIR_MODES))
+@pytest.mark.parametrize("dims", [(8, 8, 8, 16), (32, 32, 32, 64)], ids=["8c16", "32c64"])
+def test_pair_kernel_equals_the_one_site_kernel(cuda, dims, mode):
+    """A bfloat16 launch that pair_sites admits takes the pair kernel (two
+    sites a thread) and counts under the mode's key; it equals the one-site
+    kernel on the same operands bit for bit: whole, both parities, dagger
+    off and on, in halo mode on every shard of a (2, 2) grid and on the
+    one-rank mesh with half-spinor and full faces, and into the parity
+    views of an MG field."""
+    epi, scale = PAIR_MODES[mode]
+    lat, u64, psi64, psi064 = _problem(dims, cuda)
+    u = u64[:, :, :2].bfloat16().contiguous()
+    psi, psi0 = psi64.bfloat16(), psi064.bfloat16()
+    field = torch.stack([psi, psi0], dim=1)
+    key = "bfloat16" + (":" + epi if epi.startswith("clover") else "")
+    meshes = [LatticeMesh(lat, 1, 1, 1, 0)] + [LatticeMesh(lat, 2, 2, 1, r) for r in range(4)]
+    for parity in (0, 1):
+        extra = {"psi0": psi0} if epi == "xpay" else {}
+        if epi.startswith("clover"):
+            extra = {"clover": _clover(u64, lat, epi, 1 - parity).bfloat16().contiguous()}
+            if epi == "clover_xpay":
+                extra["psi0"] = psi0
+        for dagger in (False, True):
+            kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale)
+            dslash_cuda.reset_counts()
+            k = dslash_eo(u, psi, parity, lat, **kw, **extra)
+            o = dslash_cuda.dslash_eo_one_site(u, psi, parity, lat, **kw, **extra)
+            assert dict(dslash_cuda.counts) == {key: 1, key + ":one_site": 1}
+            torch.cuda.synchronize()
+            assert torch.isfinite(k.float()).all() and torch.equal(k, o), (parity, dagger)
+            a, b = torch.empty_like(field), torch.empty_like(field)
+            views = dict(extra, psi0=field[:, parity]) if "psi0" in extra else extra
+            dslash_eo(u, field[:, 1 - parity], 1 - parity, lat, out=a[:, parity], **kw, **views)
+            dslash_cuda.dslash_eo_one_site(u, field[:, 1 - parity], 1 - parity, lat,
+                                           out=b[:, parity], **kw, **views)
+            torch.cuda.synchronize()
+            assert torch.equal(a[:, parity], b[:, parity]), ("views", parity, dagger)
+            for m in meshes:
+                for half in (True, False):
+                    ul, pl, halo = cut_halo(m, u, psi, parity, dagger, half)
+                    loc = {k_: m.shard(v).contiguous() for k_, v in extra.items()}
+                    dslash_cuda.reset_counts()
+                    k = dslash_eo(ul, pl, parity, m.local_lat, halo=halo, **kw, **loc)
+                    o = dslash_cuda.dslash_eo_one_site(ul, pl, parity, m.local_lat, halo=halo,
+                                                       **kw, **loc)
+                    assert dict(dslash_cuda.counts) == {key + ":halo": 1,
+                                                        key + ":halo:one_site": 1}
+                    torch.cuda.synchronize()
+                    assert torch.equal(k, o), (parity, dagger, m.nt, m.rank, half)
+
+
+def test_xh_odd_takes_the_one_site_kernel(cuda):
+    """Lx = 10 (Xh = 5): pair_sites refuses, the one-site kernel runs,
+    counts under bfloat16:one_site and matches the plain version (1e-2)."""
+    lat, u64, psi, psi0 = _problem((10, 4, 4, 8), cuda)
+    u = u64[:, :, :2].bfloat16().contiguous()
+    psi, psi0 = psi.bfloat16(), psi0.bfloat16()
+    for parity in (0, 1):
+        kw = dict(epilogue="xpay", kappa=KAPPA, mu=MU, psi0=psi0)
+        dslash_cuda.reset_counts()
+        k = dslash_eo(u, psi, parity, lat, **kw).double()
+        assert dict(dslash_cuda.counts) == {"bfloat16:one_site": 1}
+        p = dslash_eo_plain(u, psi, parity, lat, **kw).double()
+        torch.cuda.synchronize()
+        assert ((k - p).abs().max() / p.abs().max()).item() <= 1e-2
 
 
 # --- the batch axis, reconstruct-8, compute="bf16" ----------------------------

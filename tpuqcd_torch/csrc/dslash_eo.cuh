@@ -15,12 +15,11 @@
 // ~20 flop/byte ridge for fp32 outside the tensor cores.  Each spinor is a
 // neighbour of 8 output sites, and the L1/L2 caches serve most of those
 // re-reads, so the compulsory traffic is about 672 B per site (each
-// spinor and link read once).  The design does what bandwidth asks and
-// no more, as a first, simple version:
+// spinor and link read once).  The design does what bandwidth asks:
 //   - one thread per output site of parity q = 1 - p; the layouts keep
 //     the site index minor ([2(ri), 4, 3, T, Z, S] spinors,
 //     [4, 2, R, 3, 2(ri), T, Z, S] links), so every component load of a
-//     warp is one coalesced 128-byte line;
+//     warp is one coalesced line;
 //   - reconstruct-12 rebuilds row 2 = phase * conj(row0 x row1) in
 //     registers (phase = t_boundary on t-links at global t = T-1), which
 //     cuts link traffic by a third;
@@ -29,8 +28,44 @@
 //     the single store, so one Schur-operator apply is exactly two launches;
 //   - storage is templated (float, __nv_bfloat16 with float arithmetic,
 //     double); the spin tables are compile-time constants.
-// Reuse of neighbour spinors through shared memory, TMA and wider loads
-// are later work; a Dslash has no product of tensor-core size.
+// A Dslash has no product of tensor-core size.
+//
+// bfloat16 storage, the pair kernel.  The bf16 hop moves half the f32
+// hop's bytes, but one thread a site reads every real with its own 2-byte
+// load: as many memory instructions as f32, a warp's request 64 B where
+// f32's is 128 B, twice the instructions and requests a byte (on an H100
+// the one-site bf16 K2 reaches 53% of its bound, f32 71-73%; PERF.md
+// §6).  The pair kernel (NS = 2) takes the
+// output sites xh = 2k, 2k + 1 of one (t, z, y) row: they share t, z, y,
+// o_p, the t phase and the halo edges, so every neighbour spinor, link,
+// face, psi0 and clover entry of the y, z and t legs and of the epilogue
+// is a run of two elements, read with one 4-byte __nv_bfloat162 load, and
+// the store is one 4-byte store a component.  The x legs, one of which is
+// off the pair's alignment in every row, read their spinors (and the
+// backward leg its link) element by element.  An xpay pair issues 396
+// memory instructions instead of 672.  The loads are split from the
+// arithmetic (load_spinor, rebuild_link, hop_spinor, finish): each site of
+// a pair runs the one-site code on values in registers, so the pair
+// kernel gives the one-site kernel's bits (held on the card in every
+// epilogue, dagger, parity, halo face and MG view).  Dispatch is by
+// shape (ops/dslash_cuda.pair_sites, checked again in launch): bf16
+// storage, one field, not legs_out, reconstruct-12 links, Xh even, every
+// pointer 4-byte aligned and every re/im stride even; anything else runs
+// the one-site kernel.  The pair kernel holds two accumulators (48 floats):
+// 128 registers (166-168 in halo mode, where the face operands are chosen
+// leg by leg), 4 (3) blocks of 128 threads a SM against the one-site
+// kernel's 6 (5), no spills; it gains 10-16% a launch, not the 40% the
+// instruction count promised, and what holds it there (occupancy, the x
+// legs' element loads) is not settled (PERF.md §7).  Timed on the
+// card and not kept (PERF.md, PR 11): 64 and 256 threads a block (no
+// faster; 256 slower in halo mode), register caps through launch bounds
+// (80-128 registers: spills, 5-60% slower), __ldg and streaming (__ldcs)
+// link loads (no faster), and branching a halo leg between the face and
+// the local field (fewer registers and faster at the one-rank mesh,
+// slower at the (2, 2) shard, and with the clover epilogue slower than
+// the one-site kernel).  The clover epilogue's two chiralities run as a
+// loop in the halo pair kernel, the largest instantiation, where inline
+// clover_inv timed a third slower.
 //
 // Leg filter and per-leg output (the TPU kernel's `dirs` and `legs_out`,
 // dslash_pallas.py:341-354, :428-432, :670-680), for MG Galerkin probing:
@@ -173,13 +208,13 @@
       int64_t out_rs, int64_t out_ls, int64_t psi_bs, int64_t psi0_bs, int64_t out_bs,        \
       int n_batch, int batch_warps, int batch_smem, int batch_t_block, const void *f_tm,      \
       const void *f_tp, const void *f_zm, const void *f_zp, const void *u_tm,                 \
-      const void *u_zm, int halo, int face_spins, int t_offset, int t_global, int device,     \
-      void *stream
+      const void *u_zm, int halo, int face_spins, int t_offset, int t_global, int pair,      \
+      int device, void *stream
 #define TQ_ARGS                                                                               \
   u, psi, psi0, clov, out, T, Z, Y, Xh, nrow, src_parity, dagger, epilogue, tw, k2,           \
       t_boundary, leg_mask, legs_out, psi_rs, psi0_rs, out_rs, out_ls, psi_bs, psi0_bs,       \
       out_bs, n_batch, batch_warps, batch_smem, batch_t_block, f_tm, f_tp, f_zm, f_zp, u_tm,  \
-      u_zm, halo, face_spins, t_offset, t_global, device, stream
+      u_zm, halo, face_spins, t_offset, t_global, pair, device, stream
 
 #ifndef TQ_NO_KERNELS  // dslash_eo.cu takes the argument lists only
 
@@ -257,6 +292,9 @@ __host__ __device__ constexpr int recon_im(int mu, int b) {
   return mu == 0 ? 1 : (mu == 2 ? (b == 2 ? 1 : -1) : 0);
 }
 
+// reals a stored link holds
+__host__ __device__ constexpr int link_reals(int nrow) { return nrow == 4 ? 8 : nrow * 6; }
+
 // Rows 0 and 1 of a reconstruct-8 link from its 8 stored reals
 // (tpuqcd/ops/dslash_pallas.py:247-303, utils/packed.pack_gauge8).
 template <typename G>
@@ -302,29 +340,25 @@ __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, 
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 
 // A stored link rebuilt to 3x3 in G (reconstruct-12 and -8: row 2 =
-// phase * conj(row0 x row1)) and handed over in R.  ul points at the
-// link's first element, elements u_ss apart.  Row 2 is rounded step by
-// step (mul_rn, sub_rn), so a link rebuilt here has the same bits in the
-// single kernel, which uses it at once, and in the batched one, which
-// keeps it in shared memory for its columns.
-template <int NROW, typename S, typename R, typename G>
-__device__ __forceinline__ void load_link(cpx<R> (&U)[3][3], const S* __restrict__ ul,
-                                          int64_t u_ss, G phase) {
+// phase * conj(row0 x row1)) and handed over in R, from its stored reals r
+// in storage order.  Row 2 is rounded step by step (mul_rn, sub_rn), so a
+// link rebuilt here has the same bits in the single kernel, which uses it
+// at once, in the pair kernel, which rebuilds two sites' links one after
+// the other, and in the batched one, which keeps it in shared memory for
+// its columns.
+template <int NROW, typename R, typename G>
+__device__ __forceinline__ void rebuild_link(cpx<R> (&U)[3][3], const G (&r)[link_reals(NROW)],
+                                             G phase) {
   cpx<G> Ug[3][3];
-  if (NROW == 4) {
-    G x[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) x[k] = conv<G>(ul[k * u_ss]);
-    recon8_rows(x, Ug);
+  if constexpr (NROW == 4) {
+    recon8_rows(r, Ug);
   } else {
 #pragma unroll
     for (int i = 0; i < NROW; ++i)
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
-        Ug[i][j] = {conv<G>(ul[((i * 3 + j) * 2 + 0) * u_ss]),
-                    conv<G>(ul[((i * 3 + j) * 2 + 1) * u_ss])};
+      for (int j = 0; j < 3; ++j) Ug[i][j] = {r[(i * 3 + j) * 2 + 0], r[(i * 3 + j) * 2 + 1]};
   }
-  if (NROW != 3) {
+  if constexpr (NROW != 3) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
@@ -342,15 +376,93 @@ __device__ __forceinline__ void load_link(cpx<R> (&U)[3][3], const S* __restrict
     for (int j = 0; j < 3; ++j) U[i][j] = {conv<R>(Ug[i][j].re), conv<R>(Ug[i][j].im)};
 }
 
-// One hop leg: acc += (1 -+ gamma_mu) U psi(nb), with U = the rebuilt link
-// or (ADJ) its adjoint.  sgn = +1 takes the (1 - gamma) tables, -1 the
-// (1 + gamma).  psi points at the neighbour's (spin 0, colour 0, re)
-// element, spin-colour components psi_ss apart and re/im psi_rs apart;
-// half: it holds the two projected spins.
-template <int MU, bool ADJ, typename S, typename R>
-__device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict__ psi,
-                                        int64_t psi_rs, int64_t psi_ss, bool half,
-                                        const cpx<R> (&U)[3][3], int sgn) {
+// The link whose first element ul points at, elements u_ss apart, rebuilt
+// (the batched kernel's phase 1).
+template <int NROW, typename S, typename R, typename G>
+__device__ __forceinline__ void load_link(cpx<R> (&U)[3][3], const S* __restrict__ ul,
+                                          int64_t u_ss, G phase) {
+  G x[link_reals(NROW)];
+#pragma unroll
+  for (int k = 0; k < link_reals(NROW); ++k) x[k] = conv<G>(ul[k * u_ss]);
+  rebuild_link<NROW, R>(U, x, phase);
+}
+
+// NS elements as R: ld_run reads a run from p, v[j] = p[j] (NS = 2: one
+// 4-byte __nv_bfloat162 load, p 4-byte aligned); ld_each reads one element
+// from each of NS pointers anywhere, v[j] = p[j][off].
+template <int NS, typename R, typename S>
+__device__ __forceinline__ void ld_run(const S* __restrict__ p, R (&v)[NS]) {
+  if constexpr (NS == 2) {
+    static_assert(std::is_same<S, __nv_bfloat16>::value, "site pairs are bfloat16");
+    const __nv_bfloat162 w = *reinterpret_cast<const __nv_bfloat162*>(p);
+    v[0] = conv<R>(__low2bfloat16(w));
+    v[1] = conv<R>(__high2bfloat16(w));
+  } else {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) v[j] = conv<R>(p[j]);
+  }
+}
+template <int NS, typename R, typename S>
+__device__ __forceinline__ void ld_each(const S* const (&p)[NS], int64_t off, R (&v)[NS]) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) v[j] = conv<R>(p[j][off]);
+}
+// v[j] stored to p[j], NS consecutive elements (NS = 2: one 4-byte store)
+template <int NS, typename S, typename R>
+__device__ __forceinline__ void st_run(S* __restrict__ p, const R (&v)[NS]) {
+  if constexpr (NS == 2) {
+    static_assert(std::is_same<S, __nv_bfloat16>::value, "site pairs are bfloat16");
+    *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(conv<S>(v[0]), conv<S>(v[1]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) store(p + j, v[j]);
+  }
+}
+
+// The operand of NS sites at one leg: site j's element at p[j]; RUN: the
+// sites' elements are consecutive (p[j] = p[0] + j), and for NS = 2 p[0]
+// is 4-byte aligned.
+template <int NS, typename S> struct Sites { const S* p[NS]; };
+template <int NS, typename S>
+__device__ __forceinline__ Sites<NS, S> run(const S* p) {
+  Sites<NS, S> r;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) r.p[j] = p + j;
+  return r;
+}
+template <int NS, bool RUN, typename R, typename S>
+__device__ __forceinline__ void ld_sites(const Sites<NS, S>& a, int64_t off, R (&v)[NS]) {
+  if constexpr (RUN) ld_run<NS>(a.p[0] + off, v);
+  else ld_each<NS>(a.p, off, v);
+}
+
+// The neighbour spinors of NS sites: component (spin a, colour c) of site
+// j at a.p[j] + (a * 3 + c) * ss, re/im rs apart; half: only the two
+// projected spins are stored.
+template <int NS, bool RUN, typename S, typename R>
+__device__ __forceinline__ void load_spinor(cpx<R> (&s)[NS][4][3], const Sites<NS, S>& a,
+                                            int64_t rs, int64_t ss, bool half) {
+#pragma unroll
+  for (int sp = 0; sp < 4; ++sp) {
+    if (sp >= 2 && half) break;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      R re[NS], im[NS];
+      ld_sites<NS, RUN>(a, (sp * 3 + c) * ss, re);
+      ld_sites<NS, RUN>(a, (sp * 3 + c) * ss + rs, im);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j][sp][c] = {re[j], im[j]};
+    }
+  }
+}
+
+// One hop leg on a neighbour spinor s already in registers: acc +=
+// (1 -+ gamma_mu) U s, with U = the rebuilt link or (ADJ) its adjoint.
+// sgn = +1 takes the (1 - gamma) tables, -1 the (1 + gamma); half: s
+// holds the two projected spins (spins 2, 3 are not read).
+template <int MU, bool ADJ, typename R>
+__device__ __forceinline__ void hop_spinor(cpx<R> (&acc)[4][3], const cpx<R> (&s)[4][3],
+                                           bool half, const cpx<R> (&U)[3][3], int sgn) {
   // half-spinor projection at the neighbour
   cpx<R> h[2][3];
 #pragma unroll
@@ -358,15 +470,12 @@ __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict
     const int b = partner(MU, a);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const S* pa_ = psi + (a * 3 + c) * psi_ss;
-      cpx<R> pa = {conv<R>(pa_[0]), conv<R>(pa_[psi_rs])};
+      const cpx<R> pa = s[a][c];
       if (half) {
         h[a][c] = pa;
         continue;
       }
-      const S* pb_ = psi + (b * 3 + c) * psi_ss;
-      cpx<R> pb = {conv<R>(pb_[0]), conv<R>(pb_[psi_rs])};
-      cpx<R> t = coef_mul(proj_re(MU, a), proj_im(MU, a), pb);
+      cpx<R> t = coef_mul(proj_re(MU, a), proj_im(MU, a), s[b][c]);
       h[a][c] = sgn > 0 ? cadd(pa, t) : cpx<R>{pa.re - t.re, pa.im - t.im};
     }
   }
@@ -376,11 +485,11 @@ __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict
     cpx<R> w[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      cpx<R> s = {conv<R>(0.f), conv<R>(0.f)};
+      cpx<R> s_ = {conv<R>(0.f), conv<R>(0.f)};
 #pragma unroll
       for (int j = 0; j < 3; ++j)
-        s = cadd(s, ADJ ? cmulc(U[j][i], h[a][j]) : cmul(U[i][j], h[a][j]));
-      w[i] = s;
+        s_ = cadd(s_, ADJ ? cmulc(U[j][i], h[a][j]) : cmul(U[i][j], h[a][j]));
+      w[i] = s_;
     }
 #pragma unroll
     for (int i = 0; i < 3; ++i) acc[a][i] = cadd(acc[a][i], w[i]);
@@ -397,6 +506,46 @@ __device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict
   }
 }
 
+// One hop leg of one site, the spinor read from psi (the batched kernel's
+// phase 2): psi points at the neighbour's (spin 0, colour 0, re) element,
+// spin-colour components psi_ss apart and re/im psi_rs apart.
+template <int MU, bool ADJ, typename S, typename R>
+__device__ __forceinline__ void hop_leg(cpx<R> (&acc)[4][3], const S* __restrict__ psi,
+                                        int64_t psi_rs, int64_t psi_ss, bool half,
+                                        const cpx<R> (&U)[3][3], int sgn) {
+  cpx<R> s[1][4][3];
+  load_spinor<1, true>(s, run<1>(psi), psi_rs, psi_ss, half);
+  hop_spinor<MU, ADJ>(acc, s[0], half, U, sgn);
+}
+
+// One hop leg of NS sites (the single and the pair kernel): each site's
+// neighbour spinor and stored link are read (RUN_S, RUN_U: as runs of
+// consecutive elements), then the link is rebuilt and applied site by
+// site with the one-site code, so a pair's sites get the bits one-site
+// launches give them.
+template <int NS, int NROW, int MU, bool ADJ, bool RUN_S, bool RUN_U, typename S, typename R,
+          typename G>
+__device__ __forceinline__ void leg(cpx<R> (&acc)[NS][4][3], const Sites<NS, S>& ps,
+                                    int64_t psi_rs, int64_t psi_ss, bool half,
+                                    const Sites<NS, S>& pu, int64_t u_ss, G phase, int sgn) {
+  cpx<R> s[NS][4][3];
+  load_spinor<NS, RUN_S>(s, ps, psi_rs, psi_ss, half);
+  G x[NS][link_reals(NROW)];
+#pragma unroll
+  for (int k = 0; k < link_reals(NROW); ++k) {
+    G v[NS];
+    ld_sites<NS, RUN_U>(pu, k * u_ss, v);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) x[j][k] = v[j];
+  }
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    cpx<R> U[3][3];
+    rebuild_link<NROW, R>(U, x[j], phase);
+    hop_spinor<MU, ADJ>(acc[j], s[j], half, U, sgn);
+  }
+}
+
 // Zero an accumulator.
 template <typename R>
 __device__ __forceinline__ void zero(cpx<R> (&acc)[4][3]) {
@@ -406,22 +555,23 @@ __device__ __forceinline__ void zero(cpx<R> (&acc)[4][3]) {
     for (int c = 0; c < 3; ++c) acc[a][c] = {conv<R>(0.f), conv<R>(0.f)};
 }
 
-// Store a spinor's 24 reals at site n of an output with re/im planes rs apart.
-template <typename S, typename R>
+// Store NS sites' spinors (24 reals each) at sites n, n + 1, ... of an
+// output with re/im planes rs apart.
+template <int NS, typename S, typename R>
 __device__ __forceinline__ void store_spinor(S* __restrict__ out, int64_t rs, int64_t n_sites,
-                                             int64_t n, const cpx<R> (&acc)[4][3]) {
+                                             int64_t n, const cpx<R> (&acc)[NS][4][3]) {
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       S* o = out + (a * 3 + c) * n_sites + n;
-      store(o, acc[a][c].re);
-      store(o + rs, acc[a][c].im);
+      R re[NS], im[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) re[j] = acc[j][a][c].re, im[j] = acc[j][a][c].im;
+      st_run<NS>(o, re);
+      st_run<NS>(o + rs, im);
     }
 }
-
-// reals a stored link holds
-__host__ __device__ constexpr int link_reals(int nrow) { return nrow == 4 ? 8 : nrow * 6; }
 
 // An output site n of parity q = 1 - p, for the batched kernel: its t and
 // the flat indices of its 8 neighbours in the kernel's leg order (+x, -x,
@@ -455,14 +605,19 @@ __device__ __forceinline__ Hood hood(int64_t n, int T, int Z, int Y, int Xh, int
   return h;
 }
 
-// The fused epilogue on the summed hop acc = D psi at site n, then the
-// store (epilogue 0 none, 1 twist_inv, 2 xpay; CLOVER: 3 clover_inv, 4
-// clover_xpay).  psi0 and the clover block are read at site n.
-template <bool CLOVER, typename S, typename R>
-__device__ __forceinline__ void finish(cpx<R> (&acc)[4][3], S* __restrict__ out, int64_t out_rs,
-                                       const S* __restrict__ psi0, int64_t psi0_rs,
-                                       const S* __restrict__ clov, int64_t n_sites, int64_t n,
-                                       int epilogue, double tw_d, double k2_d) {
+// The fused epilogue on the summed hops acc = D psi at the NS sites n,
+// n + 1, ..., then the store (epilogue 0 none, 1 twist_inv, 2 xpay;
+// CLOVER: 3 clover_inv, 4 clover_xpay).  psi0 and the clover block are
+// read at those sites, as runs of NS elements; each site's arithmetic is
+// the one-site code.  ROLL: the clover epilogue's two chiralities run as
+// a loop, not one after the other in line (the pair kernel in halo mode:
+// see the note at the top).
+template <int NS, bool CLOVER, bool ROLL, typename S, typename R>
+__device__ __forceinline__ void finish(cpx<R> (&acc)[NS][4][3], S* __restrict__ out,
+                                       int64_t out_rs, const S* __restrict__ psi0,
+                                       int64_t psi0_rs, const S* __restrict__ clov,
+                                       int64_t n_sites, int64_t n, int epilogue, double tw_d,
+                                       double k2_d) {
   const R tw = conv<R>(tw_d), k2 = conv<R>(k2_d);
   const R r_one = conv<R>(1.f), r_mone = conv<R>(-1.f);
   if (CLOVER) {
@@ -470,35 +625,61 @@ __device__ __forceinline__ void finish(cpx<R> (&acc)[4][3], S* __restrict__ out,
     // the block row by row over the 6 inputs; an output row overwrites
     // only its own accumulator entry, which it alone reads
     const int64_t cl_rs = 72 * n_sites;  // re -> im plane of the clover operand
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    // chirality c: spins 2c, 2c + 1 (a select on c, folded where unrolled)
+    auto chirality = [&](int c) {
       const R g5 = c == 0 ? r_one : r_mone;
-      cpx<R> x[6];
+      cpx<R> x[NS][6];
 #pragma unroll
       for (int k = 0; k < 6; ++k) {
         if (epilogue == 3) {
-          x[k] = acc[2 * c + k / 3][k % 3];
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+            x[j][k] = c == 0 ? acc[j][k / 3][k % 3] : acc[j][2 + k / 3][k % 3];
         } else {
           const S* p0 = psi0 + ((2 * c + k / 3) * 3 + k % 3) * n_sites + n;
-          x[k] = {conv<R>(p0[0]), conv<R>(p0[psi0_rs])};
+          R re[NS], im[NS];
+          ld_run<NS>(p0, re);
+          ld_run<NS>(p0 + psi0_rs, im);
+#pragma unroll
+          for (int j = 0; j < NS; ++j) x[j][k] = {re[j], im[j]};
         }
       }
       const S* blk = clov + (int64_t)c * 36 * n_sites + n;
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
-        cpx<R> row = {conv<R>(0.f), conv<R>(0.f)};
+        cpx<R> row[NS];
+#pragma unroll
+        for (int j = 0; j < NS; ++j) row[j] = {conv<R>(0.f), conv<R>(0.f)};
 #pragma unroll
         for (int k = 0; k < 6; ++k) {
           const S* m = blk + (int64_t)(i * 6 + k) * n_sites;
-          row = cadd(row, cmul(cpx<R>{conv<R>(m[0]), conv<R>(m[cl_rs])}, x[k]));
+          R mr[NS], mi[NS];
+          ld_run<NS>(m, mr);
+          ld_run<NS>(m + cl_rs, mi);
+#pragma unroll
+          for (int j = 0; j < NS; ++j) row[j] = cadd(row[j], cmul(cpx<R>{mr[j], mi[j]}, x[j][k]));
         }
-        cpx<R>& o = acc[2 * c + i / 3][i % 3];
-        if (epilogue == 4)  // (A + i tw g5) psi0 - k2 . D psi
-          row = {row.re - tw * g5 * x[i].im - k2 * o.re, row.im + tw * g5 * x[i].re - k2 * o.im};
-        o = row;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const cpx<R> o = c == 0 ? acc[j][i / 3][i % 3] : acc[j][2 + i / 3][i % 3];
+          cpx<R> r = row[j];
+          if (epilogue == 4)  // (A + i tw g5) psi0 - k2 . D psi
+            r = {r.re - tw * g5 * x[j][i].im - k2 * o.re, r.im + tw * g5 * x[j][i].re - k2 * o.im};
+          if (c == 0)
+            acc[j][i / 3][i % 3] = r;
+          else
+            acc[j][2 + i / 3][i % 3] = r;
+        }
       }
+    };
+    if constexpr (ROLL) {
+#pragma unroll 1
+      for (int c = 0; c < 2; ++c) chirality(c);
+    } else {
+      chirality(0);
+      chirality(1);
     }
-    store_spinor(out, out_rs, n_sites, n, acc);
+    store_spinor<NS>(out, out_rs, n_sites, n, acc);
     return;
   }
 
@@ -509,26 +690,42 @@ __device__ __forceinline__ void finish(cpx<R> (&acc)[4][3], S* __restrict__ out,
     const R g5 = a < 2 ? r_one : r_mone;  // gamma5 = diag(1, 1, -1, -1)
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      R rr = acc[a][c].re, ri = acc[a][c].im;
-      if (epilogue == 1) {  // (1 - i tw g5) / (1 + tw^2) . D psi
-        const R dr = rr, di = ri;
-        rr = den * dr + (tw * den) * g5 * di;
-        ri = den * di - (tw * den) * g5 * dr;
-      } else if (epilogue == 2) {  // (1 + i tw g5) psi0 - k2 . D psi
+      R p0r[NS], p0i[NS];
+      if (epilogue == 2) {
         const S* p0 = psi0 + (a * 3 + c) * n_sites + n;
-        const R p0r = conv<R>(p0[0]), p0i = conv<R>(p0[psi0_rs]);
-        const R dr = rr, di = ri;
-        rr = p0r - tw * g5 * p0i - k2 * dr;
-        ri = p0i + tw * g5 * p0r - k2 * di;
+        ld_run<NS>(p0, p0r);
+        ld_run<NS>(p0 + psi0_rs, p0i);
       }
-      acc[a][c] = {rr, ri};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        R rr = acc[j][a][c].re, ri = acc[j][a][c].im;
+        if (epilogue == 1) {  // (1 - i tw g5) / (1 + tw^2) . D psi
+          const R dr = rr, di = ri;
+          rr = den * dr + (tw * den) * g5 * di;
+          ri = den * di - (tw * den) * g5 * dr;
+        } else if (epilogue == 2) {  // (1 + i tw g5) psi0 - k2 . D psi
+          const R dr = rr, di = ri;
+          rr = p0r[j] - tw * g5 * p0i[j] - k2 * dr;
+          ri = p0i[j] + tw * g5 * p0r[j] - k2 * di;
+        }
+        acc[j][a][c] = {rr, ri};
+      }
     }
   }
-  store_spinor(out, out_rs, n_sites, n, acc);
+  store_spinor<NS>(out, out_rs, n_sites, n, acc);
 }
 
-template <typename S, typename R, int NROW, bool DAGGER, bool LEGS_OUT, bool CLOVER, bool HALO>
-__global__ void __launch_bounds__(128)
+// Threads a block of the single kernel, one or (the pair kernel) two sites
+// a thread.
+constexpr int SINGLE_THREADS = 128;
+
+// The single kernel (NS = 1, a thread an output site) and the pair kernel
+// (NS = 2: a thread the sites xh = 2k, 2k + 1 of one (t, z, y) row, which
+// share t, z, y, the checkerboard offset o_p, the t phase and the halo
+// edges, so every operand but the x legs' is a run of two elements).
+template <int NS, typename S, typename R, int NROW, bool DAGGER, bool LEGS_OUT, bool CLOVER,
+          bool HALO>
+__global__ void __launch_bounds__(SINGLE_THREADS)
 dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
                  const S* __restrict__ psi0, const S* __restrict__ clov,
                  S* __restrict__ out, int T, int Z, int Y,
@@ -540,7 +737,7 @@ dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
                  int t_offset, int t_global) {
   using G = typename ReconOf<S>::type;
   const int64_t n_sites = (int64_t)T * Z * Y * Xh;
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t n = NS * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
   if (n >= n_sites) return;
   const int xh = (int)(n % Xh);
   const int y = (int)((n / Xh) % Y);
@@ -554,14 +751,27 @@ dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
   auto site = [=](int t_, int z_, int y_, int xh_) -> int64_t {
     return (((int64_t)t_ * Z + z_) * Y + y_) * Xh + xh_;
   };
-  const int xf = o_p ? xh : (xh + 1 == Xh ? 0 : xh + 1);
-  const int xb = o_p ? (xh == 0 ? Xh - 1 : xh - 1) : xh;
+  // the x legs: each site's own neighbour (one of the two legs of a pair
+  // is shifted off the pair's alignment, and a run may wrap)
+  int xf[NS], xb[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int x = xh + j;
+    xf[j] = o_p ? x : (x + 1 == Xh ? 0 : x + 1);
+    xb[j] = o_p ? (x == 0 ? Xh - 1 : x - 1) : x;
+  }
   const int yf = y + 1 == Y ? 0 : y + 1, yb = y == 0 ? Y - 1 : y - 1;
   const int zf = z + 1 == Z ? 0 : z + 1, zb = z == 0 ? Z - 1 : z - 1;
   const int tf = t + 1 == T ? 0 : t + 1, tb = t == 0 ? T - 1 : t - 1;
   // the links of direction mu and parity par, one element a site
   auto links = [=](int mu, int par) -> const S* {
     return u + (int64_t)(mu * 2 + par) * link_reals(NROW) * n_sites;
+  };
+  auto x_sites = [=](const S* base, const int (&xs)[NS]) -> Sites<NS, S> {
+    Sites<NS, S> r;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) r.p[j] = base + site(t, z, y, xs[j]);
+    return r;
   };
   // phase of a rebuilt row 2 (reconstruct-12 and -8) of a t-link at global
   // t = T-1: the forward leg's link at global t_offset + t, the backward
@@ -582,45 +792,49 @@ dslash_eo_kernel(const S* __restrict__ u, const S* __restrict__ psi,
   const bool half = face_spins == 2;
   const int64_t frs_t = (int64_t)face_spins * 3 * n_ts, frs_z = (int64_t)face_spins * 3 * n_zs;
 
-  cpx<R> acc[4][3];
-  zero(acc);
+  cpx<R> acc[NS][4][3];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) zero(acc[j]);
   S* slot = out;
 
   // forward: U_mu(x)|q psi(x + mu);  backward: U_mu(x - mu)|p^dag psi(x - mu).
   // A selected leg accumulates, or (LEGS_OUT) is stored to the next slot.
-#define TQ_LEG(BIT, MU, ADJ, PSI, PSI_RS, PSI_SS, HALF, UL, U_SS, SGN, PHASE)               \
+#define TQ_LEG(BIT, MU, ADJ, RUN_S, PSI, PSI_RS, PSI_SS, HALF, RUN_U, UL, U_SS, SGN, PHASE)  \
   if (leg_mask & (1 << (BIT))) {                                                           \
-    if (LEGS_OUT) zero(acc);                                                               \
-    cpx<R> U[3][3];                                                                        \
-    load_link<NROW>(U, UL, U_SS, PHASE);                                                   \
-    hop_leg<MU, ADJ>(acc, PSI, PSI_RS, PSI_SS, HALF, U, SGN);                              \
+    if (LEGS_OUT)                                                                          \
+      for (int j_ = 0; j_ < NS; ++j_) zero(acc[j_]);                                       \
+    leg<NS, NROW, MU, ADJ, RUN_S, RUN_U>(acc, PSI, PSI_RS, PSI_SS, HALF, UL, U_SS, PHASE, SGN); \
     if (LEGS_OUT) {                                                                        \
-      store_spinor(slot, out_rs, n_sites, n, acc);                                         \
+      store_spinor<NS>(slot, out_rs, n_sites, n, acc);                                     \
       slot += out_ls;                                                                      \
     }                                                                                      \
   }
-  TQ_LEG(0, 0, false, psi + site(t, z, y, xf), psi_rs, n_sites, false, links(0, q) + n,
-         n_sites, sf, one)
-  TQ_LEG(1, 0, true, psi + site(t, z, y, xb), psi_rs, n_sites, false,
-         links(0, p) + site(t, z, y, xb), n_sites, sb, one)
-  TQ_LEG(2, 1, false, psi + site(t, z, yf, xh), psi_rs, n_sites, false, links(1, q) + n,
-         n_sites, sf, one)
-  TQ_LEG(3, 1, true, psi + site(t, z, yb, xh), psi_rs, n_sites, false,
-         links(1, p) + site(t, z, yb, xh), n_sites, sb, one)
-  TQ_LEG(4, 2, false, at_zf ? f_zp + i_z : psi + site(t, zf, y, xh), at_zf ? frs_z : psi_rs,
-         at_zf ? n_zs : n_sites, at_zf && half, links(2, q) + n, n_sites, sf, one)
-  TQ_LEG(5, 2, true, at_zb ? f_zm + i_z : psi + site(t, zb, y, xh), at_zb ? frs_z : psi_rs,
-         at_zb ? n_zs : n_sites, at_zb && half,
-         at_zb ? u_zm + i_z : links(2, p) + site(t, zb, y, xh), at_zb ? n_zs : n_sites, sb, one)
-  TQ_LEG(6, 3, false, at_tf ? f_tp + i_t : psi + site(tf, z, y, xh), at_tf ? frs_t : psi_rs,
-         at_tf ? n_ts : n_sites, at_tf && half, links(3, q) + n, n_sites, sf, ph_f)
-  TQ_LEG(7, 3, true, at_tb ? f_tm + i_t : psi + site(tb, z, y, xh), at_tb ? frs_t : psi_rs,
-         at_tb ? n_ts : n_sites, at_tb && half,
-         at_tb ? u_tm + i_t : links(3, p) + site(tb, z, y, xh), at_tb ? n_ts : n_sites, sb,
-         ph_b)
+  TQ_LEG(0, 0, false, false, x_sites(psi, xf), psi_rs, n_sites, false, true,
+         run<NS>(links(0, q) + n), n_sites, sf, one)
+  TQ_LEG(1, 0, true, false, x_sites(psi, xb), psi_rs, n_sites, false, false,
+         x_sites(links(0, p), xb), n_sites, sb, one)
+  TQ_LEG(2, 1, false, true, run<NS>(psi + site(t, z, yf, xh)), psi_rs, n_sites, false, true,
+         run<NS>(links(1, q) + n), n_sites, sf, one)
+  TQ_LEG(3, 1, true, true, run<NS>(psi + site(t, z, yb, xh)), psi_rs, n_sites, false, true,
+         run<NS>(links(1, p) + site(t, z, yb, xh)), n_sites, sb, one)
+  TQ_LEG(4, 2, false, true, run<NS>(at_zf ? f_zp + i_z : psi + site(t, zf, y, xh)),
+         at_zf ? frs_z : psi_rs, at_zf ? n_zs : n_sites, at_zf && half, true,
+         run<NS>(links(2, q) + n), n_sites, sf, one)
+  TQ_LEG(5, 2, true, true, run<NS>(at_zb ? f_zm + i_z : psi + site(t, zb, y, xh)),
+         at_zb ? frs_z : psi_rs, at_zb ? n_zs : n_sites, at_zb && half, true,
+         run<NS>(at_zb ? u_zm + i_z : links(2, p) + site(t, zb, y, xh)),
+         at_zb ? n_zs : n_sites, sb, one)
+  TQ_LEG(6, 3, false, true, run<NS>(at_tf ? f_tp + i_t : psi + site(tf, z, y, xh)),
+         at_tf ? frs_t : psi_rs, at_tf ? n_ts : n_sites, at_tf && half, true,
+         run<NS>(links(3, q) + n), n_sites, sf, ph_f)
+  TQ_LEG(7, 3, true, true, run<NS>(at_tb ? f_tm + i_t : psi + site(tb, z, y, xh)),
+         at_tb ? frs_t : psi_rs, at_tb ? n_ts : n_sites, at_tb && half, true,
+         run<NS>(at_tb ? u_tm + i_t : links(3, p) + site(tb, z, y, xh)),
+         at_tb ? n_ts : n_sites, sb, ph_b)
 #undef TQ_LEG
   if (LEGS_OUT) return;
-  finish<CLOVER>(acc, out, out_rs, psi0, psi0_rs, clov, n_sites, n, epilogue, tw_d, k2_d);
+  finish<NS, CLOVER, NS == 2 && HALO>(acc, out, out_rs, psi0, psi0_rs, clov, n_sites, n, epilogue,
+                                       tw_d, k2_d);
 }
 
 // The batched kernel's site tile (a warp's lanes are a block's sites), its
@@ -707,13 +921,13 @@ dslash_eo_batch_kernel(const S* __restrict__ u, const S* __restrict__ psi,
   const int sb = -sf;
   for (int c = warp; c < n_batch; c += n_warps) {
     const S* psi_c = psi + c * psi_bs;
-    cpx<R> acc[4][3];
-    zero(acc);
+    cpx<R> acc[1][4][3];
+    zero(acc[0]);
 #define TQ_BLEG(BIT, MU, ADJ, SGN)                                                          \
   if (leg_mask & (1 << (BIT))) {                                                           \
     cpx<R> U[3][3];                                                                        \
     tile_get(U, tile, BIT, lane);                                                          \
-    hop_leg<MU, ADJ>(acc, psi_c + hd.nb[BIT], psi_rs, n_sites, false, U, SGN);             \
+    hop_leg<MU, ADJ>(acc[0], psi_c + hd.nb[BIT], psi_rs, n_sites, false, U, SGN);             \
   }
     TQ_BLEG(0, 0, false, sf)
     TQ_BLEG(1, 0, true, sb)
@@ -724,17 +938,26 @@ dslash_eo_batch_kernel(const S* __restrict__ u, const S* __restrict__ psi,
     TQ_BLEG(6, 3, false, sf)
     TQ_BLEG(7, 3, true, sb)
 #undef TQ_BLEG
-    finish<CLOVER>(acc, out + c * out_bs, out_rs, psi0 == nullptr ? psi0 : psi0 + c * psi0_bs,
-                   psi0_rs, clov, n_sites, n, epilogue, tw_d, k2_d);
+    finish<1, CLOVER, false>(acc, out + c * out_bs, out_rs,
+                             psi0 == nullptr ? psi0 : psi0 + c * psi0_bs, psi0_rs, clov,
+                             n_sites, n, epilogue, tw_d, k2_d);
   }
 }
+
+// whether a storage type and link format have the pair kernel: bfloat16
+// storage (either arithmetic) with reconstruct-12 links, the format of
+// every bfloat16 operator of the port
+template <typename S, int NROW>
+constexpr bool has_pair() { return std::is_same<S, __nv_bfloat16>::value && NROW == 2; }
+
+inline bool aligned4(const void* ptr) { return ((uintptr_t)ptr & 3) == 0; }
 
 template <typename S, typename R, int NROW>
 int launch(TQ_PARAMS) {
   // epilogues: 0 none, 1 twist_inv, 2 xpay, 3 clover_inv, 4 clover_xpay
-  const bool clover = epilogue >= 3;
+  const bool clover = epilogue >= 3, reads_psi0 = epilogue == 2 || epilogue == 4;
   if (nrow != NROW || (src_parity != 0 && src_parity != 1) || epilogue < 0 || epilogue > 4 ||
-      ((epilogue == 2 || epilogue == 4) && psi0 == nullptr) || (clover && clov == nullptr) ||
+      (reads_psi0 && psi0 == nullptr) || (clover && clov == nullptr) ||
       T <= 0 || Z <= 0 || Y <= 0 || Xh <= 0 || (int64_t)T * Z * Y * Xh > INT32_MAX ||
       leg_mask <= 0 || leg_mask > 255 ||
       (legs_out && epilogue != 0) || n_batch < 1 || n_batch > 65535 ||
@@ -754,6 +977,17 @@ int launch(TQ_PARAMS) {
                f_zp == nullptr || u_tm == nullptr || u_zm == nullptr ||
                (face_spins != 2 && face_spins != 4) || t_offset < 0 ||
                t_offset + T > t_global))
+    return (int)cudaErrorInvalidValue;
+  // the pair kernel (ops/dslash_cuda.pair_sites decides): a single summed
+  // launch whose every operand pair is one aligned 4-byte word: Xh even
+  // (then every plane stride derived from the shape is even), each
+  // pointer 4-byte aligned and each re/im stride even
+  if (pair != 0 &&
+      (pair != 1 || !has_pair<S, NROW>() || n_batch != 1 || legs_out || Xh % 2 != 0 ||
+       !aligned4(u) || !aligned4(psi) || !aligned4(out) || psi_rs % 2 != 0 || out_rs % 2 != 0 ||
+       (reads_psi0 && (!aligned4(psi0) || psi0_rs % 2 != 0)) || (clover && !aligned4(clov)) ||
+       (halo && !(aligned4(f_tm) && aligned4(f_tp) && aligned4(f_zm) && aligned4(f_zp) &&
+                  aligned4(u_tm) && aligned4(u_zm)))))
     return (int)cudaErrorInvalidValue;
   if (!halo) t_offset = 0, t_global = T;
   // this library links its own CUDA runtime, whose current device is not
@@ -782,22 +1016,33 @@ int launch(TQ_PARAMS) {
 #undef TQ_LAUNCH
     return (int)cudaGetLastError();
   }
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n_sites + threads - 1) / threads);
-#define TQ_LAUNCH(DG, LO, CL, HA)                                                           \
-  dslash_eo_kernel<S, R, NROW, DG, LO, CL, HA><<<blocks, threads, 0, s>>>(                  \
+#define TQ_LAUNCH(NS, DG, LO, CL, HA)                                                       \
+  dslash_eo_kernel<NS, S, R, NROW, DG, LO, CL, HA><<<blocks, threads, 0, s>>>(              \
       u_, psi_, psi0_, clov_, out_, T, Z, Y, Xh, src_parity, epilogue, tw, k2, t_boundary,  \
       leg_mask, psi_rs, psi0_rs, out_rs, out_ls, (const S*)f_tm, (const S*)f_tp,            \
       (const S*)f_zm, (const S*)f_zp, (const S*)u_tm, (const S*)u_zm, face_spins, t_offset, \
       t_global)
-#define TQ_LAUNCH_LO(DG)                                     \
-  if (legs_out) TQ_LAUNCH(DG, true, false, false);           \
-  else if (halo && clover) TQ_LAUNCH(DG, false, true, true);  \
-  else if (halo) TQ_LAUNCH(DG, false, false, true);          \
-  else if (clover) TQ_LAUNCH(DG, false, true, false);        \
-  else TQ_LAUNCH(DG, false, false, false);
-  if (dagger) { TQ_LAUNCH_LO(true) } else { TQ_LAUNCH_LO(false) }
-#undef TQ_LAUNCH_LO
+#define TQ_LAUNCH_SUM(NS, DG)                                    \
+  if (halo && clover) TQ_LAUNCH(NS, DG, false, true, true);       \
+  else if (halo) TQ_LAUNCH(NS, DG, false, false, true);          \
+  else if (clover) TQ_LAUNCH(NS, DG, false, true, false);        \
+  else TQ_LAUNCH(NS, DG, false, false, false);
+  if constexpr (has_pair<S, NROW>()) {
+    if (pair) {  // never legs_out (refused above)
+      const int threads = SINGLE_THREADS;
+      const unsigned blocks = (unsigned)((n_sites / 2 + threads - 1) / threads);
+      if (dagger) { TQ_LAUNCH_SUM(2, true) } else { TQ_LAUNCH_SUM(2, false) }
+      return (int)cudaGetLastError();
+    }
+  }
+  const int threads = SINGLE_THREADS;
+  const unsigned blocks = (unsigned)((n_sites + threads - 1) / threads);
+  if (dagger) {
+    if (legs_out) TQ_LAUNCH(1, true, true, false, false); else { TQ_LAUNCH_SUM(1, true) }
+  } else {
+    if (legs_out) TQ_LAUNCH(1, false, true, false, false); else { TQ_LAUNCH_SUM(1, false) }
+  }
+#undef TQ_LAUNCH_SUM
 #undef TQ_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,13 @@ nvcc processes side by side, for sm_90a) and linked with the entries of
 when a source changes); the library is loaded with ctypes.
 
 Dispatch has no fallback: a CUDA tensor launches the kernel or raises,
-a CPU tensor runs ``dslash_eo_plain``.
+a CPU tensor runs ``dslash_eo_plain``.  A single bfloat16 launch takes the
+pair kernel (two output sites a thread, every operand pair one 4-byte
+bfloat16x2 access) where ``pair_sites`` admits its shapes (reconstruct-12
+links, Xh = Lx/2 even, every pointer 4-byte aligned, every re/im plane
+stride even), and the one-site kernel otherwise; both give the same bits.
+``dslash_eo_one_site`` runs the one-site kernel on any operands, for
+holding the two to each other.
 
     out = dslash_eo(u, psi, src_parity, lat)            # D_{q<-p} psi
     out = dslash_eo(u, psi, 0, lat, epilogue="twist_inv", kappa=k, mu=m)
@@ -125,7 +131,11 @@ COMPUTES = ("f32", "bf16")
 #: "bfloat16:compute_bf16", reconstruct-8 links under "float32:recon8" (the
 #: two right after the dtype), a batched launch with a last ":batch" (one
 #: count per launch whatever N), and calls of the plain version under
-#: "plain".  Each kernel launch adds one; nothing else does.
+#: "plain".  A single bfloat16 launch that takes the one-site kernel, where
+#: ``pair_sites`` refuses the pair kernel, adds a last ":one_site"
+#: ("bfloat16:one_site", "bfloat16:clover_xpay:halo:one_site"); legs_out
+#: and batches keep their keys.  Each kernel launch adds one; nothing else
+#: does.
 counts: collections.Counter = collections.Counter()
 
 
@@ -187,7 +197,7 @@ class _Library:
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                            + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
                            + [ctypes.c_int64] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
-                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.tq_error_string.argtypes = [ctypes.c_int]
         lib.tq_error_string.restype = ctypes.c_char_p
@@ -447,6 +457,34 @@ def _check(u, psi, src_parity, lat, epilogue, psi0, dirs=None, legs_out=False, o
     return mask, shape, nb
 
 
+def pair_sites(lat: Lattice, psi: torch.Tensor, psi0: torch.Tensor | None = None,
+               out: torch.Tensor | None = None, u: torch.Tensor | None = None,
+               clover: torch.Tensor | None = None, halo: Halo | None = None,
+               legs_out: bool = False) -> bool:
+    """Whether a launch takes the pair kernel (two output sites a thread,
+    every operand pair one 4-byte bfloat16x2 access), decided by shape
+    alone: bfloat16 storage (either arithmetic), one field (no batch axis,
+    or a batch of one), not legs_out, reconstruct-12 links, Xh = Lx/2
+    even, every operand's pointer 4-byte aligned and every re/im plane
+    stride even.
+    Xh even makes every other element stride the kernel derives (the
+    site counts of a plane, a face's planes, the clover operand's 72 n)
+    even.  psi0 is an operand only where the epilogue reads it; out None
+    is a new, aligned tensor.  Otherwise the one-site kernel runs, and a
+    bfloat16 single launch counts under a last ":one_site"."""
+    nb = psi.ndim - 6
+    if psi.dtype != torch.bfloat16 or legs_out or (nb and psi.shape[0] != 1) or lat.Lx // 2 % 2:
+        return False
+    if u is not None and u.shape[2] != 2:
+        return False
+    fields = [x for x in (psi, psi0, out) if x is not None]
+    operands = fields + [x for x in (u, clover) if x is not None]
+    if halo is not None:
+        operands += list(halo[:6])
+    return (all(x.data_ptr() % 4 == 0 for x in operands)
+            and all(x.stride(nb) % 2 == 0 for x in fields))
+
+
 def _site_terms(kappa, mu, flavor, xpay_scale):
     tw = 2.0 * kappa * mu * flavor
     k2 = kappa * kappa if xpay_scale is None else xpay_scale
@@ -466,8 +504,32 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
     t_boundary is the fermion T-boundary phase folded into the stored
     links (-1 antiperiodic, +1 periodic); only reconstruct-12 and -8 read
     it.  A batch, dirs, legs_out, out, clover, halo and compute: see the
-    module docstring.
+    module docstring.  A bfloat16 launch that ``pair_sites`` admits takes
+    the pair kernel.
     """
+    return _dslash_eo(u, psi, src_parity, lat, None, dagger=dagger, epilogue=epilogue,
+                      kappa=kappa, mu=mu, flavor=flavor, psi0=psi0, t_boundary=t_boundary,
+                      xpay_scale=xpay_scale, dirs=dirs, legs_out=legs_out, out=out,
+                      clover=clover, halo=halo, compute=compute)
+
+
+def dslash_eo_one_site(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
+                       **kw) -> torch.Tensor:
+    """``dslash_eo`` through the one-site kernel whatever the shape, on CUDA
+    tensors: the operands on which the pair kernel ran, for holding it to
+    the one-site kernel bit for bit and timing the two (chip_smoke.py,
+    tests/test_torch_kernels_gpu.py).  No solver calls it."""
+    if psi.device.type != "cuda":
+        raise ValueError("dslash_eo_one_site launches the CUDA kernel: psi must be on a "
+                         f"CUDA device, got {psi.device}")
+    return _dslash_eo(u, psi, src_parity, lat, False, **kw)
+
+
+def _dslash_eo(u, psi, src_parity, lat, pair, *, dagger=False, epilogue="none", kappa=0.0,
+               mu=0.0, flavor=1, psi0=None, t_boundary=-1, xpay_scale=None, dirs=None,
+               legs_out=False, out=None, clover=None, halo=None, compute="f32"):
+    """dslash_eo with the kernel's sites a thread given (pair False: one)
+    or, pair None, by pair_sites."""
     kw = dict(dagger=dagger, epilogue=epilogue, kappa=kappa, mu=mu, flavor=flavor,
               psi0=psi0, t_boundary=t_boundary, xpay_scale=xpay_scale, dirs=dirs,
               legs_out=legs_out, out=out, clover=clover, halo=halo, compute=compute)
@@ -481,6 +543,9 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
     fn = getattr(library.get(), _ENTRY_BF16C if compute == "bf16" else _ENTRY[psi.dtype])
     if out is None:
         out = torch.empty(shape, dtype=psi.dtype, device=psi.device)
+    if pair is None:
+        pair = pair_sites(lat, psi, psi0 if epilogue in ("xpay", "clover_xpay") else None, out,
+                          u, clover, halo, legs_out)
     T, Z, _ = lat.site_shape
     stream = torch.cuda.current_stream(psi.device).cuda_stream
     faces = ([x.data_ptr() for x in halo[:6]] + [1, halo.spins, halo.t_offset, halo.t_global]
@@ -500,10 +565,16 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
              out.stride(0) if legs_out else 0, batch_stride(psi), batch_stride(psi0),
              batch_stride(out), psi.shape[0] if nb else 1,
              *((geom.warps, geom.shared_bytes, geom.t_block) if geom else (0, 0, 0)),
-             *faces, psi.device.index, stream)
+             *faces, int(pair), psi.device.index, stream)
     if err != 0:
         msg = library.get().tq_error_string(err).decode()
         raise RuntimeError(f"dslash_eo kernel launch failed: {msg} (CUDA error {err})")
+    counts[_count_key(psi, u, compute, dirs, legs_out, clover, epilogue, halo, nb, pair)] += 1
+    return out
+
+
+def _count_key(psi, u, compute, dirs, legs_out, clover, epilogue, halo, nb, pair) -> str:
+    """The counts key of a kernel launch (see ``counts``)."""
     key = str(psi.dtype).removeprefix("torch.")
     if compute == "bf16":
         key += ":compute_bf16"
@@ -519,8 +590,9 @@ def dslash_eo(u: torch.Tensor, psi: torch.Tensor, src_parity: int, lat: Lattice,
         key += ":halo"
     if nb:
         key += ":batch"
-    counts[key] += 1
-    return out
+    elif psi.dtype == torch.bfloat16 and not legs_out and not pair:
+        key += ":one_site"
+    return key
 
 
 # --------------------------------------------------------------------------
