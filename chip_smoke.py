@@ -107,18 +107,42 @@ Phases, each of which exits non-zero on failure:
       hierarchy (lockstep GCR), each certified, one held to the plain
       float64 operator, beside the seconds of the first two one by one
       (scaled to four);
-   o. 4a's twisted-mass and 4c's twisted-clover solves through
+   o. 4a's twisted-mass and 4c's twisted-clover solves at 16^3x32 (each
+      first on one card through run_invert, its twin), then through
       solve_tm_sharded on a one-rank LatticeMesh, under the fused policy
       (halo mode, the shard's own faces) and under overlap (the interior
       launch; one rank has no repairs): certified by the solver and the
-      plain float64 operator, x against 4a's and 4c's within 1e-8;
-   p. 4b's MG solve through the sharded fine level (mg/shard.py, fused,
-      via cli/common.MGSolver with a LatticeMesh) on a one-rank mesh from
-      the same seed: x against 4b's within 1e-8, certified, the inner
-      iterations and the setup and solve seconds beside 4b's;
+      plain float64 operator, x against the twin's within 1e-8;
+   p. 4b's recipe at 16^3x32: the beta = 6.0 heatbath gauge of that size
+      (seed 0, 160 sweeps), the MG solve on one card (the twin), then
+      through the sharded fine level (mg/shard.py, fused, via
+      cli/common.MGSolver with a LatticeMesh) on a one-rank mesh from the
+      same seed: x against the twin's within 1e-8, certified, the inner
+      iterations equal to the twin's, the setup and solve seconds beside
+      the twin's;
    q. three columns through ShardedEigCGSolver on a one-rank mesh (4l's
-      action, 4b's gauge) beside the one-card EigCGSolver: x within 1e-8,
-      the iterations and the space's size equal, each column certified;
+      action, 4p's 16^3x32 gauge) beside the one-card EigCGSolver: x within
+      1e-8, the iterations and the space's size equal, each column
+      certified;
+   r. run_invert's mass sweep at 32^3x64 on c0000 (the physics of
+      examples/invert_musweep_32cube.yaml: kappa 0.1373, mu_list 0.009,
+      0.018, 0.045, 0.09, CG, the multishift stage to inner_tol 1e-5, then
+      every mass certified to 1e-10 from its x_i): every mass certified by
+      the solver, by the full-system residual and by the plain float64
+      operator; the multishift iterations, the stage's residual and each
+      mass's refinement iterations, the seconds, the peak memory; then the
+      four masses solved cold by solve_tm one by one, each certified the
+      same way, their matvecs and seconds beside the sweep's; and at
+      16^3x32 on 4p's gauge the same sweep through solve_tm_musweep and
+      certify_musweep on a one-rank LatticeMesh (the sharded fine level,
+      solve_tm_sharded) beside one card: every x_i and count bit for bit;
+   s. BASELINE config 3: a beta = 6.0 heatbath gauge at 24^3x48 (seed 0,
+      160 sweeps), the three-level MG of examples/invert_mg3_24cube.yaml
+      (near_critical, n_vec 16 and 16, blocks 4^4 and 2^4: 6^3x12, then
+      3^3x6) through run_invert, then 4b's two-level recipe on the same
+      gauge: each certified by the solver and the plain float64 operator,
+      the setup seconds by level, the solve seconds, the inner
+      iterations, the coarsest level's dims;
    m. run_twop over the ensemble gauge.config_files = the chain's two
       files, as its main loops it (cli/common.ensemble_members: the second
       file read and checksummed on a background thread while the first
@@ -186,8 +210,8 @@ Phases, each of which exits non-zero on failure:
    the twisted-mass and clover epilogues on the one-rank mesh and at the
    (2, 2) shard, the overlap engine (interior and repairs, and the
    interior alone) at the (2, 2, 1) and (2, 1, 2) shards beside the fused
-   launch; the solve seconds of 4o-4q beside 4a's, 4b's, 4c's and the
-   one-card eigCG's.
+   launch; the solve seconds of 4o-4q beside their twins', 4r's sweep
+   beside its cold solves, and 4s's three- and two-level setup and solve.
 
 The line before the last is the JSON summary of the kernels; the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the
@@ -213,6 +237,13 @@ import torch
 
 KAPPA, MU = 0.115, 0.08
 SMALL, LARGE = (8, 8, 8, 16), (32, 32, 32, 64)
+#: the one-rank mesh cells 4o-4q and the sweep's: each beside its one-card
+#: twin at this size (bit for bit at any volume)
+MID = (16, 16, 16, 32)
+#: cell 4s: BASELINE config 3's volume
+MG3_DIMS = (24, 24, 24, 48)
+#: the example configurations of cells 4r and 4s
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
 #: storage types: (name, dtype, link rows, tolerance on max|k - p| / max|p|)
 STORAGE = (("f64", torch.float64, 3, 1e-13),
            ("f32", torch.float32, 2, 1e-5),
@@ -778,11 +809,15 @@ def compare_batch(dims, dev, widths) -> dict:
     plain version on the batch, every epilogue with the clover ones, both
     parities, dagger off and on, each storage type; psi, psi0 and out the
     parity views of a batched MG field [N, 2(ri), 2(par), ...]; returns
-    {(storage, N): max abs err against the plain version}."""
+    {(storage, N): max abs err against the plain version}.  The launch of
+    width N takes the first N columns of one field as wide as the widest,
+    so the plain version runs once on the widest and every column of every
+    launch is held against it."""
     from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
     lat, gauges, _, _ = problem(dims, dev, seed=8)
     blocks = clover_operands(gauges["f64"], lat)
-    gen = torch.Generator().manual_seed(18)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    nmax = max(widths)
     max_abs = {}
     # the whole matrix at the small size; at full size dagger on at source
     # parity 1 only
@@ -792,17 +827,28 @@ def compare_batch(dims, dev, widths) -> dict:
         worst = 0.0
         for n in widths:
             max_abs[(name, n)] = 0.0
-            field = torch.randn((n, 2, 2, 4, 3, *lat.site_shape), generator=gen).to(dev).to(dt)
-            field0 = field.flip(0).roll(1, 2)
-            for parity in (0, 1):
-                psi, psi0 = field[:, :, parity], field0[:, :, 1 - parity]
-                for dagger in (False, True) if full else (parity == 1,):
-                    for mode, epi, scale in MODES + CLOVER_MODES[:2]:
-                        cl = (blocks[epi][1 - parity].to(dt).contiguous()
-                              if epi in blocks else None)
-                        kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU,
-                                  xpay_scale=scale, clover=cl)
-                        need0 = epi.endswith("xpay")
+        field_all = torch.randn((nmax, 2, 2, 4, 3, *lat.site_shape), generator=gen,
+                                device=dev).to(dt)
+        field0_all = field_all.flip(0).roll(1, 2)
+        for parity in (0, 1):
+            for dagger in (False, True) if full else (parity == 1,):
+                for mode, epi, scale in MODES + CLOVER_MODES[:2]:
+                    cl = (blocks[epi][1 - parity].to(dt).contiguous()
+                          if epi in blocks else None)
+                    kw = dict(dagger=dagger, epilogue=epi, kappa=KAPPA, mu=MU,
+                              xpay_scale=scale, clover=cl)
+                    need0 = epi.endswith("xpay")
+                    # the plain version on the widest batch, or at full size on
+                    # 3 columns at a time (its temporaries are some twenty fields
+                    # a column)
+                    step = nmax if full else 3
+                    plain = torch.cat([dslash_eo_plain(
+                        u, field_all[lo:lo + step, :, parity], parity, lat,
+                        psi0=field0_all[lo:lo + step, :, 1 - parity] if need0 else None, **kw)
+                        for lo in range(0, nmax, step)])
+                    for n in widths:
+                        field, field0 = field_all[:n], field0_all[:n]
+                        psi, psi0 = field[:, :, parity], field0[:, :, 1 - parity]
                         what = f"{dims} {name} batch N={n} {mode} p{parity} dagger={dagger}"
                         out = torch.zeros_like(field)
                         k = dslash_eo(u, psi, parity, lat, psi0=psi0 if need0 else None,
@@ -813,21 +859,13 @@ def compare_batch(dims, dev, widths) -> dict:
                             _agree(k[i], single, what + " against single launches", 0.0,
                                    bitwise=True)
                         del single
-                        # the plain version on the whole batch, or at full
-                        # size on 3 columns at a time (its temporaries are
-                        # some twenty fields a column)
-                        err = rel = 0.0
-                        for lo in range(0, n, n if full else 3):
-                            cols = slice(lo, lo + (n if full else 3))
-                            p = dslash_eo_plain(u, psi[cols], parity, lat,
-                                                psi0=psi0[cols] if need0 else None, **kw)
-                            e, r = _agree(k[cols], p, what + " against plain", tol)
-                            err, rel = max(err, e), max(rel, r)
-                            del p
+                        err, rel = _agree(k, plain[:n], what + " against plain", tol)
                         if out[:, :, parity].abs().max().item() != 0.0:
                             fail(what + ": wrote outside its parity view")
                         del out, k
                         max_abs[(name, n)], worst = max(max_abs[(name, n)], err), max(worst, rel)
+                    del plain
+        del field_all, field0_all
         print(f"  {'x'.join(map(str, dims))} {name:4s} batch N={','.join(map(str, widths))}, 6 "
               f"epilogues, parities, {'daggers' if full else 'dagger at parity 1'}: equal to "
               f"single launches bit for bit; max rel err against plain "
@@ -985,10 +1023,10 @@ def plain_full_relres(u64, b, x, lat, kappa=KAPPA, mu=MU, a64=None) -> float:
     return (r.square().sum() / b.square().sum()).sqrt().item()
 
 
-def counted_invert(cfg, dev, gauge=None, flavors=False):
+def counted_invert(cfg, dev, gauge=None, flavors=False, dims=LARGE):
     """run_invert's invert with the launch counts set to 0 just before and
     read just after; returns (result, counts).  ``flavors``: x is a
-    doublet [2(fl), 2(par), ...]."""
+    doublet [2(fl), 2(par), ...]; ``dims`` the lattice x is checked on."""
     from tpuqcd_torch.cli.run_invert import invert
     from tpuqcd_torch.ops import dslash_cuda
     torch.cuda.synchronize()
@@ -1003,7 +1041,7 @@ def counted_invert(cfg, dev, gauge=None, flavors=False):
             and torch.isfinite(res.x).all()):
         fail(f"certified relres {res.relres:.3e} / {res.solver_relres:.3e} > "
              f"{RELRES_MAX:.0e} or non-finite x")
-    want = (2,) * (3 if flavors else 2) + (4, 3, LARGE[3], LARGE[2], LARGE[1] * LARGE[0] // 2)
+    want = (2,) * (3 if flavors else 2) + (4, 3, dims[3], dims[2], dims[1] * dims[0] // 2)
     if tuple(res.x.shape) != want:
         fail(f"solution shape {tuple(res.x.shape)}, not {want}")
     return res, counts
@@ -1033,35 +1071,36 @@ def check_plain(res, lat, kappa, mu, csw=0.0) -> float:
     return rel
 
 
-def main_path(dev):
-    """run_invert's direct path: CG on the twisted-mass system."""
+def main_path(dev, dims=LARGE):
+    """run_invert's direct path: CG on the twisted-mass system (4a; at MID
+    the twin of 4o)."""
     from tpuqcd_torch.lattice import Lattice
     from tpuqcd_torch.utils.config import config_from_dict
     cfg = config_from_dict({
-        "gauge": {"dims": list(LARGE), "random_seed": 1},
+        "gauge": {"dims": list(dims), "random_seed": 1},
         "action": {"kappa": KAPPA, "mu": MU},
         "solver": {"solver": "cg", "tol": RELRES_MAX}})
-    res, counts = counted_invert(cfg, dev)
+    res, counts = counted_invert(cfg, dev, dims=dims)
     need_launches(counts, ("float32", "float64"))
-    check_plain(res, Lattice(LARGE), KAPPA, MU)
+    check_plain(res, Lattice(dims), KAPPA, MU)
     return res, counts
 
 
-def clover_path(dev):
+def clover_path(dev, dims=LARGE):
     """run_invert's direct twisted-clover path, BASELINE config 2's action
-    and solver at 32^3x64."""
+    and solver at 32^3x64 (4c; at MID the twin of 4o)."""
     from tpuqcd_torch.lattice import Lattice
     from tpuqcd_torch.utils.config import config_from_dict
     cfg = config_from_dict({
-        "gauge": {"dims": list(LARGE), "random_seed": 1},
+        "gauge": {"dims": list(dims), "random_seed": 1},
         "action": {"kappa": CL_KAPPA, "mu": CL_MU, "csw": CL_CSW},
         "solver": {"solver": "bicgstab", "sloppy_dtype": "bfloat16", "inner_tol": 1e-4,
                    "tol": RELRES_MAX}})
-    res, counts = counted_invert(cfg, dev)
+    res, counts = counted_invert(cfg, dev, dims=dims)
     print(f"  clover term and twisted inverses {res.setup_seconds['clover']:.3f} s")
     need_launches(counts, ("bfloat16:clover_inv", "bfloat16:clover_xpay",
                            "float64:clover_inv", "float64:clover_xpay"))
-    check_plain(res, Lattice(LARGE), CL_KAPPA, CL_MU, CL_CSW)
+    check_plain(res, Lattice(dims), CL_KAPPA, CL_MU, CL_CSW)
     return res, counts
 
 
@@ -1169,18 +1208,19 @@ MESH_KEYS = {("fused", "tm"): ("float32:halo", "float64:halo"),
                                      "float64:clover_inv", "float64:clover_xpay", "float64")}
 
 
-def mesh_direct_path(dev, ref, clover: bool = False) -> dict:
+def mesh_direct_path(dev, ref, clover: bool = False, dims=MID) -> dict:
     """4o: 4a's twisted-mass solve (or, with ``clover``, 4c's twisted-clover
     solve) through solve_tm_sharded on a one-rank LatticeMesh, under the
-    fused and the overlap policy: certified by the solver and by the plain
-    float64 operator, x against 4a's (4c's) within X_AGREE, the launch
-    counts of the run, no plain call.  Returns {policy: (seconds, counts)}."""
+    fused and the overlap policy, at ``dims``: certified by the solver and
+    by the plain float64 operator, x against the one-card twin ``ref``
+    (4a's or 4c's solve at the same size) within X_AGREE, the launch counts
+    of the run, no plain call.  Returns {policy: (seconds, counts)}."""
     from tpuqcd_torch.lattice import Lattice
     from tpuqcd_torch.parallel.mesh import LatticeMesh
     from tpuqcd_torch.parallel.sharded import (ShardedTMCloverOperatorPC, ShardedTMOperatorPC,
                                                clover_fields_to, extend_gauge)
     from tpuqcd_torch.solve import make_clover_fields, solve_tm_sharded
-    lat = Lattice(LARGE)
+    lat = Lattice(dims)
     lmesh = LatticeMesh.make(lat, 1)
     kappa, mu = (CL_KAPPA, CL_MU) if clover else (KAPPA, MU)
     ug = extend_gauge(lmesh, ref.u_pk.double())
@@ -1206,30 +1246,33 @@ def mesh_direct_path(dev, ref, clover: bool = False) -> dict:
         need_launches(counts, MESH_KEYS[(policy, "clover" if clover else "tm")])
         rel = plain_full_relres(ref.u_pk.double(), ref.b_pk.double(), res.x, lat, kappa, mu, a64)
         agree = ((res.x - ref.x).abs().max() / ref.x.abs().max()).item()
+        twin = f"{'4c' if clover else '4a'}'s twin"
         print(f"  {policy}: certified relres {res.relres:.3e}, plain-operator relres {rel:.3e}, "
-              f"iterations {res.iters} ({'4c' if clover else '4a'}: {ref.iters}), max|x - x(ref)| "
-              f"/ max|x(ref)| = {agree:.3e} (limit {X_AGREE:.0e}), solve wallclock "
-              f"{seconds:.3f} s ({'4c' if clover else '4a'}: {ref.seconds:.3f} s)")
+              f"iterations {res.iters} ({twin}: {ref.iters}), max|x - x(twin)| / max|x(twin)| "
+              f"= {agree:.3e} (limit {X_AGREE:.0e}), solve wallclock {seconds:.3f} s ({twin}: "
+              f"{ref.seconds:.3f} s)")
         if not (res.relres <= RELRES_MAX and rel <= RELRES_MAX and agree <= X_AGREE):
             fail(f"the sharded solve under {policy} is not certified or does not agree")
         out[policy] = (seconds, counts)
     return out
 
 
-def mesh_mg_path(dev, mg_res, gauge):
+def mesh_mg_path(dev, mg_res, gauge, dims=MID):
     """4p: 4b's solve through the sharded fine level (mg/shard.ShardedFineLevel,
     the fused policy, via cli/common.MGSolver with a LatticeMesh) on a
-    one-rank mesh: its hops are halo launches with the shard's own faces,
-    bit for bit the unsharded kernel's, so from the same seed the hierarchy
-    and the solve are 4b's: x within X_AGREE of 4b's, certified by the
-    solver and the plain float64 operator, the inner iterations and the
-    seconds beside 4b's.  Returns (setup seconds, solve seconds, counts)."""
+    one-rank mesh at ``dims``, beside its one-card twin ``mg_res`` (4b's
+    recipe on ``gauge``, 4b's heatbath recipe at the same size): its hops are
+    halo launches with the shard's own faces, bit for bit the unsharded
+    kernel's, so from the same seed the hierarchy and the solve are the
+    twin's: x within X_AGREE of the twin's, certified by the solver and the
+    plain float64 operator, the inner iterations equal and the seconds
+    beside the twin's.  Returns (setup seconds, solve seconds, counts)."""
     from tpuqcd_torch.cli.common import MGSolver
     from tpuqcd_torch.lattice import Lattice
     from tpuqcd_torch.parallel.mesh import LatticeMesh
     from tpuqcd_torch.solve import solve_tm_mg
-    lat = Lattice(LARGE)
-    cfg = mg_config(MG_KAPPA, MG_MU)
+    lat = Lattice(dims)
+    cfg = mg_config(MG_KAPPA, MG_MU, dims=dims)
     solver = MGSolver(cfg, lat, gauge.u_pk, LatticeMesh.make(lat, 1), "fused")
 
     def run():
@@ -1248,30 +1291,31 @@ def mesh_mg_path(dev, mg_res, gauge):
     agree = ((res.x - mg_res.x).abs().max() / mg_res.x.abs().max()).item()
     st = mg.setup_seconds
     print(f"  MG setup {setup:.2f} s (null vectors {st['nulls0']:.2f} s, Galerkin probing "
-          f"{st['galerkin0']:.2f} s; 4b: {mg_res.setup_seconds['mg_setup']:.2f} s), solve "
-          f"{seconds - setup:.3f} s (4b: {mg_res.seconds:.3f} s); certified relres "
-          f"{res.relres:.3e}, plain-operator relres {rel:.3e}; inner iterations {res.iters} (4b: "
-          f"{mg_res.iters}), refinements {res.refinements} (4b: {mg_res.refinements}); "
-          f"max|x - x(4b)| / max|x(4b)| = {agree:.3e} (limit {X_AGREE:.0e})")
+          f"{st['galerkin0']:.2f} s; twin: {mg_res.setup_seconds['mg_setup']:.2f} s), solve "
+          f"{seconds - setup:.3f} s (twin: {mg_res.seconds:.3f} s); certified relres "
+          f"{res.relres:.3e}, plain-operator relres {rel:.3e}; inner iterations {res.iters} "
+          f"(twin: {mg_res.iters}), refinements {res.refinements} (twin: {mg_res.refinements}); "
+          f"max|x - x(twin)| / max|x(twin)| = {agree:.3e} (limit {X_AGREE:.0e})")
     if not (res.relres <= RELRES_MAX and rel <= RELRES_MAX and agree <= X_AGREE):
-        fail("the sharded MG solve is not certified or does not agree with 4b")
+        fail("the sharded MG solve is not certified or does not agree with its twin")
     if res.iters != mg_res.iters:
-        fail(f"the sharded MG took {res.iters} inner iterations, 4b's {mg_res.iters}: on a "
-             "one-rank mesh the hierarchy and the solve are 4b's")
+        fail(f"the sharded MG took {res.iters} inner iterations, its twin {mg_res.iters}: on a "
+             "one-rank mesh the hierarchy and the solve are the one-card run's")
     return setup, seconds - setup, counts
 
 
-def mesh_eigcg_path(dev, gauge):
+def mesh_eigcg_path(dev, gauge, dims=MID):
     """4q: three columns through ShardedEigCGSolver on a one-rank mesh (4l's
-    action on 4b's gauge, the fused policy) and through the one-card
-    EigCGSolver from the same sources: every column certified by both and by
-    the plain float64 operator, x within X_AGREE, the iterations and the
-    space's size equal.  Returns (seconds, counts, one-card seconds)."""
+    action on 4b's heatbath recipe at ``dims``, the fused policy) and
+    through the one-card EigCGSolver from the same sources: every column
+    certified by both and by the plain float64 operator, x within X_AGREE,
+    the iterations and the space's size equal.  Returns (seconds, counts,
+    one-card seconds)."""
     from tpuqcd_torch.cli.common import random_source
     from tpuqcd_torch.lattice import Lattice
     from tpuqcd_torch.parallel.mesh import LatticeMesh
     from tpuqcd_torch.solve import EigCGSolver, ShardedEigCGSolver
-    lat = Lattice(LARGE)
+    lat = Lattice(dims)
     cols = random_source(lat, dev, seed=41, columns=3)
     kw = dict(kappa=TWOP_KAPPA, mu=TWOP_MU)
 
@@ -1296,6 +1340,170 @@ def mesh_eigcg_path(dev, gauge):
             and k_shd == k_one):
         fail("the sharded eigCG is not certified or differs from the one-card run")
     return seconds, counts, one_s
+
+
+def example_config(name: str, **gauge):
+    """examples/<name> with the gauge keys ``gauge`` put over its own."""
+    from tpuqcd_torch.utils.config import load_config
+    cfg = load_config(os.path.join(EXAMPLES, name))
+    return dataclasses.replace(cfg, gauge=dataclasses.replace(cfg.gauge, **gauge))
+
+
+def heatbath_gauge(dev, dims):
+    """4b's heatbath recipe (beta 6.0, MG_SWEEPS compound sweeps from a cold
+    start, seed 0) at ``dims``, through cli/common.setup_gauge on the card,
+    its plaquette held within PLAQ_TOL of PLAQ_BETA6."""
+    from tpuqcd_torch.cli.common import setup_gauge
+    gauge = setup_gauge(mg_config(MG_KAPPA, MG_MU, dims=dims), dev)
+    print(f"  heatbath gauge {'x'.join(map(str, dims))}: {MG_SWEEPS} compound sweeps "
+          f"{gauge.seconds:.3f} s, plaquette {gauge.plaquette:.6f}", flush=True)
+    if abs(gauge.plaquette - PLAQ_BETA6) > PLAQ_TOL:
+        fail(f"plaquette {gauge.plaquette:.6f} is not within {PLAQ_TOL} of {PLAQ_BETA6}")
+    return gauge
+
+
+def musweep_path(dev, gauge, chain):
+    """4r: run_invert's mass sweep (examples/invert_musweep_32cube.yaml:
+    one multishift CG space to solver.inner_tol, then every mass certified
+    to 1e-10 from its x_i) on 4b's gauge c0000, the file of the chain: every
+    mass certified by the solver and by the plain float64 operator; the
+    multishift iterations, the stage's residual and each mass's refinement
+    iterations, the seconds, the peak memory; then the same masses solved
+    cold by solve_tm one by one, certified the same way, their iterations
+    and seconds beside the sweep's.  Returns (result, counts, cold counts,
+    cold results)."""
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.solve import solve_tm
+    cfg = example_config("invert_musweep_32cube.yaml", heatbath_beta=None,
+                         config_file=chain["files"][0], plaquette_check=chain["plaquettes"][0])
+    a, sv, lat = cfg.action, cfg.solver, Lattice(LARGE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, counts = counted_invert(cfg, dev, gauge)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    need_launches(counts, ("float32", "float64"))
+    sw = res.sweep
+    u64, b64 = res.u_pk.double(), res.b_pk.double()
+    plain = [plain_full_relres(u64, b64, x, lat, a.kappa, mu) for x, mu in zip(sw.xs, sw.mu_list)]
+    for i, mu in enumerate(sw.mu_list):
+        print(f"  mu {mu:g}: multishift stage relres {sw.multishift_relres[i]:.3e}; certified "
+              f"{sw.solver_relres[i]:.3e} (solver), {sw.relres[i]:.3e} (full system), "
+              f"{plain[i]:.3e} (plain operator) after {sw.refine_iters[i]} sloppy matvecs in "
+              f"{sw.refinements[i]} refinements")
+    print(f"  {len(sw.mu_list)} masses from one Krylov space: {sw.multishift_iters} multishift "
+          f"iterations {sw.seconds['multishift']:.3f} s, certification "
+          f"{sw.seconds['refinement']:.3f} s ({sum(sw.refine_iters)} sloppy matvecs), total "
+          f"{sw.seconds['total']:.3f} s; peak memory {peak:.2f} GiB")
+    if not (max(plain) <= RELRES_MAX and max(sw.relres) <= RELRES_MAX
+            and max(sw.solver_relres) <= RELRES_MAX):
+        fail("a mass of the sweep is not certified")
+    del sw
+    res = dataclasses.replace(res, x=None, sweep=None)
+    cold, cold_counts, cold_s = [], {}, 0.0
+    for mu in a.mu_list:
+        r, secs, c = _counted(lambda: solve_tm(gauge.u_pk, res.b_pk, lat, kappa=a.kappa, mu=mu,
+                                               tol=sv.tol, maxiter=sv.maxiter,
+                                               inner_tol=sv.inner_tol))
+        rel = plain_full_relres(u64, b64, r.x, lat, a.kappa, mu)
+        print(f"  cold solve_tm mu {mu:g}: {r.iters} sloppy matvecs, {r.refinements} "
+              f"refinements, {secs:.3f} s; certified relres {r.relres:.3e}, plain-operator "
+              f"relres {rel:.3e}")
+        if not (r.relres <= RELRES_MAX and rel <= RELRES_MAX):
+            fail(f"the cold solve at mu {mu:g} is not certified")
+        if c.get("plain", 0) != 0:
+            fail("the cold solves called the plain version")
+        for k, v in c.items():
+            cold_counts[k] = cold_counts.get(k, 0) + v
+        cold.append((r.iters, r.refinements, secs))
+        cold_s += secs
+        del r
+    print(f"  four cold solves: {sum(c[0] for c in cold)} sloppy matvecs, {cold_s:.3f} s; the "
+          f"sweep: {res.iters} multishift iterations (4 hops each) and "
+          f"{res.refinements} refinements, {res.seconds:.3f} s")
+    return res, counts, cold_counts, cold
+
+
+def musweep_mesh_path(dev, gauge):
+    """4r on a one-rank mesh: the sweep of examples/invert_musweep_32cube.yaml
+    through solve_tm_musweep and certify_musweep on a one-rank LatticeMesh
+    (mg/shard.ShardedFineLevel, the fused policy; solve_tm_sharded) at MID,
+    beside the same two calls on one card: the x_i of the stage and of the
+    certification bit for bit, the same iterations, every mass certified
+    by the plain float64 operator.  Returns (seconds, one-card seconds,
+    counts)."""
+    from tpuqcd_torch.cli.common import random_source
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.solve import certify_musweep, solve_tm_musweep
+    cfg = example_config("invert_musweep_32cube.yaml")
+    a, sv, lat = cfg.action, cfg.solver, Lattice(MID)
+    b = random_source(lat, dev)
+    kw = dict(kappa=a.kappa, mu_list=a.mu_list)
+
+    def run(lmesh):
+        xs, rel, iters = solve_tm_musweep(gauge.u_pk, b, lat, tol=sv.inner_tol,
+                                          maxiter=sv.maxiter, lmesh=lmesh, **kw)
+        certs = certify_musweep(gauge.u_pk, b, lat, xs, tol=sv.tol, maxiter=sv.maxiter,
+                                inner_tol=sv.inner_tol, lmesh=lmesh, **kw)
+        return xs, rel, iters, certs
+    (xs1, rel1, it1, c1), one_s, one_counts = _counted(lambda: run(None))
+    (xsm, relm, itm, cm), mesh_s, counts = _counted(lambda: run(LatticeMesh.make(lat, 1)))
+    print(f"  launches on the one-rank mesh: {counts}")
+    if counts.get("plain", 0) != 0 or one_counts.get("plain", 0) != 0:
+        fail("the sweep called the plain version")
+    need_launches(one_counts, ("float32", "float64"))
+    need_launches(counts, ("float32:halo", "float64:halo"))
+    u64, b64 = gauge.u_pk.double(), b.double()
+    plain = [plain_full_relres(u64, b64, c.x, lat, a.kappa, mu) for c, mu in zip(cm, a.mu_list)]
+    same = (torch.equal(xs1, xsm) and it1 == itm
+            and all(torch.equal(p.x, q.x) and p.iters == q.iters for p, q in zip(c1, cm)))
+    print(f"  one-rank mesh: {itm} multishift iterations (one card {it1}), stage relres "
+          + ", ".join(f"{r:.3e}" for r in relm) + " (one card "
+          + ", ".join(f"{r:.3e}" for r in rel1) + "); refinement matvecs "
+          f"{[c.iters for c in cm]} (one card {[c.iters for c in c1]}); certified "
+          f"<= {max(c.relres for c in cm):.3e}, plain-operator <= {max(plain):.3e}; x_i and "
+          f"counts bit for bit the one card's: {same}; {mesh_s:.3f} s (one card {one_s:.3f} s)")
+    if not (max(c.relres for c in cm + c1) <= RELRES_MAX and max(plain) <= RELRES_MAX):
+        fail("a mass of the sweep on the one-rank mesh is not certified")
+    if not same:
+        fail("the sweep on a one-rank mesh differs from the one-card sweep")
+    return mesh_s, one_s, counts
+
+
+def mg3_path(dev):
+    """4s: BASELINE config 3, the three-level hierarchy of
+    examples/invert_mg3_24cube.yaml at 24^3x48 on 4b's heatbath recipe at
+    that size, through run_invert; then 4b's two-level recipe on the same
+    gauge.  Each: the setup seconds by level, the solve seconds, the inner
+    iterations and refinements, the coarsest level's dims, certified by the
+    solver and by the plain float64 operator.  Returns ((three-level result,
+    counts), (two-level result, counts), heatbath seconds)."""
+    from tpuqcd_torch.lattice import Lattice
+    cfg = example_config("invert_mg3_24cube.yaml")
+    if tuple(cfg.gauge.dims) != MG3_DIMS or len(cfg.mg.n_vec) != 2:
+        fail(f"examples/invert_mg3_24cube.yaml is not a three-level {MG3_DIMS} run")
+    gauge = heatbath_gauge(dev, MG3_DIMS)
+    lat = Lattice(MG3_DIMS)
+    out = []
+    for what, run in (("three-level", lambda: counted_invert(cfg, dev, gauge, dims=MG3_DIMS)),
+                      ("two-level (4b's recipe)", lambda: mg_path(dev, gauge, dims=MG3_DIMS))):
+        print(f"  {what}:")
+        res, counts = run()
+        if what == "three-level":
+            need_launches(counts, ("float32", "bfloat16", "float64", "float32:legs_out"))
+            check_plain(res, lat, cfg.action.kappa, cfg.action.mu)
+        st, coarse = res.setup_seconds, res.mg.levels[1:]
+        stages = [f"{k}{d} {st[f'{k}{d}']:.2f} s" for d in range(len(coarse))
+                  for k in ("nulls", "galerkin")]
+        print(f"  {what}: coarse levels (T, Z, Y, X) {[lv.dims for lv in coarse]}, the coarsest "
+              f"{coarse[-1].dims} with {coarse[-1].n} dofs a site; setup {st['mg_setup']:.2f} s: "
+              + ", ".join(stages) + f"; solve {res.seconds:.3f} s, {res.iters} inner "
+              f"iterations, {res.refinements} refinements")
+        out.append((slim(res), counts))
+    (r3, _), (r2, _) = out
+    print(f"  three-level against two-level on the same gauge: setup "
+          f"{r3.setup_seconds['mg_setup']:.2f} / {r2.setup_seconds['mg_setup']:.2f} s, solve "
+          f"{r3.seconds:.3f} / {r2.seconds:.3f} s, inner iterations {r3.iters} / {r2.iters}")
+    return out[0], out[1], gauge.seconds
 
 
 def free_port() -> int:
@@ -1422,22 +1630,24 @@ def per_leg_probing(mg_res):
     return counts
 
 
-def mg_config(kappa, mu, csw=0.0):
+def mg_config(kappa, mu, csw=0.0, dims=LARGE):
     from tpuqcd_torch.utils.config import config_from_dict
     return config_from_dict({
-        "gauge": {"dims": list(LARGE), "heatbath_beta": MG_BETA,
+        "gauge": {"dims": list(dims), "heatbath_beta": MG_BETA,
                   "heatbath_sweeps": MG_SWEEPS, "random_seed": 0},
         "action": {"kappa": kappa, "mu": mu, "csw": csw},
         "solver": {"tol": RELRES_MAX, "inner_tol": 1e-7},
         "mg": {"enabled": True, "preset": "near_critical"}})
 
 
-def mg_path(dev, gauge, clover: bool = False):
+def mg_path(dev, gauge, clover: bool = False, dims=LARGE):
     """run_invert's multigrid path on the 32^3x64 heatbath gauge: twisted
-    mass (4b) or, with ``clover``, twisted clover (4d)."""
+    mass (4b) or, with ``clover``, twisted clover (4d); with ``dims`` 4b's
+    recipe on the heatbath gauge of that size (4p's twin, 4s's two-level
+    run)."""
     from tpuqcd_torch.lattice import Lattice
     kappa, mu, csw = (MGC_KAPPA, MGC_MU, MGC_CSW) if clover else (MG_KAPPA, MG_MU, 0.0)
-    res, counts = counted_invert(mg_config(kappa, mu, csw), dev, gauge)
+    res, counts = counted_invert(mg_config(kappa, mu, csw, dims), dev, gauge, dims=dims)
     st = res.setup_seconds
     rest = st["mg_setup"] - st["nulls0"] - st["galerkin0"]
     print(f"  MG setup {st['mg_setup']:.2f} s: null vectors {st['nulls0']:.2f} s, "
@@ -1448,7 +1658,7 @@ def mg_path(dev, gauge, clover: bool = False):
                                "float64:clover_xpay", "float32:legs_out"))
     else:
         need_launches(counts, ("float32", "bfloat16", "float64", "float32:legs_out"))
-    check_plain(res, Lattice(LARGE), kappa, mu, csw)
+    check_plain(res, Lattice(dims), kappa, mu, csw)
     return res, counts
 
 
@@ -2719,9 +2929,9 @@ def main() -> None:
 
     say("phase 4a: main path, tpuqcd_torch.cli.run_invert (CG) at 32^3x64")
     res, counts = main_path(dev)
-    say("phase 4o: 4a's solve through solve_tm_sharded on a one-rank LatticeMesh, fused and "
-        "overlap")
-    mo_tm = mesh_direct_path(dev, res)
+    say("phase 4o: 4a's solve at 16^3x32 on one card, then through solve_tm_sharded on a "
+        "one-rank LatticeMesh, fused and overlap")
+    mo_tm = mesh_direct_path(dev, main_path(dev, MID)[0])
     tm_x = res.x.cpu()
     res = slim(res)
     say(f"phase 4b: the gauge: a heatbath chain (beta {MG_BETA}, seed 0) of two members "
@@ -2739,15 +2949,39 @@ def main() -> None:
     mgb_batch_s, mgb_single_s, _, mgb_counts = mg_batch_path(dev, mg_res.mg, gauge.u_pk)
     mg_res = dataclasses.replace(mg_res, mg=None)
     torch.cuda.empty_cache()
-    say("phase 4p: 4b's MG solve through the sharded fine level on a one-rank LatticeMesh")
-    mp_setup_s, mp_solve_s, mp_counts = mesh_mg_path(dev, mg_res, gauge)
     mg_x = mg_res.x.cpu()
     mg_res = slim(mg_res)
+    say("phase 4r: main path, run_invert's mass sweep (examples/invert_musweep_32cube.yaml: "
+        "multishift CG, every mass certified) on c0000 at 32^3x64, then four cold solves")
+    sw_res, sw_counts, sw_cold_counts, sw_cold = musweep_path(dev, gauge, chain)
+    torch.cuda.empty_cache()
+    # the host-bound cells at 16^3x32 and 24^3x48 run before the cells whose
+    # peaks reach 30-41 GiB (4j-4l): after those, host-bound work measured
+    # 20-80% slower in the same process
+    say("phase 4p: 4b's recipe at 16^3x32: the heatbath gauge, the MG solve on one card, then "
+        "through the sharded fine level on a one-rank LatticeMesh")
+    gauge_mid = heatbath_gauge(dev, MID)
+    hb_mid_s = gauge_mid.seconds
+    mp_twin, _ = mg_path(dev, gauge_mid, dims=MID)
+    mp_twin = dataclasses.replace(mp_twin, mg=None)
+    mp_setup_s, mp_solve_s, mp_counts = mesh_mg_path(dev, mp_twin, gauge_mid)
+    mp_twin = slim(mp_twin)
+    say("phase 4q: three columns through ShardedEigCGSolver on a one-rank LatticeMesh beside "
+        "the one-card EigCGSolver at 16^3x32")
+    mq_seconds, mq_counts, mq_one_s = mesh_eigcg_path(dev, gauge_mid)
+    say("phase 4r: the mass sweep on a one-rank LatticeMesh beside one card at 16^3x32")
+    swm_s, swm_one_s, swm_counts = musweep_mesh_path(dev, gauge_mid)
+    del gauge_mid
+    torch.cuda.empty_cache()
+    say("phase 4s: BASELINE config 3, the three-level MG of examples/invert_mg3_24cube.yaml "
+        "at 24^3x48, then 4b's two-level recipe on the same gauge")
+    (mg3_res, mg3_counts), (mg32_res, mg32_counts), hb3_s = mg3_path(dev)
+    torch.cuda.empty_cache()
     say("phase 4c: main path, run_invert (twisted clover, BiCGStab bf16) at 32^3x64")
     cl_res, cl_counts = clover_path(dev)
-    say("phase 4o: 4c's solve through solve_tm_sharded on a one-rank LatticeMesh, fused and "
-        "overlap")
-    mo_cl = mesh_direct_path(dev, cl_res, clover=True)
+    say("phase 4o: 4c's solve at 16^3x32 on one card, then through solve_tm_sharded on a "
+        "one-rank LatticeMesh, fused and overlap")
+    mo_cl = mesh_direct_path(dev, clover_path(dev, MID)[0], clover=True)
     say("phase 4d: main path, run_invert (twisted clover, MG) at 32^3x64")
     mgc_res, mgc_counts = mg_path(dev, gauge, clover=True)
     say("phase 4e: main path, run_invert (non-degenerate doublet, CG) at 32^3x64")
@@ -2794,10 +3028,6 @@ def main() -> None:
     tl_res, tl_counts, tl_cg_counts, tl_cg_seconds, tl_widths = eigcg_path(dev, gauge)
     tl_n, tl_ns = max(tl_widths), ", ".join(map(str, tl_widths))
     torch.cuda.empty_cache()
-    say("phase 4q: three columns through ShardedEigCGSolver on a one-rank LatticeMesh beside "
-        "the one-card EigCGSolver")
-    mq_seconds, mq_counts, mq_one_s = mesh_eigcg_path(dev, gauge)
-    torch.cuda.empty_cache()
     widths = sorted({*tw_widths, *tj_widths, *tk_widths, *tl_widths, MGB_COLUMNS,
                      WITNESS_COLUMNS})
     say("phase 3: the batch axis at 32^3x64 with the numbers of columns 4h's, 4i's, 4j's, "
@@ -2822,13 +3052,23 @@ def main() -> None:
     t.update(mesh_timings(dev, card_tag))
     profile_overlap(dev, card_tag)
     for what, mo in (("twisted mass (4a's)", mo_tm), ("twisted clover (4c's)", mo_cl)):
-        print(f"  {what} solve on a one-rank mesh (4o): fused {mo['fused'][0]:.3f} s, overlap "
-              f"{mo['overlap'][0]:.3f} s {card_tag}")
-    print(f"  MG on a one-rank mesh (4p): setup {mp_setup_s:.2f} s, solve {mp_solve_s:.3f} s "
-          f"(4b: setup {mg_res.setup_seconds['mg_setup']:.2f} s, solve {mg_res.seconds:.3f} s) "
-          f"{card_tag}")
-    print(f"  eigCG, 3 columns on a one-rank mesh (4q): {mq_seconds:.3f} s, on one card "
-          f"{mq_one_s:.3f} s {card_tag}")
+        print(f"  {what} solve on a one-rank mesh at 16^3x32 (4o): fused {mo['fused'][0]:.3f} s, "
+              f"overlap {mo['overlap'][0]:.3f} s {card_tag}")
+    print(f"  MG on a one-rank mesh at 16^3x32 (4p): setup {mp_setup_s:.2f} s, solve "
+          f"{mp_solve_s:.3f} s (one card: setup {mp_twin.setup_seconds['mg_setup']:.2f} s, solve "
+          f"{mp_twin.seconds:.3f} s; the heatbath gauge {hb_mid_s:.2f} s) {card_tag}")
+    print(f"  eigCG, 3 columns on a one-rank mesh at 16^3x32 (4q): {mq_seconds:.3f} s, on one "
+          f"card {mq_one_s:.3f} s {card_tag}")
+    print(f"  mass sweep (4r), 4 masses at 32^3x64: multishift {sw_res.iters} iterations, "
+          f"sweep and certification {sw_res.seconds:.3f} s; four cold solves "
+          f"{sum(c[2] for c in sw_cold):.3f} s ({sum(c[0] for c in sw_cold)} sloppy matvecs); "
+          f"at 16^3x32 on a one-rank mesh {swm_s:.3f} s, one card {swm_one_s:.3f} s {card_tag}")
+    for what, r in (("three-level", mg3_res), ("two-level", mg32_res)):
+        print(f"  MG at 24^3x48 (4s), {what}: setup {r.setup_seconds['mg_setup']:.2f} s ("
+              + ", ".join(f"{k} {v:.2f}" for k, v in r.setup_seconds.items()
+                          if k[:-1] in ("nulls", "galerkin"))
+              + f"), solve {r.seconds:.3f} s, {r.iters} inner iterations; the heatbath gauge "
+              f"{hb3_s:.2f} s {card_tag}")
     tw_audit = next(iter(ens_stats.values()))[2]
     print("  two-point run (4h, member c0000 of 4m) seconds by stage: "
           + ", ".join(f"{k} {v:.3f}" for k, v in tw_seconds.items())
@@ -2997,8 +3237,8 @@ def main() -> None:
               f"certification, {tl_ns} columns a launch), xpay_full N={tl_n} timed",
               tl_cg_counts["float64:batch"], batch_abs[("f64", tl_n)],
               ("f64", f"xpay_full_b{tl_n}"), vmap),
-        # the sharded operators on a one-rank mesh (4o, 4p, 4q): halo mode
-        # with every epilogue, and the overlap engine's interior launch
+        # the sharded operators on a one-rank mesh at 16^3x32 (4o, 4p, 4q): halo
+        # mode with every epilogue, and the overlap engine's interior launch
         entry("dslash_eo<float> reconstruct-12 halo twist_inv/xpay (K6 with K2, sharded "
               "twisted-mass sloppy operator 4o fused), xpay timed on the one-rank mesh",
               mo_tm["fused"][1]["float32:halo"], halo_abs["f32"], ("f32", "halo_xpay"), k6),
@@ -3040,6 +3280,46 @@ def main() -> None:
         entry("dslash_eo<double> 18-real halo (K6, sharded eigCG prepare, residuals and "
               "reconstruction 4q), xpay timed on the one-rank mesh", mq_counts["float64:halo"],
               halo_abs["f64"], ("f64", "halo_xpay"), k6),
+        # the mass sweep (4r): the multishift normal operator and x_i = g5 M(-mu) g5 y_i on
+        # the MG view (xpay_full), the certification's twist_inv/xpay, the float64
+        # residuals; on the one-rank mesh at 16^3x32 the same in halo mode
+        entry("dslash_eo<float> reconstruct-12 (mass sweep 4r: multishift M_W M_W^dag and "
+              "x_i = g5 M(-mu_i) g5 y_i, xpay_full; each mass's certification, twist_inv/xpay), "
+              "xpay_full timed", sw_counts["float32"], fine_abs["f32"], ("f32", "xpay_full")),
+        entry("dslash_eo<double> 18-real (mass sweep 4r: the stage's and the certification's "
+              "residuals, prepare and reconstruction), xpay_full timed", sw_counts["float64"],
+              max_abs["f64"], ("f64", "xpay_full")),
+        entry("dslash_eo<float> reconstruct-12 (4r's four cold solve_tm beside the sweep), xpay "
+              "timed", sw_cold_counts["float32"], max_abs["f32"], ("f32", "xpay")),
+        entry("dslash_eo<double> 18-real (4r's cold solves' certification), xpay_full timed",
+              sw_cold_counts["float64"], max_abs["f64"], ("f64", "xpay_full")),
+        entry("dslash_eo<float> reconstruct-12 halo (K6 with K2, the mass sweep on a one-rank "
+              "mesh at 16^3x32: sharded fine level and certification), xpay timed on the "
+              "one-rank mesh", swm_counts["float32:halo"], halo_abs["f32"], ("f32", "halo_xpay"),
+              k6),
+        entry("dslash_eo<double> 18-real halo (K6, the sharded sweep's float64 residuals and "
+              "certification at 16^3x32), xpay timed on the one-rank mesh",
+              swm_counts["float64:halo"], halo_abs["f64"], ("f64", "halo_xpay"), k6),
+        # three-level MG at 24^3x48 (4s), and 4b's two-level recipe beside it
+        entry("dslash_eo<float> reconstruct-12 (three-level MG 4s at 24^3x48: fine operator, "
+              "null vectors), xpay_full timed", mg3_counts["float32"], fine_abs["f32"],
+              ("f32", "xpay_full")),
+        entry("dslash_eo<bf16> pair reconstruct-12 (three-level MG 4s: fine smoother), "
+              "xpay_full timed", mg3_counts["bfloat16"], fine_abs["bf16"], ("bf16", "xpay_full")),
+        entry("dslash_eo<double> 18-real (three-level MG 4s: certification), xpay_full timed",
+              mg3_counts["float64"], fine_abs["f64"], ("f64", "xpay_full")),
+        entry("dslash_eo<float> reconstruct-12 legs_out (K4, three-level MG 4s: fine Galerkin "
+              "probing)", mg3_counts["float32:legs_out"], legs_abs["f32"], ("f32", "legs_out")),
+        entry("dslash_eo<float> reconstruct-12 (two-level MG at 24^3x48 beside 4s: fine "
+              "operator), xpay_full timed", mg32_counts["float32"], fine_abs["f32"],
+              ("f32", "xpay_full")),
+        entry("dslash_eo<bf16> pair reconstruct-12 (two-level MG at 24^3x48: smoother), "
+              "xpay_full timed", mg32_counts["bfloat16"], fine_abs["bf16"],
+              ("bf16", "xpay_full")),
+        entry("dslash_eo<double> 18-real (two-level MG at 24^3x48: certification), xpay_full "
+              "timed", mg32_counts["float64"], fine_abs["f64"], ("f64", "xpay_full")),
+        entry("dslash_eo<float> reconstruct-12 legs_out (K4, two-level MG at 24^3x48: Galerkin "
+              "probing)", mg32_counts["float32:legs_out"], legs_abs["f32"], ("f32", "legs_out")),
         entry("dslash_eo<float> reconstruct-12 overlap interior + slab repairs "
               "(parallel/overlap.py; sharded twisted-mass sloppy operator 4o overlap, interior "
               "launches on one rank), twist_inv timed at the (2, 2, 1) shard",
@@ -3068,7 +3348,8 @@ def main() -> None:
     # the one-site bfloat16 kernel: the shapes pair_sites refuses, on no main path
     path_counts = [counts, mg_counts, pl_counts, mgb_counts, mp_counts, cl_counts, mgc_counts,
                    nd_counts, sh_counts, tw_counts, ens_counts, gf_counts, tj_counts, tk_counts,
-                   tl_counts, tl_cg_counts, mq_counts,
+                   tl_counts, tl_cg_counts, mq_counts, sw_counts, sw_cold_counts, swm_counts,
+                   mg3_counts, mg32_counts,
                    *(mo[policy][1] for mo in (mo_tm, mo_cl) for policy in ("fused", "overlap"))]
     kernels.append(entry(
         "dslash_eo<bf16> one-site reconstruct-12 (the shapes ops/dslash_cuda.pair_sites refuses: "

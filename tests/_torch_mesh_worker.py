@@ -18,6 +18,15 @@ gathers each result and writes them to --out:
             ...: the sharded MG (twisted mass; twisted clover), null vectors
             from the seed-7 generator, certified to 1e-12
     eigcg   eig_x (three columns), eig_relres, eig_iters, eig_space
+    musweep sweep_x (the multishift stage's x_i), sweep_relres, sweep_iters,
+            cert_x, cert_relres, cert_iters: solve_tm_musweep of MUSWEEP_MU to
+            1e-6, then certify_musweep to 1e-10
+    mg3     mg3_x, mg3_relres, mg3_iters, mg3_links1, mg3_links2: the sharded
+            three-level MG (MG3_PARAMS), certified to 1e-12
+
+ops, solve and mg read the clover fields cl, clp, clm and psi from the
+inputs; eigcg the columns cols; the others u, b, dims, kappa, mu and
+t_boundary only.
 """
 import argparse
 
@@ -32,21 +41,38 @@ from tpuqcd_torch.parallel.sharded import (ShardedTMCloverOperatorPC, ShardedTMO
 
 #: the MG hierarchy of the tests: one coarsening, small and quick
 MG_PARAMS = dict(n_vec=(4,), block=((2, 2, 2, 2),), setup_iters=20, mu_factor=1.0)
+#: the three-level hierarchy (an 8^4 lattice: 4^4, then 2^4), with the
+#: coarsest level's mu boost
+MG3_PARAMS = dict(n_vec=(4, 4), block=((2, 2, 2, 2), (2, 2, 2, 2)), setup_iters=10)
+#: the masses of the sweep, unsorted
+MUSWEEP_MU = (0.2, 0.05, 0.1)
 
 
-def mg_solve(lmesh, u, cl, kappa, mu, b, policy, tol=1e-12):
-    """The sharded MG solve of the two-parity source b (global) -> (x
-    local, relres, inner iterations, the coarse level's links, which are
-    global and the same on every rank)."""
+def mg_solve(lmesh, u, cl, kappa, mu, b, policy, tol=1e-12, params=None):
+    """The sharded MG solve of the two-parity source b (global) with
+    ``params`` (default MG_PARAMS) -> (x local, relres, inner iterations,
+    the links of every coarse level, which are global and the same on
+    every rank)."""
     from tpuqcd_torch.mg.dsolve import DeviceMG, DeviceMGParams
     from tpuqcd_torch.mg.shard import ShardedFineLevel
     from tpuqcd_torch.solve import solve_tm_mg
     lv = ShardedFineLevel.build(lmesh, local_shard(u, lmesh), kappa, mu,
                                 comm_policy=policy,
                                 clover_pk=None if cl is None else local_shard(cl, lmesh))
-    mg = DeviceMG(lv, DeviceMGParams(**MG_PARAMS))
+    mg = DeviceMG(lv, DeviceMGParams(**(MG_PARAMS if params is None else params)))
     res = solve_tm_mg(mg, local_shard(b, lmesh), tol=tol, inner_tol=1e-6)
-    return res.x, res.relres, res.iters, mg.levels[1].links_c
+    return res.x, res.relres, res.iters, [lvl.links_c for lvl in mg.levels[1:]]
+
+
+def musweep(lmesh, u, b, kappa, t_boundary, policy):
+    """The sweep of MUSWEEP_MU on the mesh (global u and b, every rank) ->
+    (stage x_i local, stage relres, iterations, the certifications)."""
+    from tpuqcd_torch.solve import certify_musweep, solve_tm_musweep
+    u_loc, b_loc = local_shard(u, lmesh), local_shard(b, lmesh)
+    kw = dict(kappa=kappa, mu_list=MUSWEEP_MU, t_boundary=t_boundary, lmesh=lmesh,
+              comm_policy=policy)
+    xs, rel, iters = solve_tm_musweep(u_loc, b_loc, lmesh.lat, tol=1e-6, **kw)
+    return xs, rel, iters, certify_musweep(u_loc, b_loc, lmesh.lat, xs, tol=1e-10, **kw)
 
 
 def main():
@@ -73,18 +99,19 @@ def main():
             out[name] = x.double().numpy()
 
     u64 = torch.from_numpy(inp["u"]).double()
-    clover = tuple(torch.from_numpy(inp[k]).double() for k in ("cl", "clp", "clm"))
-    ug = extend_gauge(lmesh, local_shard(u64, lmesh))
-    tm = {f: ShardedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=f, t_boundary=tb,
-                                 lmesh=lmesh, comm_policy=pol) for f in (1, -1)}
-    cl = {f: ShardedTMCloverOperatorPC(lat, kappa=kappa, mu=mu, flavor=f, t_boundary=tb,
-                                       lmesh=lmesh, comm_policy=pol) for f in (1, -1)}
-    f64 = cl[1].extend_fields(ug.u, *(local_shard(c, lmesh) for c in clover))
-    fields = {"tm": {"f32": ug.to(torch.float32, rows=2), "f64": ug.to(torch.float64)},
-              "clover": {"f32": clover_fields_to(f64, torch.float32, rows=2),
-                         "f64": clover_fields_to(f64, torch.float64)}}
-    ops = {"tm": tm, "clover": cl}
     b64 = torch.from_numpy(inp["b"])
+    if {"ops", "solve", "mg"} & set(args.tasks):
+        clover = tuple(torch.from_numpy(inp[k]).double() for k in ("cl", "clp", "clm"))
+        ug = extend_gauge(lmesh, local_shard(u64, lmesh))
+        tm = {f: ShardedTMOperatorPC(lat, kappa=kappa, mu=mu, flavor=f, t_boundary=tb,
+                                     lmesh=lmesh, comm_policy=pol) for f in (1, -1)}
+        cl = {f: ShardedTMCloverOperatorPC(lat, kappa=kappa, mu=mu, flavor=f, t_boundary=tb,
+                                           lmesh=lmesh, comm_policy=pol) for f in (1, -1)}
+        f64 = cl[1].extend_fields(ug.u, *(local_shard(c, lmesh) for c in clover))
+        fields = {"tm": {"f32": ug.to(torch.float32, rows=2), "f64": ug.to(torch.float64)},
+                  "clover": {"f32": clover_fields_to(f64, torch.float32, rows=2),
+                             "f64": clover_fields_to(f64, torch.float64)}}
+        ops = {"tm": tm, "clover": cl}
 
     if "ops" in args.tasks:
         for name in ("tm", "clover"):
@@ -110,7 +137,7 @@ def main():
 
     if "mg" in args.tasks:
         for name, c in (("mg", None), ("mgc", clover[0].float())):
-            x, relres, iters, links = mg_solve(lmesh, u64.float(), c, kappa, mu, b64, pol)
+            x, relres, iters, (links,) = mg_solve(lmesh, u64.float(), c, kappa, mu, b64, pol)
             keep(f"{name}_x", x)
             out[f"{name}_relres"], out[f"{name}_iters"] = relres, iters
             out[f"{name}_links"] = torch.view_as_real(links).double().numpy()
@@ -129,6 +156,22 @@ def main():
         keep("eig_x", torch.stack(xs))
         out.update(eig_relres=np.array(rel), eig_iters=np.array(its),
                    eig_space=np.array(space))
+
+    if "musweep" in args.tasks:
+        xs, rel, iters, certs = musweep(lmesh, u64.float(), b64, kappa, tb, pol)
+        keep("sweep_x", xs)
+        keep("cert_x", torch.stack([c.x for c in certs]))
+        out.update(sweep_relres=np.array(rel), sweep_iters=iters,
+                   cert_relres=np.array([c.relres for c in certs]),
+                   cert_iters=np.array([c.iters for c in certs]))
+
+    if "mg3" in args.tasks:
+        x, relres, iters, links = mg_solve(lmesh, u64.float(), None, kappa, mu, b64, pol,
+                                           params=MG3_PARAMS)
+        keep("mg3_x", x)
+        out.update(mg3_relres=relres, mg3_iters=iters)
+        for i, lc in enumerate(links, 1):
+            out[f"mg3_links{i}"] = torch.view_as_real(lc).double().numpy()
 
     if lmesh.rank == 0:
         np.savez(args.out, **out)

@@ -28,8 +28,8 @@ def one_rank(name):
     """The one-rank MG's (x, inner iterations, coarse links)."""
     inp = inputs(True)
     cl = None if name == "mg" else t(inp["cl"])
-    x, relres, iters, links = mg_solve(LatticeMesh(LAT, 1), t(inp["u"], torch.float32), cl,
-                                       KAPPA, MU, t(inp["b"]), "fused")
+    x, relres, iters, (links,) = mg_solve(LatticeMesh(LAT, 1), t(inp["u"], torch.float32), cl,
+                                            KAPPA, MU, t(inp["b"]), "fused")
     assert relres <= 1e-12
     return n(x), iters, n(torch.view_as_real(links).double())
 

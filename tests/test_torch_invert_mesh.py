@@ -2,7 +2,7 @@
 gloo, with twisted mass (fused faces along T), with twisted clover and
 multigrid (the overlap engine along T) and on a y-sharded mesh (comm_policy
 auto takes the overlap engine); and which configurations the programs
-take on a mesh: run_invert all of them but the mass sweep, the physics
+take on a mesh: run_invert all of them, the mass sweep too, the physics
 programs none (ROADMAP item 14).  Cost: about 45 s serial (three torchrun
 launches)."""
 import re
@@ -57,7 +57,11 @@ def test_run_invert_takes_a_mesh_and_the_physics_programs_refuse_it(name):
 
 
 def test_the_mass_sweep_stays_refused_on_a_mesh():
+    """Since the mass sweep came, run_invert takes it on a mesh
+    (tests/test_torch_musweep_mesh.py runs it); the physics programs still
+    refuse the mesh."""
     cfg = config_from_dict({"gauge": {"dims": [4, 4, 4, 8]}, "mesh": {"nt": 2},
                             "action": {"mu_list": [0.01, 0.02]}})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        check_in_slice(cfg, invert=True)
+    check_in_slice(cfg, invert=True)
+    with pytest.raises(NotImplementedError, match="item 14, physics on a mesh"):
+        check_in_slice(cfg)

@@ -252,6 +252,8 @@ def test_mg_config_mirrors_tpuqcd():
     raw = {"gauge": {"dims": [8, 8, 8, 8]}, "mg": {"enabled": True, "preset": "near_critical",
                                                     "restart": 8}}
     assert config_from_dict(raw).mg.restart == 8
+    # {"n_vec": [4, 4]} is a ConfigError only because block keeps one entry: n_vec
+    # and block need one entry a coarsening (three levels: tests/test_torch_mg3.py)
     for bad in ({"preset": "nope"}, {"n_vec": [4, 4]}, {"block": [[3, 2, 2, 2]]},
                 {"block": [[2, 2, 2, 3]]}, {"smoother_dtype": "half"},
                 {"setup_solver": "gmres"}):

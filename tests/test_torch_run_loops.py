@@ -117,9 +117,10 @@ def test_eigcg_is_in_the_slice_and_refuses_clover():
     with pytest.raises(NotImplementedError, match="eigcg runs on the plain twisted-mass"):
         make_solver(config_from_dict(raw), LAT, u)
     # MG takes the eigCG config; gauge fixing and ILDG files are in the slice since the
-    # gauge input came; a mesh is run_invert's (the sharded eigCG), not the loop run's
+    # gauge input came, action.mu_list since the mass sweep (read by run_invert alone,
+    # as in tpuqcd); a mesh is run_invert's (the sharded eigCG), not the loop run's
     for key, value, item in (("mg", {"enabled": True, "block": [[2, 2, 2, 2]]}, None),
-                             ("action", {"mu_list": [0.1]}, "12"),
+                             ("action", {"mu_list": [0.1]}, None),
                              ("gauge", {"dims": list(LAT.dims), "fix": "landau"}, None),
                              ("gauge", {"dims": list(LAT.dims), "config_file": "x.ildg"}, None),
                              ("mesh", {"nt": 2}, "14")):

@@ -82,7 +82,7 @@ def check_in_slice(cfg: RunConfig, threep: bool = False, invert: bool = False) -
     if threep and not cfg.physics.t_sinks:
         raise ConfigError("physics.t_sinks is empty: the three-point run needs at least one "
                           "sink timeslice")
-    a, mg = cfg.action, cfg.mg
+    mg = cfg.mg
     if is_mesh(cfg) and not invert:
         _not_ported("a mesh for run_twop, run_threeptwop and run_loops (their smearing, "
                     "contractions, projections, sequential sources and loops on shards; "
@@ -93,8 +93,6 @@ def check_in_slice(cfg: RunConfig, threep: bool = False, invert: bool = False) -
                 f"mg.{key}: {getattr(mg, key)} is not ported to tpuqcd_torch: bfloat16 "
                 "solver buffers fitted the MG solve into a 16 GB TPU (ROADMAP.md, 'How "
                 "the new hardware changes the port'); set it to float32")
-    if a.mu_list:
-        _not_ported("action.mu_list (the multishift mass sweep)", "12, remaining variants")
 
 
 def ensemble_members(cfg: RunConfig, device: torch.device):

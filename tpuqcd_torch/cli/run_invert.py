@@ -36,6 +36,18 @@ which rank 0 gathers x.  Rank 0 computes the independent float64 doublet
 residual with the unsharded kernel and alone prints ``RESULT
 solve_seconds=... relres=... dims=... tol=... ndeg=1``.
 
+``action.mu_list`` runs the quark-mass sweep (tpuqcd's _main_musweep): one
+seed-99 source, one multishift CG Krylov space for every mass
+(solve.solve_tm_musweep, iterated to solver.inner_tol), then each mass
+certified to solver.tol by a solve_tm warm-started from its x_i
+(solve.certify_musweep); on a mesh the sharded fine level and
+solve_tm_sharded, rank 0 gathering the x_i.  The ``RESULT
+solve_seconds=... multishift_iters=... mu=... relres=... refine_iters=...``
+line lists the masses in mu_list order with their independent float64
+full-system residuals.
+
+    python -m tpuqcd_torch.cli.run_invert --config examples/invert_musweep.yaml --device cpu
+
 With gauge.config_files, gauge.random_seeds or a heatbath chain
 (gauge.heatbath_n_cfg > 1) it solves once per ensemble member
 (common.ensemble_members).
@@ -50,13 +62,30 @@ from ..parallel import dist as tdist
 from ..parallel.dist import local_shard
 from ..parallel.mesh import LatticeMesh
 from ..parallel.sharded import ShardedNdegTMOperatorPC, extend_gauge
-from ..solve import (full_system_relres, make_clover_fields, ndeg_full_relres, solve_ndeg_tm,
-                     solve_ndeg_tm_sharded, solve_tm)
+from ..solve import (certify_musweep, full_system_relres, make_clover_fields, ndeg_full_relres,
+                     solve_ndeg_tm, solve_ndeg_tm_sharded, solve_tm, solve_tm_musweep)
 from ..utils.config import RunConfig
 from ..utils.profile import Profile, solve_flops, sync
-from .common import (Gauge, MGSolver, check_in_slice, comm_policy,
+from .common import (Gauge, MGSolver, _tuning, check_in_slice, comm_policy,
                      ensemble_members, is_mesh, log, make_solver, parse_args, random_source,
                      setup_gauge)
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepResult:
+    """A mass sweep's results, each list in mu_list order."""
+    mu_list: tuple
+    #: the certified solutions [n_mu, 2(par), 2(ri), 4, 3, T, Z, S] float64;
+    #: None on the ranks other than 0 of a mesh
+    xs: torch.Tensor | None
+    relres: list              # independent float64 full-system |b - M(mu_i) x_i| / |b|
+    solver_relres: list       # each certification's own (even-odd system)
+    multishift_relres: list   # the multishift stage's x_i, float64 full-system
+    multishift_iters: int     # the steps of the one Krylov space
+    refine_iters: list        # each certification's sloppy matvecs
+    refinements: list         # and its defect-correction passes
+    #: "multishift", "refinement" and their sum "total" (host clock, synchronised)
+    seconds: dict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +110,10 @@ class InvertResult:
     b_pk: torch.Tensor     # the packed float32 source
     #: the multigrid hierarchy of an MG solve, else None
     mg: object = None
+    #: a mass sweep's per-mass results (then x, relres and solver_relres are
+    #: the first mass's solution and the largest residuals, iters the
+    #: multishift steps, refinements the sum over the masses), else None
+    sweep: SweepResult | None = None
 
 
 def main(argv=None):
@@ -102,6 +135,8 @@ def invert(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None) -> 
     setup_seconds = {"gauge": gauge_seconds}
     if cfg.action.epsbar != 0.0:
         return _invert_ndeg(cfg, device, lat, u_pk, plaq, setup_seconds)
+    if cfg.action.mu_list:
+        return _invert_musweep(cfg, device, lat, u_pk, plaq, setup_seconds)
     if is_mesh(cfg):
         return _invert_mesh(cfg, device, lat, u_pk, plaq, setup_seconds)
     b_pk = random_source(lat, device)
@@ -199,6 +234,82 @@ def _invert_mesh(cfg: RunConfig, device: torch.device, lat, u_pk, plaq,
     return InvertResult(seconds=t, relres=rel, solver_relres=res.relres, iters=res.iters,
                         refinements=res.refinements, gflops=gf, x=x, plaquette=plaq,
                         setup_seconds=setup_seconds, u_pk=u_pk, b_pk=b_pk, mg=mg)
+
+
+def _invert_musweep(cfg: RunConfig, device: torch.device, lat, u_pk, plaq,
+                    setup_seconds) -> InvertResult:
+    """The quark-mass sweep of action.mu_list (tpuqcd/cli/run_invert.py:97-143),
+    on one device or the mesh of cfg.mesh: the multishift stage to
+    solver.inner_tol (what float32 reaches), then every mass certified to
+    solver.tol from its x_i; rank 0 gathers the certified x_i and computes
+    each mass's independent float64 residual with the unsharded operator."""
+    a, sv = cfg.action, cfg.solver
+    mu_list = tuple(float(m) for m in a.mu_list)
+    sloppy = torch.bfloat16 if sv.sloppy_dtype == "bfloat16" else torch.float32
+    b_pk = random_source(lat, device)
+    prof = Profile()
+    lmesh, policy, u_in, b_in = None, "fused", u_pk, b_pk
+    if is_mesh(cfg):
+        if not tdist.all_processes_agree(plaq, "plaquette"):
+            raise RuntimeError("the ranks built different gauges")
+        m = cfg.mesh
+        lmesh = LatticeMesh.make(lat, m.nt, m.nz, m.ny)
+        with prof.phase("halo"):
+            policy = comm_policy(cfg, lmesh, device, _tuning(
+                cfg, lmesh, lambda: extend_gauge(lmesh, local_shard(u_pk.double(), lmesh)),
+                u_pk))
+            sync(device)
+        setup_seconds["halo"] = prof.times["halo"]
+        log.info("musweep lattice mesh: %d x %d x %d ranks over (T, Z, Y), comm_policy %s -> "
+                 "%s", m.nt, m.nz, m.ny, sv.comm_policy, policy)
+        u_in, b_in = local_shard(u_pk, lmesh), local_shard(b_pk, lmesh)
+    kw = dict(kappa=a.kappa, mu_list=mu_list, t_boundary=-1 if cfg.gauge.antiperiodic_t else 1,
+              lmesh=lmesh, comm_policy=policy)
+    with prof.phase("multishift"):
+        xs, ms_rel, ms_iters = solve_tm_musweep(u_in, b_in, lat, tol=sv.inner_tol,
+                                                maxiter=sv.maxiter, **kw)
+        sync(device)
+    with prof.phase("refinement"):
+        certs = certify_musweep(u_in, b_in, lat, xs, tol=sv.tol, maxiter=sv.maxiter,
+                                inner_tol=sv.inner_tol, sloppy_dtype=sloppy, **kw)
+        sync(device)
+    del xs
+    seconds = {k: prof.times[k] for k in ("multishift", "refinement")}
+    seconds["total"] = seconds["multishift"] + seconds["refinement"]
+    x_all = torch.stack([c.x for c in certs])
+    if lmesh is not None:
+        x_all = lmesh.gather(x_all)
+    rels = [float("nan")] * len(mu_list)
+    if x_all is not None:
+        rels = [full_system_relres(u_pk, b_pk, x, lat, kappa=a.kappa, mu=mu)
+                for x, mu in zip(x_all, mu_list)]
+    rels = [tdist.broadcast_float(r, device) for r in rels]
+    sweep = SweepResult(mu_list=mu_list, xs=x_all, relres=rels,
+                        solver_relres=[c.relres for c in certs], multishift_relres=ms_rel,
+                        multishift_iters=ms_iters, refine_iters=[c.iters for c in certs],
+                        refinements=[c.refinements for c in certs], seconds=seconds)
+    if tdist.rank() == 0:
+        for i, mu in enumerate(mu_list):
+            log.info("musweep mu=%g: multishift relres %.2e, certified relres %.2e after %d "
+                     "sloppy matvecs in %d refinements", mu, ms_rel[i], rels[i],
+                     sweep.refine_iters[i], sweep.refinements[i])
+        log.info("musweep: %d masses, %d multishift iterations (one Krylov space) %.3f s, "
+                 "certification %.3f s", len(mu_list), ms_iters, seconds["multishift"],
+                 seconds["refinement"])
+
+        def csv(vals, fmt):
+            return ",".join(format(v, fmt) for v in vals)
+        mesh = "" if lmesh is None else \
+            f" mesh={lmesh.nt}x{lmesh.nz}x{lmesh.ny} comm_policy={policy}"
+        print(f"RESULT solve_seconds={seconds['total']:.3f} multishift_iters={ms_iters} "
+              f"mu={csv(mu_list, 'g')} relres={csv(rels, '.3e')} "
+              f"refine_iters={csv(sweep.refine_iters, 'd')} "
+              f"multishift_relres={csv(ms_rel, '.3e')} dims={lat.dims} tol={sv.tol}{mesh}")
+    return InvertResult(seconds=seconds["total"], relres=max(rels),
+                        solver_relres=max(sweep.solver_relres), iters=ms_iters,
+                        refinements=sum(sweep.refinements), gflops=0.0,
+                        x=None if x_all is None else x_all[0], plaquette=plaq,
+                        setup_seconds=setup_seconds, u_pk=u_pk, b_pk=b_pk, sweep=sweep)
 
 
 def _invert_ndeg(cfg: RunConfig, device: torch.device, lat, u_pk, plaq,

@@ -227,11 +227,17 @@ class DeviceMG:
 
     def batch_bytes(self, n_rhs: int) -> int:
         """Device memory solve_certified_batch holds at its peak for n_rhs
-        columns: the GCR basis (Z and V, 2 restart fields a column), and
-        about 10 more float32 fields a column for the iterate, residual,
-        V-cycle temporaries and the float64 iterate, source and residual."""
-        field = 4 * 2 * 2 * 12 * self.levels[0].lat.half_volume
-        return n_rhs * (2 * self.params.restart + 10) * field
+        columns: on the fine level the GCR basis (Z and V, 2 restart fields
+        a column), and about 10 more float32 fields a column for the
+        iterate, residual, V-cycle temporaries and the float64 iterate,
+        source and residual; on every coarse level as many of its fields
+        (its GCR basis and V-cycle temporaries)."""
+        return n_rhs * (2 * self.params.restart + 10) * self._column_field_bytes()
+
+    def _column_field_bytes(self) -> int:
+        """One float32 field of every level, summed."""
+        fine = 4 * 2 * 2 * 12 * self.levels[0].lat.half_volume
+        return fine + sum(4 * 2 * lv.n * lv.Vc for lv in self.levels[1:])
 
     def _check_batch_fits(self, n_rhs: int) -> None:
         dev = self.levels[0].device
@@ -245,8 +251,8 @@ class DeviceMG:
             raise MemoryError(
                 f"a batched MG solve of {n_rhs} right-hand sides needs about "
                 f"{need / 2**30:.1f} GiB ({n_rhs} x (2 x restart {self.params.restart} + 10) "
-                f"float32 fine fields of {need / n_rhs / (2 * self.params.restart + 10) / 2**20:.0f}"
-                f" MiB) and {free / 2**30:.1f} GiB are free on {dev}: lower solver.rhs_batch")
+                f"float32 fields of every level, {self._column_field_bytes() / 2**20:.0f} MiB "
+                f"a set) and {free / 2**30:.1f} GiB are free on {dev}: lower solver.rhs_batch")
 
     def solve_batch(self, b: torch.Tensor, tol: float = 1e-6,
                     maxiter: int = 200) -> GCRResultPk:

@@ -25,23 +25,30 @@ with every reduction summed over the ranks; the same sharded operator
 certifies in float64 (tpuqcd needs an XLA twin there, its kernel being
 float32 only).
 
+solve_tm_musweep solves a twisted-mass quark-mass sweep from one
+multi-shift Krylov space (on one card or a mesh), and certify_musweep
+takes each of its masses on to a certified tolerance by a warm-started
+solve_tm.
+
 EigCGSolver keeps tpuqcd's incremental eigCG for a sequence of sources:
 one deflation space per instance, grown by every solve;
 ShardedEigCGSolver is its twin on a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
 from .fields import ODD
 from .lattice import Lattice
-from .mg.device import DeviceFineCloverLevel
+from .mg.device import DeviceFineCloverLevel, DeviceFineLevel, g5_fine
 from .operators import PackedNdegTMOperatorPC, PackedTMCloverOperatorPC, PackedTMOperatorPC
 from .ops.clover import clover_blocks, clover_twist_inverse
 from .solvers.bicgstab import bicgstab, bicgstab_cols
 from .solvers.cg import _cg_cycle, _cg_cycle_cols
+from .solvers.multishift import multishift_cg
 from .solvers import reductions
 from .solvers.reductions import norm2, norm2_cols
 from .utils.packed import pack_clover, unpack_gauge
@@ -278,21 +285,23 @@ def _gauge_dtype(fields) -> torch.dtype:
 
 
 def solve_tm_sharded(op, fields_s, fields_hp, b_pk: torch.Tensor, *, tol: float = 1e-10,
-                     maxiter: int = 5000, inner_tol: float = 1e-5,
-                     solver: str = "cg") -> SolveResult:
+                     maxiter: int = 5000, inner_tol: float = 1e-5, solver: str = "cg",
+                     x0_e: torch.Tensor | None = None) -> SolveResult:
     """The twisted-mass(-clover) system on a LatticeMesh
     (tpuqcd/solve.py:169-192): op a ShardedTMOperatorPC or
     ShardedTMCloverOperatorPC, fields_s and fields_hp its sloppy and
     float64 operands (a HaloGauge, or parallel/sharded.clover_fields_to's
     tuple; the iteration runs in fields_s's dtype), b_pk this rank's shard
     of [2(par), 2(ri), 4, 3, T, Z, S].  The same operator, on the float64
-    operands, certifies (tpuqcd needs an XLA twin there).  Every rank
-    calls it; x is this rank's shard, relres the global one."""
+    operands, certifies (tpuqcd needs an XLA twin there).  x0_e, this
+    rank's shard of an even-parity iterate, warm-starts it, as in
+    solve_tm.  Every rank calls it; x is this rank's shard, relres the
+    global one."""
     if solver not in ("cg", "bicgstab"):
         raise ValueError(f"solver must be cg or bicgstab, got {solver!r}")
     with reductions.over(op.lmesh):
         return _certified(op, fields_s, fields_hp, b_pk, sdt=_gauge_dtype(fields_s), tol=tol,
-                          maxiter=maxiter, inner_tol=inner_tol, solver=solver)
+                          maxiter=maxiter, inner_tol=inner_tol, solver=solver, x0=x0_e)
 
 
 def ndeg_full_relres(u_pk: torch.Tensor, b_pk: torch.Tensor, x_pk: torch.Tensor,
@@ -328,6 +337,97 @@ def full_system_relres(u_pk: torch.Tensor, b_pk: torch.Tensor, x_pk: torch.Tenso
         mx = pc.apply_full(u64, x_pk.to(torch.float64))
     r = b64 - mx
     return (norm2(r).item() / max(norm2(b64).item(), 1e-300)) ** 0.5
+
+
+def solve_tm_musweep(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, *, kappa: float,
+                     mu_list, tol: float = 1e-8, maxiter: int = 4000, t_boundary: int = -1,
+                     lmesh=None, comm_policy: str = "fused"):
+    """Twisted-mass quark-mass sweep (tpuqcd/solve.py:504-594): M(mu_i) x_i
+    = b for every mu of mu_list from one multi-shift CG Krylov space.
+
+    The left normal operators of all masses are shifts of one Hermitian
+    positive definite operator, M(mu) M(mu)^dag = M_W M_W^dag + (2 kappa
+    mu)^2 (M_W = M(0); the cross terms cancel by gamma5-hermiticity), so
+    solvers/multishift.py solves (M_W M_W^dag + sigma_i) y_i = b with the
+    shifts sigma_i ascending, the seed the smallest, two fine-level applies
+    (one xpay launch a parity each) per step, and x_i = M(mu_i)^dag y_i =
+    g5 M(-mu_i) g5 y_i.  The sweep runs in float32 on the reconstruct-12
+    links to ``tol`` on the normal system, whose residual is x_i's
+    full-system residual; certify_musweep takes every mass on to a
+    certified tolerance.
+
+    u_pk [4, 2, 3, 3, 2, T, Z, S] with the boundary phase t_boundary
+    folded in; b_pk [2(par), 2(ri), 4, 3, T, Z, S].  Returns (xs [n_mu,
+    *b_pk.shape] float32 in mu_list order, relres: per mass the float64
+    |b - M(mu_i) x_i| / |b| (full_system_relres), iters: the multishift
+    steps).  Masses with the same mu^2 share a shift, not an x_i.
+
+    On a LatticeMesh ``lmesh`` every rank calls it with its shards of u_pk
+    and b_pk; the matvec runs on mg/shard.ShardedFineLevel under
+    ``comm_policy``, the Krylov scalars sum over the ranks, xs are this
+    rank's shards and relres, from the sharded float64 level, is global.
+    """
+    mu_list = tuple(float(m) for m in mu_list)
+    order = sorted(range(len(mu_list)), key=lambda i: mu_list[i] ** 2)
+    shifts = [(2.0 * kappa * mu_list[i]) ** 2 for i in order]
+    if lmesh is None:
+        level = DeviceFineLevel(lat, u_pk.to(torch.float32), kappa, 0.0, t_boundary=t_boundary)
+    else:
+        from .mg.shard import ShardedFineLevel
+        level = ShardedFineLevel.build(lmesh, u_pk, kappa, 0.0, t_boundary=t_boundary,
+                                       comm_policy=comm_policy)
+
+    def matvec(v):      # M_W M_W^dag = M_W g5 M_W g5 (mu = 0)
+        return level.apply(g5_fine(level.apply(g5_fine(v))))
+
+    b_t = b_pk.to(torch.float32).transpose(0, 1).contiguous()     # [2(ri), 2(par), ...]
+    xs = torch.empty((len(mu_list), *b_pk.shape), dtype=torch.float32, device=b_pk.device)
+    with reductions.over(lmesh):
+        res = multishift_cg(matvec, b_t, shifts, tol=tol, maxiter=maxiter)
+        for pos, i in enumerate(order):
+            lv = dataclasses.replace(level, mu=-mu_list[i])
+            xs[i] = g5_fine(lv.apply(g5_fine(res.xs[pos]))).transpose(0, 1)
+        iters = res.iters
+        del res
+        if lmesh is None:
+            relres = [full_system_relres(u_pk, b_pk, x, lat, kappa=kappa, mu=mu)
+                      for x, mu in zip(xs, mu_list)]
+        else:
+            hp = level.as_hp()
+            b64 = b_t.to(torch.float64)
+            bsq = max(norm2(b64).item(), 1e-300)
+            relres = [(norm2(b64 - dataclasses.replace(hp, mu=mu).apply(
+                x.transpose(0, 1).to(torch.float64).contiguous())).item() / bsq) ** 0.5
+                for x, mu in zip(xs, mu_list)]
+    return xs, relres, iters
+
+
+def certify_musweep(u_pk: torch.Tensor, b_pk: torch.Tensor, lat: Lattice, xs: torch.Tensor,
+                    *, kappa: float, mu_list, tol: float = 1e-10, maxiter: int = 5000,
+                    inner_tol: float = 1e-5, sloppy_dtype: torch.dtype = torch.float32,
+                    t_boundary: int = -1, lmesh=None,
+                    comm_policy: str = "fused") -> list[SolveResult]:
+    """Every mass of a sweep certified to ``tol``: solve_tm at mu_i (on a
+    LatticeMesh solve_tm_sharded, with the shards as solve_tm_musweep takes
+    them) warm-started from the even parity of x_i, the iterate of the
+    even-odd system its defect correction runs (tpuqcd does not refine its
+    sweep).  xs [n_mu, 2(par), 2(ri), ...] in mu_list order.  Returns one
+    SolveResult a mass, in mu_list order; iters and refinements count the
+    certification's own sloppy matvecs and passes."""
+    mu_list = tuple(float(m) for m in mu_list)
+    kw = dict(tol=tol, maxiter=maxiter, inner_tol=inner_tol)
+    if lmesh is None:
+        return [solve_tm(u_pk, b_pk, lat, kappa=kappa, mu=mu, sloppy_dtype=sloppy_dtype,
+                         t_boundary=t_boundary, x0_e=x[0], **kw)
+                for x, mu in zip(xs, mu_list)]
+    from .parallel.sharded import ShardedTMOperatorPC, extend_gauge
+    ug = extend_gauge(lmesh, u_pk.to(torch.float64))
+    fields = (ug.to(sloppy_dtype, rows=2), ug.to(torch.float64))
+    return [solve_tm_sharded(ShardedTMOperatorPC(lmesh.lat, kappa=kappa, mu=mu,
+                                                 t_boundary=t_boundary, lmesh=lmesh,
+                                                 comm_policy=comm_policy),
+                             *fields, b_pk, x0_e=x[0], **kw)
+            for x, mu in zip(xs, mu_list)]
 
 
 #: EigCGSolver's sizes (tpuqcd's defaults, which no caller changes): Ritz

@@ -7,9 +7,8 @@ seeds or heatbath-chain members, gauge fixing: every key of tpuqcd's
 GaugeParams), action (with the non-degenerate doublet's mubar and
 epsbar), solver (with the multi-RHS batch keys), mg (every key of
 tpuqcd's MGParamsCfg, with the named presets), physics (every key of
-tpuqcd's PhysicsParams), mesh, and the switch of the part not ported yet
-(the mass sweep), which ``cli/common.check_in_slice`` refuses.  Keys of
-unported options are ignored, so every existing YAML loads.
+tpuqcd's PhysicsParams), mesh, and the mass sweep's action.mu_list.  Keys
+of unported options are ignored, so every existing YAML loads.
 """
 from __future__ import annotations
 
@@ -57,6 +56,8 @@ class ActionParams:
     #: 2 i kappa mubar g5 tau3 + 2 kappa epsbar tau1 - kappa D
     mubar: float = 0.0
     epsbar: float = 0.0
+    #: the quark-mass sweep (run_invert): every mu solved from one multishift
+    #: Krylov space, then certified mass by mass (solve.solve_tm_musweep)
     mu_list: tuple = ()
 
 
@@ -253,6 +254,13 @@ def validate_config(cfg: RunConfig) -> None:
         if cfg.mg.enabled or cfg.solver.solver == "eigcg" or a.csw != 0.0:
             raise ConfigError("the ndeg doublet path (action.epsbar != 0) supports the plain "
                               "mixed-precision CG solver only (no mg/eigcg/csw yet)")
+    if a.mu_list and (a.csw != 0.0 or a.epsbar != 0.0 or cfg.mg.enabled
+                      or cfg.solver.solver != "cg"):
+        # tpuqcd/utils/config.py:312-318
+        raise ConfigError("action.mu_list (multishift mass sweep) supports the plain "
+                          "twisted-mass operator with solver: cg — unset csw/epsbar/mg or drop "
+                          "mu_list (a mesh is fine: the sweep runs through the sharded fine "
+                          "level)")
     _validate_mesh(cfg.mesh, dims, cfg.solver.comm_policy)
     if cfg.mg.enabled:
         _validate_mg_mesh(cfg.mg, cfg.mesh, dims)
