@@ -136,6 +136,17 @@ Phases, each of which exits non-zero on failure:
       16^3x32 on 4p's gauge the same sweep through solve_tm_musweep and
       certify_musweep on a one-rank LatticeMesh (the sharded fine level,
       solve_tm_sharded) beside one card: every x_i and count bit for bit;
+   t. tpuqcd_torch.cli.run_threeptwop.measure (its two-point stages
+      included) on a one-rank LatticeMesh at 16^3x32 on 4p's gauge, beside
+      its one-card twin: 4j's action, solver and smearing, P5z, the proton,
+      the source at (t, z, y, x) = (3, 5, 7, 9), t_sink 15; the mesh run's
+      fields are the rank's blocks (ghost layers for the smearing and the
+      covariant derivative, the projections summed over the mesh), its
+      columns one at a time through the sharded solver, launching halo
+      mode (K6) and no batch: every forward and backward column of both runs
+      certified by the solver and by the plain float64 operator, every
+      dataset within 1e-5 of the twin's largest value, both runs' seconds
+      by stage and the mesh run's K6 launches printed;
    s. BASELINE config 3: a beta = 6.0 heatbath gauge at 24^3x48 (seed 0,
       160 sweeps), the three-level MG of examples/invert_mg3_24cube.yaml
       (near_critical, n_vec 16 and 16, blocks 4^4 and 2^4: 6^3x12, then
@@ -279,6 +290,14 @@ CHAIN_SKIP = 20
 WITNESS_COLUMNS = 3
 #: cell 4j: the sink timeslice, about 1.1 fm from the source at a = 0.093 fm
 THREEP_T_SINK = 12
+#: cell 4t: the source (t, z, y, x) off the origin and the sink 4j's 12
+#: timeslices after it, at MID
+MESH_SRC, MESH_T_SINK = (3, 5, 7, 9), 15
+#: cell 4t: max |mesh - twin| / max |twin| of each dataset.  Both runs certify
+#: every column to 1e-10; the twin solves 11 columns in lockstep, the mesh
+#: one at a time through solve_tm_sharded, so their float32 x differ near
+#: 1e-7, which the contractions carry linearly into the correlators
+MESH_RUN_AGREE = 1e-5
 #: cell 4i: the columns of the lockstep MG solve (12 do not fit the card)
 MGB_COLUMNS = 4
 #: cells 4k and 4l: the loop run's deflation modes and its limits on the
@@ -357,19 +376,20 @@ def build() -> float:
 
 def problem(dims, dev, seed=0):
     """Random gauge with the boundary phase, packed in every storage type,
-    and two random spinors of one parity, on ``dev``."""
+    and two random spinors of one parity, on ``dev``, drawn there (a
+    32^3x64 gauge is 100M normals: on the host they took seconds a call)."""
     from tpuqcd_torch import su3
     from tpuqcd_torch.lattice import Lattice
     from tpuqcd_torch.utils.convert import gauge_from_full
     lat = Lattice(dims)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     u64 = gauge_from_full(su3.random_gauge(lat, gen, dev, torch.complex128), lat,
                           True, torch.float64, dev)
     gauges = {name: (u64 if rows == 3 else u64[:, :, :2]).to(dt).contiguous()
               for name, dt, rows, _ in STORAGE}
     shape = (2, 4, 3, *lat.site_shape)
-    psi = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
-    psi0 = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
+    psi = torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+    psi0 = torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
     return lat, gauges, psi, psi0
 
 
@@ -900,11 +920,11 @@ def compare_recon8(dims, dev) -> dict:
     from tpuqcd_torch.utils.packed import pack_gauge, pack_gauge8, unpack_gauge, unpack_gauge8
     lat = Lattice(dims)
     shards = [LatticeMesh(lat, 2, 2, 1, r) for r in range(4)]
-    gen = torch.Generator().manual_seed(9)
+    gen = torch.Generator(device=dev).manual_seed(9)
     u_full = su3.random_gauge(lat, gen, dev, torch.complex128)
     shape = (3, 2, 4, 3, *lat.site_shape)
-    psi64 = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
-    psi064 = torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
+    psi64 = torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+    psi064 = torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
     max_abs = {}
     for name, dt, _, _ in STORAGE:
         tol, tol18 = RECON8_TOL[name]
@@ -964,10 +984,10 @@ def compare_bf16c(dims, dev) -> float:
     from tpuqcd_torch.ops.dslash_cuda import dslash_eo, dslash_eo_plain
     lat, gauges, _, _ = problem(dims, dev, seed=10)
     blocks = clover_operands(gauges["f64"], lat, torch.float32)
-    gen = torch.Generator().manual_seed(20)
+    gen = torch.Generator(device=dev).manual_seed(20)
     shape = (3, 2, 4, 3, *lat.site_shape)
-    psi = torch.randn(shape, generator=gen).to(dev).bfloat16()
-    psi0 = torch.randn(shape, generator=gen).to(dev).bfloat16()
+    psi = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    psi0 = torch.randn(shape, generator=gen, device=dev).bfloat16()
     u = gauges["bf16"]
     max_abs = 0.0
     for mode, epi, scale in MODES[:3] + CLOVER_MODES[:2]:
@@ -1469,6 +1489,59 @@ def musweep_mesh_path(dev, gauge):
     return mesh_s, one_s, counts
 
 
+def mesh_threep_path(dev, gauge, dims=MID):
+    """4t: run_threeptwop.measure (its two-point stages included) on a
+    one-rank LatticeMesh at ``dims`` on 4p's gauge, beside its one-card twin
+    (the same call without the mesh): 4j's action, solver and smearing, the
+    P5z projector, the proton, the source at MESH_SRC off the origin and
+    t_sink MESH_T_SINK.  Every column of both runs certified by the solver
+    (on the mesh by the sharded float64 operator) and by the plain float64
+    operator (audited_measure); every dataset of the mesh run within
+    MESH_RUN_AGREE of the twin's largest value; the mesh run launching K6
+    (halo mode, the shard's own faces), no batch and no plain call.
+    Returns (mesh counts, mesh stages, twin stages, mesh seconds, twin
+    seconds)."""
+    from tpuqcd_torch.cli import run_threeptwop
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    lat, u64 = Lattice(dims), gauge.u_pk.double()
+    cfg = twop_config("unused.h5", gauge={"dims": list(dims)}, projectors=["P5z"],
+                      baryons=["proton"], t_sinks=[MESH_T_SINK], sink_momentum=[0, 0, 0],
+                      source_positions=[list(MESH_SRC)])
+    runs = {}
+    for name, kw in (("one card", {}), ("one-rank mesh", {"lmesh": LatticeMesh.make(lat, 1)})):
+        t0 = time.perf_counter()
+        res, counts, audited, audit_s, peak = audited_measure(run_threeptwop.measure, cfg, dev,
+                                                              gauge, u64, lat, **kw)
+        seconds = time.perf_counter() - t0
+        check_columns(res, audited, 24 + 24, f"{name}: the 24 forward and 24 backward columns")
+        print(f"  {name}: {seconds:.3f} s (the plain-operator audit {audit_s:.3f} s), peak "
+              f"memory {peak:.2f} GiB; seconds by stage: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items()), flush=True)
+        runs[name] = (res, counts, seconds)
+    (one, _, one_s), (mesh, counts, mesh_s) = runs["one card"], runs["one-rank mesh"]
+    need_launches(counts, ("float32:halo", "float64:halo"))
+    if any(v for k, v in counts.items() if k.endswith(":batch")):
+        fail(f"the mesh run launched the batched kernel: {counts}")
+    if not all(len(r["relres"]) == 1 for r in mesh.solves):
+        fail("the mesh run did not solve its columns one at a time")
+
+    def datasets(res):
+        out = dict(res.twop)
+        out.update({f"{g}/{k}": v for g, ins in res.threep.items() for k, v in ins.items()})
+        return out
+    got, want = datasets(mesh), datasets(one)
+    if sorted(got) != sorted(want) or len(want) != 1 + 2 * 32:
+        fail(f"the mesh run's datasets {len(got)}, the twin's {len(want)}, not {1 + 2 * 32}")
+    worst = max(np.abs(got[k] - w).max() / np.abs(w).max() for k, w in want.items())
+    finite = all(np.isfinite(v).all() and v.shape == (2, dims[3]) for v in got.values())
+    print(f"  {len(want)} datasets: max over datasets of max|mesh - twin| / max|twin| "
+          f"{worst:.3e} (limit {MESH_RUN_AGREE:.0e}); finite, shape (2, {dims[3]}): {finite}")
+    if not (worst <= MESH_RUN_AGREE and finite):
+        fail("the three-point run on the one-rank mesh differs from its one-card twin")
+    return counts, mesh.seconds, one.seconds, mesh_s, one_s
+
+
 def mg3_path(dev):
     """4s: BASELINE config 3, the three-level hierarchy of
     examples/invert_mg3_24cube.yaml at 24^3x48 on 4b's heatbath recipe at
@@ -1506,14 +1579,6 @@ def mg3_path(dev):
     return out[0], out[1], gauge.seconds
 
 
-def free_port() -> int:
-    """A free TCP port on localhost for torchrun's rendezvous."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
-
-
 def invert_rank(argv) -> None:
     """One rank of phase 4g under torchrun: run_invert's entry (parse_args,
     which joins the process group, then invert); rank 0 saves the gathered
@@ -1524,11 +1589,15 @@ def invert_rank(argv) -> None:
     """
     from tpuqcd_torch.cli import run_invert
     from tpuqcd_torch.cli.common import parse_args
+    from tpuqcd_torch.parallel import dist as tdist
     i = argv.index("--save-x")
     cfg, device = parse_args(run_invert.__doc__, argv[:i] + argv[i + 2:])
-    res = run_invert.invert(cfg, device)
-    if res.x is not None:
-        torch.save(res.x.cpu(), argv[i + 1])
+    try:
+        res = run_invert.invert(cfg, device)
+        if res.x is not None:
+            torch.save(res.x.cpu(), argv[i + 1])
+    finally:
+        tdist.shutdown()
 
 
 def torchrun_invert(n: int, cfg: dict, extra=()) -> tuple[str, torch.Tensor, str]:
@@ -1541,10 +1610,9 @@ def torchrun_invert(n: int, cfg: dict, extra=()) -> tuple[str, torch.Tensor, str
         path, x_path = os.path.join(tmp, "mesh.yaml"), os.path.join(tmp, "x.pt")
         with open(path, "w") as f:
             yaml.safe_dump(cfg, f)      # writes 1e-10 as 1.0e-10, a YAML float
-        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-                            str(n), "--master_addr", "localhost", "--master_port",
-                            str(free_port()), os.path.abspath(__file__), "--invert-rank",
-                            "--config", path, "--save-x", x_path, *extra],
+        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                            "--nproc_per_node", str(n), os.path.abspath(__file__),
+                            "--invert-rank", "--config", path, "--save-x", x_path, *extra],
                            capture_output=True, text=True, timeout=600,
                            env={**os.environ, "TPUQCD_RESOURCE_PATH": tmp})
         line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
@@ -2517,7 +2585,8 @@ def timings(dev, card_tag) -> dict:
     for name, dt, rows, _ in STORAGE:
         u, psi, psi0 = gauges[name], psi64.to(dt), psi064.to(dt)
         cl = a_pk.to(dt).contiguous()
-        modes = {"f32": MODES, "f64": MODES[:1] + MODES[3:]}.get(name, MODES[3:])
+        # bfloat16: the MG smoother's two launches, twist_inv and xpay_full
+        modes = {"f32": MODES, "f64": MODES[:1] + MODES[3:]}.get(name, MODES[1:2] + MODES[3:])
         for mode, epi, scale in modes + CLOVER_MODES[:2]:
             xpay, clover = epi.endswith("xpay"), epi.startswith("clover")
             kw = dict(epilogue=epi, kappa=KAPPA, mu=MU, xpay_scale=scale,
@@ -2781,14 +2850,14 @@ def new_timings(dev, card_tag, widths) -> dict:
     lat, gauges, _, _ = problem(LARGE, dev, seed=12)
     sites = lat.half_volume
     dims = "x".join(map(str, LARGE))
-    gen = torch.Generator().manual_seed(22)
+    gen = torch.Generator(device=dev).manual_seed(22)
     ns = sorted({1, 2, 4, 12, *widths})
     out = {}
 
     def fields(n, dt):
         shape = (n, 2, 4, 3, *lat.site_shape)
-        return (torch.randn(shape, generator=gen).to(dev).to(dt),
-                torch.randn(shape, generator=gen).to(dev).to(dt))
+        return (torch.randn(shape, generator=gen, device=dev).to(dt),
+                torch.randn(shape, generator=gen, device=dev).to(dt))
 
     def report(name, tag, label, k_ms, p_ms, byts, flops, dt):
         b_ms, b_by = bound(byts, flops, dt)
@@ -2971,6 +3040,9 @@ def main() -> None:
     mq_seconds, mq_counts, mq_one_s = mesh_eigcg_path(dev, gauge_mid)
     say("phase 4r: the mass sweep on a one-rank LatticeMesh beside one card at 16^3x32")
     swm_s, swm_one_s, swm_counts = musweep_mesh_path(dev, gauge_mid)
+    say("phase 4t: run_threeptwop.measure on a one-rank LatticeMesh beside its one-card twin "
+        "at 16^3x32 (4j's action and smearing, P5z, the proton, the source off the origin)")
+    mt_counts, mt_stages, mt_one_stages, mt_s, mt_one_s = mesh_threep_path(dev, gauge_mid)
     del gauge_mid
     torch.cuda.empty_cache()
     say("phase 4s: BASELINE config 3, the three-level MG of examples/invert_mg3_24cube.yaml "
@@ -3048,9 +3120,12 @@ def main() -> None:
     print(f"  doublet CG solve: {nd_res.seconds:.3f} s wallclock, {nd_res.iters} sloppy "
           f"matvecs, {nd_res.refinements} refinements; on the one-rank mesh {sh_seconds:.3f} s "
           f"{card_tag}")
+    say("phase 5: the batch axis, reconstruct-8, bfloat16 arithmetic, the lockstep CG step")
     t.update(new_timings(dev, card_tag, widths))
+    say("phase 5: halo mode and the overlap engine at the one-rank mesh and the (2, 2) shard")
     t.update(mesh_timings(dev, card_tag))
     profile_overlap(dev, card_tag)
+    say("phase 5: the main paths' seconds")
     for what, mo in (("twisted mass (4a's)", mo_tm), ("twisted clover (4c's)", mo_cl)):
         print(f"  {what} solve on a one-rank mesh at 16^3x32 (4o): fused {mo['fused'][0]:.3f} s, "
               f"overlap {mo['overlap'][0]:.3f} s {card_tag}")
@@ -3063,6 +3138,10 @@ def main() -> None:
           f"sweep and certification {sw_res.seconds:.3f} s; four cold solves "
           f"{sum(c[2] for c in sw_cold):.3f} s ({sum(c[0] for c in sw_cold)} sloppy matvecs); "
           f"at 16^3x32 on a one-rank mesh {swm_s:.3f} s, one card {swm_one_s:.3f} s {card_tag}")
+    print(f"  three-point run on a one-rank mesh at 16^3x32 (4t): {mt_s:.3f} s, one card "
+          f"{mt_one_s:.3f} s (both with the audit); by stage, mesh / one card: "
+          + ", ".join(f"{k} {v:.3f} / {mt_one_stages[k]:.3f}" for k, v in mt_stages.items())
+          + f" {card_tag}")
     for what, r in (("three-level", mg3_res), ("two-level", mg32_res)):
         print(f"  MG at 24^3x48 (4s), {what}: setup {r.setup_seconds['mg_setup']:.2f} s ("
               + ", ".join(f"{k} {v:.2f}" for k, v in r.setup_seconds.items()
@@ -3300,6 +3379,14 @@ def main() -> None:
         entry("dslash_eo<double> 18-real halo (K6, the sharded sweep's float64 residuals and "
               "certification at 16^3x32), xpay timed on the one-rank mesh",
               swm_counts["float64:halo"], halo_abs["f64"], ("f64", "halo_xpay"), k6),
+        # the three-point run on a one-rank mesh at 16^3x32 (4t)
+        entry("dslash_eo<float> reconstruct-12 halo twist_inv/xpay (K6 with K2, the three-point "
+              "run on a one-rank mesh 4t: forward and backward columns one at a time), xpay "
+              "timed on the one-rank mesh", mt_counts["float32:halo"], halo_abs["f32"],
+              ("f32", "halo_xpay"), k6),
+        entry("dslash_eo<double> 18-real halo (K6, 4t's sharded certification), xpay timed on "
+              "the one-rank mesh", mt_counts["float64:halo"], halo_abs["f64"],
+              ("f64", "halo_xpay"), k6),
         # three-level MG at 24^3x48 (4s), and 4b's two-level recipe beside it
         entry("dslash_eo<float> reconstruct-12 (three-level MG 4s at 24^3x48: fine operator, "
               "null vectors), xpay_full timed", mg3_counts["float32"], fine_abs["f32"],
@@ -3349,7 +3436,7 @@ def main() -> None:
     path_counts = [counts, mg_counts, pl_counts, mgb_counts, mp_counts, cl_counts, mgc_counts,
                    nd_counts, sh_counts, tw_counts, ens_counts, gf_counts, tj_counts, tk_counts,
                    tl_counts, tl_cg_counts, mq_counts, sw_counts, sw_cold_counts, swm_counts,
-                   mg3_counts, mg32_counts,
+                   mt_counts, mg3_counts, mg32_counts,
                    *(mo[policy][1] for mo in (mo_tm, mo_cl) for policy in ("fused", "overlap"))]
     kernels.append(entry(
         "dslash_eo<bf16> one-site reconstruct-12 (the shapes ops/dslash_cuda.pair_sites refuses: "

@@ -3,7 +3,6 @@ test_torch_sharded_clover.py): the numpy inputs handed to tpuqcd and to
 the gloo workers of tests/_torch_mesh_worker.py, and torchrun."""
 import functools
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -22,15 +21,12 @@ KAPPA, MU, CSW = 0.115, 0.08, 1.2
 MESHES = {"t": (2, 1, 1), "tz": (2, 2, 1), "ty": (2, 1, 2)}
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def torchrun(nproc: int, *args, timeout: int = 300) -> subprocess.CompletedProcess:
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
-           "--master_addr", "localhost", "--master_port", str(free_port()), *args]
+    """``args`` under torchrun on ``nproc`` gloo ranks; --standalone lets the
+    rendezvous bind a free port itself (a port picked here and closed
+    before torchrun binds it can be taken in between by a concurrent job)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), *args]
     r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
                        env={**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]

@@ -184,3 +184,17 @@ def test_port_never_imports_jax():
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "tpuqcd_torch.ops.dslash_cuda" in mods and "tpuqcd_torch.cli.run_invert" in mods
+
+
+def test_port_sources_import_neither_jax_nor_tpuqcd():
+    """No import statement of the port or of chip_smoke.py, those inside
+    functions too (which importing the modules does not run), names jax or
+    tpuqcd."""
+    import re
+    stmt = re.compile(r"^\s*(from|import)\s+(jax|tpuqcd)(\.|\s|$)", re.M)
+    files = [*(ROOT / "tpuqcd_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    bad = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}" for p in files
+           for m in stmt.finditer(p.read_text())]
+    assert not bad, bad
+    assert len(files) > 50 and stmt.search("    from tpuqcd.cli import x\n")
+    assert not stmt.search("from tpuqcd_torch.cli import x\n")

@@ -2,9 +2,9 @@
 gloo, with twisted mass (fused faces along T), with twisted clover and
 multigrid (the overlap engine along T) and on a y-sharded mesh (comm_policy
 auto takes the overlap engine); and which configurations the programs
-take on a mesh: run_invert all of them, the mass sweep too, the physics
-programs none (ROADMAP item 14).  Cost: about 45 s serial (three torchrun
-launches)."""
+take on a mesh: run_invert all of them, the mass sweep too, run_twop and
+run_threeptwop too, run_loops none (ROADMAP item 14).  Cost: about 45 s
+serial (three torchrun launches)."""
 import re
 
 import pytest
@@ -48,20 +48,27 @@ MESH_CONFIGS = {
 
 @pytest.mark.parametrize("name", list(MESH_CONFIGS))
 def test_run_invert_takes_a_mesh_and_the_physics_programs_refuse_it(name):
+    """run_invert, run_twop and run_threeptwop take every mesh
+    configuration (tests/test_torch_twop_mesh.py and test_torch_threep_mesh.py
+    run the two physics programs on gloo ranks); run_loops still refuses a
+    mesh, citing ROADMAP item 14."""
     raw = {"gauge": {"dims": [4, 4, 4, 8]}, "physics": {"t_sinks": [2]}, **MESH_CONFIGS[name]}
     cfg = config_from_dict(raw)
     check_in_slice(cfg, invert=True)
-    for threep in (False, True):
-        with pytest.raises(NotImplementedError, match="item 14, physics on a mesh"):
-            check_in_slice(cfg, threep=threep)
+    check_in_slice(cfg, twop=True)
+    check_in_slice(cfg, threep=True)
+    with pytest.raises(NotImplementedError, match="run_loops.*item 14, physics on a mesh"):
+        check_in_slice(cfg)
 
 
 def test_the_mass_sweep_stays_refused_on_a_mesh():
     """Since the mass sweep came, run_invert takes it on a mesh
-    (tests/test_torch_musweep_mesh.py runs it); the physics programs still
-    refuse the mesh."""
+    (tests/test_torch_musweep_mesh.py runs it); the loop run still refuses
+    the mesh, the two- and three-point runs take it."""
     cfg = config_from_dict({"gauge": {"dims": [4, 4, 4, 8]}, "mesh": {"nt": 2},
-                            "action": {"mu_list": [0.01, 0.02]}})
+                            "physics": {"t_sinks": [2]}, "action": {"mu_list": [0.01, 0.02]}})
     check_in_slice(cfg, invert=True)
+    check_in_slice(cfg, twop=True)
+    check_in_slice(cfg, threep=True)
     with pytest.raises(NotImplementedError, match="item 14, physics on a mesh"):
         check_in_slice(cfg)

@@ -12,7 +12,6 @@ same float64 arithmetic in another order), solutions of two solves to
 1e-12 agree to 1e-10."""
 import os
 import re
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -126,15 +125,9 @@ def test_plain_halo_matches_tpuqcd_pallas_halo_mode():
 # --------------------------------------------------------------------------
 # gloo ranks
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _torchrun(nproc: int, *args) -> subprocess.CompletedProcess:
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
-           "--master_addr", "localhost", "--master_port", str(_free_port()), *args]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), *args]
     r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
                        env={**os.environ, "PYTHONPATH": str(ROOT),
                             "OMP_NUM_THREADS": "1"})

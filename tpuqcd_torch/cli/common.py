@@ -75,18 +75,20 @@ def is_mesh(cfg: RunConfig) -> bool:
     return cfg.mesh.nt * cfg.mesh.nz * cfg.mesh.ny > 1
 
 
-def check_in_slice(cfg: RunConfig, threep: bool = False, invert: bool = False) -> None:
+def check_in_slice(cfg: RunConfig, threep: bool = False, invert: bool = False,
+                   twop: bool = False) -> None:
     """Refuse the configurations the port does not run yet; with ``threep``
     (the three-point run) also one without physics.t_sinks.  ``invert``
-    (run_invert) takes a mesh, the physics programs do not."""
+    (run_invert), ``twop`` (run_twop) and ``threep`` take a mesh; the loop
+    run (none of them) does not."""
     if threep and not cfg.physics.t_sinks:
         raise ConfigError("physics.t_sinks is empty: the three-point run needs at least one "
                           "sink timeslice")
     mg = cfg.mg
-    if is_mesh(cfg) and not invert:
-        _not_ported("a mesh for run_twop, run_threeptwop and run_loops (their smearing, "
-                    "contractions, projections, sequential sources and loops on shards; "
-                    "run_invert takes a mesh)", "14, physics on a mesh")
+    if is_mesh(cfg) and not (invert or twop or threep):
+        _not_ported("a mesh for run_loops (its noise sharding, Lanczos over mesh reductions "
+                    "and loop site sums; run_invert, run_twop and run_threeptwop take a "
+                    "mesh)", "14, physics on a mesh")
     for key in ("gcr_dtype", "vec_dtype"):
         if mg.enabled and getattr(mg, key) != "float32":
             raise NotImplementedError(
@@ -438,6 +440,7 @@ class Solver:
         x = solve.packed(b_full)                       # from a full-layout source
         x_full = solve(b_full)                         # complex128 [T, Z, Y, X, 4, 3]
         res = solve.solve_local(b_loc, flavor=+1)      # on a mesh: this rank's shard
+        xs = solve.packed_src_batch(b_locs)            # on a mesh: this rank's blocks
 
     With mg.enabled the MG branch (MGSolver; the batch in chunks of
     solver.rhs_batch columns in lockstep); else with solver.solver eigcg
@@ -456,24 +459,29 @@ class Solver:
     sources [n, 2(par), 2(ri), ...] and their float64 solutions, before
     these are rounded to float32 (an independent check of every column).
 
-    On a mesh of several ranks (cfg.mesh; tpuqcd/cli/common.py:479-665)
-    every branch runs sharded: ``lmesh`` is this rank's LatticeMesh and
-    ``policy`` the communication policy (comm_policy), the direct branch
+    On a mesh (cfg.mesh of several ranks, or ``lmesh`` given: a one-rank
+    mesh runs the same code; tpuqcd/cli/common.py:479-665) every branch
+    runs sharded: ``lmesh`` is this rank's LatticeMesh and ``policy`` the
+    communication policy (comm_policy), the direct branch
     solve.solve_tm_sharded on the sharded twisted-mass or clover operator,
     the MG branch mg/shard.ShardedFineLevel, eigCG
-    solve.ShardedEigCGSolver.  Each rank shards the sources it is given
-    (every rank holds the same), the columns go one at a time, and
-    packed_src returns the whole solution on every rank."""
+    solve.ShardedEigCGSolver.  The columns go one at a time.
+    packed_src_batch takes this rank's blocks of the sources and returns
+    its blocks of the solutions (the physics programs; every rank calls
+    it); records, keep_first's x_first and the audit see the blocks too
+    (an audit that needs whole fields gathers them itself: it is a check,
+    not the path).  packed_src takes a whole source (every rank holds the
+    same), shards it and returns the whole solution on every rank."""
 
     keep_first = False
     audit = None
 
-    def __init__(self, cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor):
+    def __init__(self, cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor, lmesh=None):
         self.cfg, self.lat, self.u_pk = cfg, lat, u_pk
         self.rhs_batch = max(1, int(cfg.solver.rhs_batch))
         self.records: list[dict] = []
-        self.lmesh, self.policy = None, None
-        if is_mesh(cfg):
+        self.lmesh, self.policy = lmesh, None
+        if lmesh is None and is_mesh(cfg):
             from ..parallel.mesh import LatticeMesh
             m = cfg.mesh
             self.lmesh = LatticeMesh.make(lat, m.nt, m.nz, m.ny)
@@ -606,21 +614,27 @@ class Solver:
             raise ValueError("solve_local solves on a mesh; use packed_src on one card")
         return self._solve(b_loc, flavor)[0]
 
+    def _column(self, b: torch.Tensor, flavor: int, probe: bool = False,
+                first_column: int = 0):
+        """One source (on a mesh this rank's block) -> its SolveResult,
+        recorded and audited."""
+        res, more = self._solve(b, flavor, probe)
+        self._record(flavor, res, first_column, probe=probe, **more)
+        if self.audit is not None:
+            self.audit(b[None], res.x[None], flavor)
+        return res
+
     def packed_src(self, b_pk: torch.Tensor, flavor: int = +1, probe: bool = False,
                    first_column: int = 0):
         """One packed source -> the packed float32 solution (probe: it is
-        the batch gate's first column; first_column: its index in a batch)."""
+        the batch gate's first column; first_column: its index in a batch);
+        on a mesh the whole source in and the whole solution out."""
         b_pk = self.put(b_pk)
         if self.lmesh is None:
-            res, more = self._solve(b_pk, flavor, probe)
-        else:
-            from ..parallel.dist import local_shard
-            res, more = self._solve(local_shard(b_pk, self.lmesh), flavor)
-            res = res._replace(x=self.lmesh.all_gather(res.x))
-        self._record(flavor, res, first_column, probe=probe, **more)
-        if self.audit is not None:
-            self.audit(b_pk[None], res.x[None], flavor)
-        return res.x.to(torch.float32)
+            return self._column(b_pk, flavor, probe, first_column).x.to(torch.float32)
+        from ..parallel.dist import local_shard
+        res = self._column(local_shard(b_pk, self.lmesh), flavor, first_column=first_column)
+        return self.lmesh.all_gather(res.x).to(torch.float32)
 
     def _batch(self, b_pks: torch.Tensor, flavor: int, first_column: int):
         if self.mg is not None:
@@ -642,10 +656,11 @@ class Solver:
         solver.rhs_batch_gate_iters matvecs the others run in batches of
         solver.rhs_batch_gate_chunk (tpuqcd/cli/common.py:728-774).  eigCG
         solves the columns one after the other, each deflated by what the
-        ones before it harvested, and so does every branch on a mesh."""
+        ones before it harvested, and so does every branch on a mesh, where
+        b_pks are this rank's blocks and so are the solutions."""
         b_pks = self.put(b_pks)
         if self.eigcg is not None or self.lmesh is not None:
-            return torch.stack([self.packed_src(b, flavor, first_column=i)
+            return torch.stack([self._column(b, flavor, first_column=i).x.to(torch.float32)
                                 for i, b in enumerate(b_pks)])
         n, batch_n, lead = b_pks.shape[0], self.rhs_batch, None
         gate = int(self.cfg.solver.rhs_batch_gate_iters)
@@ -672,16 +687,15 @@ class Solver:
         return packed_to_full(self.packed(b_full, flavor), self.lat)
 
 
-def make_solver(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor,
-                invert: bool = False) -> Solver:
-    """The solver of the physics programs (see Solver) or, with ``invert``,
-    of run_invert, which takes a mesh; refuses what the port does not run
-    yet."""
-    check_in_slice(cfg, invert=invert)
+def make_solver(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor, lmesh=None) -> Solver:
+    """The solver of run_invert and of the physics programs (see Solver),
+    on the mesh of cfg.mesh or ``lmesh``; refuses what the port does not
+    run yet (run_loops refuses a mesh itself, check_in_slice)."""
+    check_in_slice(cfg, twop=True)
     if cfg.action.epsbar != 0.0:
         raise NotImplementedError("make_solver solves the light (degenerate) twisted-mass "
                                   "quark; action.epsbar selects run_invert's doublet solve")
-    return Solver(cfg, lat, u_pk)
+    return Solver(cfg, lat, u_pk, lmesh)
 
 
 def random_source(lat: Lattice, device: torch.device, seed: int = 99,

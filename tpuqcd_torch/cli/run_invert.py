@@ -118,10 +118,13 @@ class InvertResult:
 
 def main(argv=None):
     cfg, device = parse_args(__doc__, argv)
-    for ctag, c in ensemble_members(cfg, device):
-        if ctag:
-            log.info("=== ensemble member %s ===", ctag)
-        invert(c, device)
+    try:
+        for ctag, c in ensemble_members(cfg, device):
+            if ctag:
+                log.info("=== ensemble member %s ===", ctag)
+            invert(c, device)
+    finally:
+        tdist.shutdown()
 
 
 def invert(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None) -> InvertResult:
@@ -198,7 +201,7 @@ def _invert_mesh(cfg: RunConfig, device: torch.device, lat, u_pk, plaq,
     b_pk = random_source(lat, device)
     prof = Profile()
     with prof.phase("halo"):
-        solver = make_solver(cfg, lat, u_pk, invert=True)
+        solver = make_solver(cfg, lat, u_pk)
         sync(device)
     setup_seconds["halo"] = prof.times["halo"]
     lmesh, mg = solver.lmesh, None

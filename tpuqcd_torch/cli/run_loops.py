@@ -43,6 +43,7 @@ import torch
 
 from ..gammas import G5_DIAG, INSERTION_GAMMAS
 from ..io.hdf5io import write_loops
+from ..parallel import dist as tdist
 from ..phys.loops_dev import (make_deflate_pk, oneend_lowmode_exact_pk, stochastic_oneend_pk,
                               z4_noises)
 from ..utils.config import RunConfig
@@ -228,12 +229,15 @@ def write(cfg: RunConfig, result: LoopsResult) -> None:
 
 def main(argv=None):
     cfg, device = parse_args(__doc__, argv)
-    for ctag, c in ensemble_members(cfg, device):
-        if ctag:
-            log.info("=== ensemble member %s ===", ctag)
-        result = measure(c, device)
-        write(c, result)
-        log.info("seconds by stage: %s", {k: round(v, 3) for k, v in result.seconds.items()})
+    try:
+        for ctag, c in ensemble_members(cfg, device):
+            if ctag:
+                log.info("=== ensemble member %s ===", ctag)
+            result = measure(c, device)
+            write(c, result)
+            log.info("seconds by stage: %s", {k: round(v, 3) for k, v in result.seconds.items()})
+    finally:
+        tdist.shutdown()
 
 
 if __name__ == "__main__":

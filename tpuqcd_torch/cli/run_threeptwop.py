@@ -31,6 +31,16 @@ g5)).  Everything after the configuration runs on ``--device``; only the
 
 The sink momentum's phase is taken relative to the source
 (phys/threep_dev.py's docstring says why and where tpuqcd differs).
+
+On a mesh (``mesh.nt/nz/ny`` under torchrun) each rank holds its block of
+every field, as in run_twop: the sequential source is built and smeared
+on the ranks that hold t_sink (the others hold zeros), the backward
+solves run sharded, the covariant derivative exchanges t, z and y faces,
+and the projections' partial sums are summed over the ranks.  No field is
+gathered; rank 0 alone writes.
+
+    torchrun --nproc_per_node 2 -m tpuqcd_torch.cli.run_threeptwop \\
+        --config examples/threep_mesh.yaml --device cpu
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ import torch
 
 from ..gammas import INSERTION_GAMMAS, PROJECTORS
 from ..io.hdf5io import write_threep, write_twop
+from ..parallel import dist as tdist
 from ..phys.contract_dev import proton_2pt_site_dev
 from ..phys.propagator import (assemble_propagator_pk, sink_smear_prop_pk,
                                sink_smear_timeslice_pk)
@@ -50,8 +61,8 @@ from ..phys.threep_dev import (backward_prop_pk, project_momenta_pk, proton_seq_
 from ..utils.config import RunConfig
 from ..utils.profile import Profile
 from .common import (Gauge, check_in_slice, ensemble_members, log, make_solver, parse_args,
-                     setup_gauge, smeared_gauge)
-from .run_twop import smeared_sources, source_tag, stage_timer
+                     setup_gauge)
+from .run_twop import mesh_of, smeared_links, smeared_sources, source_tag, stage_timer
 
 #: twisted-mass flavor of each physical quark's forward solve
 FLAVOR_OF = {"u": +1, "d": -1}
@@ -86,15 +97,17 @@ class ThreepResult:
 
 
 def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
-            keep_fields: bool = False, audit=None) -> ThreepResult:
+            keep_fields: bool = False, audit=None, lmesh=None) -> ThreepResult:
     """The two- and three-point measurement of ``cfg`` on ``device``.
     ``gauge``, what setup_gauge(cfg, device) returned before, saves
-    generating it again; ``audit`` goes to the solver (Solver.audit)."""
+    generating it again; ``audit`` goes to the solver (Solver.audit).  On
+    the mesh of cfg.mesh, or ``lmesh``, as run_twop.measure."""
     check_in_slice(cfg, threep=True)
     ph = cfg.physics
     lat, u_pk, plaq, gauge_seconds = setup_gauge(cfg, device) if gauge is None else gauge
-    solve = make_solver(cfg, lat, u_pk)
+    solve = make_solver(cfg, lat, u_pk, lmesh)
     solve.keep_first, solve.audit = keep_fields, audit
+    lmesh = mesh_of(solve, plaq)
     momenta = np.asarray(ph.momenta)
     snk = tuple(int(q) for q in ph.sink_momentum)
     n_gauss, a_gauss = ph.smear_n_gauss, ph.smear_alpha_gauss
@@ -102,21 +115,21 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
     prof.times["gauge"] = gauge_seconds
     stage = stage_timer(prof, device)
     with stage("smearing"):
-        u_sm = smeared_gauge(cfg, lat, u_pk) if n_gauss > 0 else None
+        u_sm = smeared_links(cfg, lat, u_pk, lmesh)
     twop, threep, sources, t_sinks, fields = {}, {}, {}, {}, {}
     for src in ph.source_positions:
         tag, xyz = source_tag(src), (src[3], src[2], src[1])
         log.info("source %s (contractions on %s)", tuple(src), device)
         with stage("sources"):
-            b_pks = smeared_sources(cfg, lat, src, u_sm, device)
+            b_pks = smeared_sources(cfg, lat, src, u_sm, device, lmesh)
         props, props_sm = {}, {}
         for name, flavor in FLAVOR_OF.items():
             log.info(" forward props flavor %s (batched rhs)", name)
             with stage(f"solves_{name}"):
                 props[name] = assemble_propagator_pk(solve.packed_src_batch(b_pks, flavor))
             with stage("sink_smearing"):
-                props_sm[name] = (sink_smear_prop_pk(u_sm, props[name], lat, a_gauss, n_gauss)
-                                  if n_gauss > 0 else props[name])
+                props_sm[name] = (sink_smear_prop_pk(u_sm, props[name], lat, a_gauss, n_gauss,
+                                                     lmesh) if n_gauss > 0 else props[name])
         for baryon in ph.baryons:
             phys_of = {"u": "u", "d": "d"} if baryon == "proton" else {"u": "d", "d": "u"}
             pu, pd = props_sm[phys_of["u"]], props_sm[phys_of["d"]]
@@ -125,7 +138,7 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
             with stage("projection"):
                 for pname, d in dens.items():
                     group = f"twop/{baryon}/{pname}/{tag}"
-                    twop[group] = project_momenta_pk(d, lat, momenta, xyz)
+                    twop[group] = project_momenta_pk(d, lat, momenta, xyz, lmesh=lmesh)
                     sources[group] = tuple(src)
             del dens
             for t_sink in ph.t_sinks:
@@ -136,11 +149,11 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
                                  pname, phys)
                         with stage("seq_sources"):
                             seq = proton_seq_source_pk(pu, pd, t_sink, leg, lat,
-                                                       PROJECTORS[pname], snk, xyz)
+                                                       PROJECTORS[pname], snk, xyz, lmesh)
                         if n_gauss > 0:
                             with stage("seq_smearing"):
                                 seq = sink_smear_timeslice_pk(u_sm, seq, lat, t_sink, a_gauss,
-                                                              n_gauss)
+                                                              n_gauss, lmesh)
                         flip = -FLAVOR_OF[phys]
                         with stage("solves_bwd"):
                             bwd = backward_prop_pk(
@@ -149,10 +162,11 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
                         part = f"{baryon}/{pname}/{phys}/ts{t_sink}/{tag}"
                         with stage("insertions"):
                             threep[f"threep/{part}"] = threep_ultralocal_pk(
-                                bwd, props[phys], INSERTION_GAMMAS, lat, momenta, src)
+                                bwd, props[phys], INSERTION_GAMMAS, lat, momenta, src,
+                                lmesh=lmesh)
                         with stage("derivatives"):
                             threep[f"threep_der/{part}"] = threep_one_derivative_all_pk(
-                                bwd, props[phys], u_pk, lat, momenta, src)
+                                bwd, props[phys], u_pk, lat, momenta, src, lmesh=lmesh)
                         del bwd
                         for kind in ("threep", "threep_der"):
                             sources[f"{kind}/{part}"] = tuple(src)
@@ -171,7 +185,10 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
 def write(cfg: RunConfig, result: ThreepResult) -> None:
     """The correlators into physics.output: the two-point groups as
     write_twop, the three-point groups as write_threep (one subgroup per
-    insertion, the group's attributes src_pos, t_sink and sink_momentum)."""
+    insertion, the group's attributes src_pos, t_sink and sink_momentum); on
+    a mesh rank 0 alone writes."""
+    if tdist.rank() != 0:
+        return
     out = cfg.physics.output
     if os.path.dirname(out):
         os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -188,12 +205,15 @@ def write(cfg: RunConfig, result: ThreepResult) -> None:
 
 def main(argv=None):
     cfg, device = parse_args(__doc__, argv)
-    for ctag, c in ensemble_members(cfg, device):
-        if ctag:
-            log.info("=== ensemble member %s ===", ctag)
-        result = measure(c, device)
-        write(c, result)
-        log.info("seconds by stage: %s", {k: round(v, 3) for k, v in result.seconds.items()})
+    try:
+        for ctag, c in ensemble_members(cfg, device):
+            if ctag:
+                log.info("=== ensemble member %s ===", ctag)
+            result = measure(c, device)
+            write(c, result)
+            log.info("seconds by stage: %s", {k: round(v, 3) for k, v in result.seconds.items()})
+    finally:
+        tdist.shutdown()
 
 
 if __name__ == "__main__":

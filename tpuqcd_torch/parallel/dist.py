@@ -56,6 +56,16 @@ def init_distributed(device_type: str) -> torch.device | None:
     return device
 
 
+def shutdown() -> None:
+    """Leave the process group of a torchrun launch (a no-op without one).
+    Every CLI calls it on the way out: a gloo rank that exits with its
+    group still up can abort in the group's teardown (SIGABRT, "terminate
+    called without an active exception") after its work is done, which
+    fails the launch."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 

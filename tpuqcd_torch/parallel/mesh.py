@@ -7,7 +7,8 @@ so a y-chunk of S is a y-decomposition), in tpuqcd's device order: rank =
 (Lt/nt, Lz/nz, Ly/ny); every local extent that is split is even, so the
 even-odd checkerboard in local coordinates is the global one.  Face
 exchange is in parallel/sharded.py (split from the compute in
-parallel/overlap.py); reductions over the mesh in solvers/reductions.py.
+parallel/overlap.py; the ghost layer of the smearing and the covariant
+derivative there too); reductions over the mesh in solvers/reductions.py.
 
     lmesh = LatticeMesh.make(lat, nt=2, nz=2)     # needs a group of 4 ranks
     psi_loc = lmesh.shard(psi)                    # [..., T, Z, S] -> local block
@@ -102,6 +103,21 @@ class LatticeMesh:
     def t_offset(self) -> int:
         """The shard's global t."""
         return self.coords[0] * self.local_dims[0]
+
+    @property
+    def z_offset(self) -> int:
+        """The shard's global z."""
+        return self.coords[1] * self.local_dims[1]
+
+    @property
+    def y_offset(self) -> int:
+        """The shard's global y."""
+        return self.coords[2] * self.local_y
+
+    def holds_t(self, t: int) -> bool:
+        """Whether timeslice t lies in this rank's block; all ranks of one
+        t-block (every z and y of it) hold the same timeslices."""
+        return 0 <= int(t) - self.t_offset < self.local_dims[0]
 
     def _block(self, it: int, iz: int, iy: int):
         Tl, Zl = self.local_dims

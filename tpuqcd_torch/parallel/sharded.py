@@ -24,6 +24,13 @@ reals are the 48 B a float32 half-spinor would take.  The operators always
 ship half-spinor faces; exchange_faces and cut_halo take ``half=False``
 for the tests of the kernel's full-face mode.
 
+The physics programs' spatial hops (the Gaussian smearing) and covariant
+derivatives read their neighbours from a ghost layer instead: a block
+extended by one site on both sides of chosen axes, filled with the
+neighbours' unprojected boundary slices (exchange_ghosts) or, for the
+gauge that every rank holds whole, cut from it (ghost_block), and read
+through ghost_tables.
+
     lmesh = LatticeMesh.make(lat, nt=2)
     op = ShardedTMOperatorPC(lat, kappa=0.115, mu=0.05, lmesh=lmesh)
     ug = op.extend_gauge(lmesh.shard(u_pk).contiguous())
@@ -64,23 +71,26 @@ def _projector_terms(entries: tuple, device: torch.device, dtype: torch.dtype):
     """A 2x4 complex half-projector (``entries`` row-major; 0, +-1, +-i, two
     of them not 0 in each row) acting on a packed spinor, as the two terms
     of each of its 4 real outputs (re and im of 2 spins): the packed input
-    rows (ri, spin) [4, 2] and their signs [4, 2, 1] on ``device``."""
+    rows (ri, spin) of the first terms, then of the second [8], and their
+    signs [2, 4, 1] on ``device``."""
     c = torch.tensor(entries, dtype=torch.complex128).reshape(2, 4)
     m = torch.stack([torch.cat([c.real, -c.imag], 1),
                      torch.cat([c.imag, c.real], 1)]).reshape(4, 8)
-    rows = torch.stack([torch.nonzero(r).flatten() for r in m])
-    sign = torch.gather(m, 1, rows)[..., None]
-    return rows.to(device), sign.to(device=device, dtype=dtype)
+    rows = torch.stack([torch.nonzero(r).flatten() for r in m])        # [4, 2]
+    sign = torch.gather(m, 1, rows)
+    return (rows.T.reshape(8).to(device),
+            sign.T.reshape(2, 4, 1).to(device=device, dtype=dtype))
 
 
 def hproj_pk(psi: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     """A 2x4 half-projector (entries 0, +-1, +-i) on a packed spinor
     [2(ri), 4, 3, ...] -> [2(ri), 2, 3, ...]: each output is a sum of two
-    input rows with signs, exact."""
+    input rows with signs, exact.  One gather of the 8 terms, one product
+    with the signs and one sum of the pairs (a boundary slice's (ri, spin)
+    rows merge into one axis without a copy)."""
     rows, sign = _projector_terms(tuple(tab.flatten().tolist()), psi.device, psi.dtype)
-    x = psi.reshape(8, -1)
-    out = sign[:, 0] * x[rows[:, 0]] + sign[:, 1] * x[rows[:, 1]]
-    return out.reshape(2, 2, *psi.shape[2:])
+    terms = psi.flatten(0, 1).index_select(0, rows)
+    return (terms.view(2, 4, -1) * sign).sum(0).view(2, 2, *psi.shape[2:])
 
 
 def _ships_half(half: bool, dtype: torch.dtype) -> bool:
@@ -201,6 +211,84 @@ def extend_gauge(lmesh: LatticeMesh, u_loc: torch.Tensor) -> HaloGauge:
     if lmesh.ny > 1:
         u_y, _ = _ring(lmesh, "y", u_loc[1, ..., -(lmesh.lat.Lx // 2):].contiguous(), None)
     return HaloGauge(u_loc.contiguous(), u_t, u_z, u_y)
+
+
+#: the site dim of each mesh axis in a field [..., T, Z, S]
+_SITE_DIM = {"t": -3, "z": -2, "y": -1}
+
+
+def exchange_ghosts(lmesh: LatticeMesh, x: torch.Tensor, axes=("t", "z", "y")) -> torch.Tensor:
+    """A local field [..., T, Z, S] (real or complex, any leading dims) with
+    a ghost layer one site deep on both sides of each of ``axes``: the
+    neighbours' boundary slices, unprojected, one _ring a axis.  The axes
+    go in t, z, y order, so a later axis' slices carry the earlier ghosts
+    and the layer's edges are filled too.  Returns [..., T + 2, Z + 2,
+    (Y + 2) Xh] on the padded axes, in the global even-odd packing; on an
+    axis of one rank the ghosts are the block's own far slices."""
+    xh = lmesh.lat.Lx // 2
+    for axis in ("t", "z", "y"):
+        if axis not in axes:
+            continue
+        last, first = (boundary_slice(x, axis, f, xh).contiguous() for f in (False, True))
+        if x.is_complex():
+            below, above = _ring(lmesh, axis, torch.view_as_real(last), torch.view_as_real(first))
+            below, above = torch.view_as_complex(below), torch.view_as_complex(above)
+        else:
+            below, above = _ring(lmesh, axis, last, first)
+        x = torch.cat([below, x, above], dim=_SITE_DIM[axis])
+    return x
+
+
+def ghost_block(lmesh: LatticeMesh, x: torch.Tensor, axes=("t", "z", "y")) -> torch.Tensor:
+    """This rank's block of a whole field [..., Lt, Lz, S] with the ghost
+    layer of exchange_ghosts, cut without communication: the gauge, which
+    every rank holds whole."""
+    lat, xh, dev = lmesh.lat, lmesh.lat.Lx // 2, x.device
+    (Tl, Zl), Yl = lmesh.local_dims, lmesh.local_y
+
+    def span(axis, lo, n, total):
+        pad = int(axis in axes)
+        return torch.arange(lo - pad, lo + n + pad, device=dev) % total
+    t = span("t", lmesh.t_offset, Tl, lat.Lt)
+    z = span("z", lmesh.z_offset, Zl, lat.Lz)
+    y = span("y", lmesh.y_offset, Yl, lat.Ly)
+    s = (y[:, None] * xh + torch.arange(xh, device=dev)).reshape(-1)
+    return x.index_select(-3, t).index_select(-2, z).index_select(-1, s)
+
+
+def ghost_tables(site_shape, lx: int, axes=("t", "z", "y"), device=None):
+    """ops/gauge_tools.neighbour_tables of a block [T, Z, S] inside its
+    ghost layer along ``axes``: tables[sp][mu, 0 | 1] gathers f(x + mu) |
+    f(x - mu) of the extended field (exchange_ghosts, ghost_block) on
+    parity sp, flattened over its sites, onto the block's sites of parity
+    1 - sp.  A leg along an axis without ghosts wraps within the block,
+    which must then hold that axis whole (x always)."""
+    T, Z, S = (int(v) for v in site_shape)
+    xh_n = lx // 2
+    Y = S // xh_n
+    pt, pz, py = (int(a in axes) for a in ("t", "z", "y"))
+    Ze, Ye = Z + 2 * pz, Y + 2 * py
+    ar = lambda n: torch.arange(n, device=device)  # noqa: E731
+    t, z = ar(T)[:, None, None, None], ar(Z)[None, :, None, None]
+    y, xh = ar(Y)[None, None, :, None], ar(xh_n)[None, None, None, :]
+
+    def flat(t_, z_, y_, x_):
+        return (((t_ * Ze + z_) * Ye + y_) * xh_n + x_).expand(T, Z, Y, xh_n).reshape(-1)
+
+    def step(c, n, pad, d):
+        return c + pad + d if pad else (c + d) % n
+
+    tables = []
+    for sp in (0, 1):
+        o_p = (t + z + y + sp) % 2 == 1
+        tc, zc, yc = t + pt, z + pz, y + py
+        legs = [(flat(tc, zc, yc, torch.where(o_p, xh, (xh + 1) % xh_n)),
+                 flat(tc, zc, yc, torch.where(o_p, (xh - 1) % xh_n, xh))),
+                (flat(tc, zc, step(y, Y, py, 1), xh), flat(tc, zc, step(y, Y, py, -1), xh)),
+                (flat(tc, step(z, Z, pz, 1), yc, xh), flat(tc, step(z, Z, pz, -1), yc, xh)),
+                (flat(step(t, T, pt, 1), zc, yc, xh), flat(step(t, T, pt, -1), zc, yc, xh))]
+        tables.append(torch.stack([torch.stack(pair) for pair in legs]))
+    return tuple(tables)
 
 
 def cut_halo(lmesh: LatticeMesh, u: torch.Tensor, psi: torch.Tensor, src_parity: int,

@@ -31,8 +31,7 @@ import torch
 
 from ..gammas import G5_DIAG
 from ..lattice import Lattice
-from ..ops.gauge_tools import neighbour_tables
-from .threep_dev import _at, _cdtype, _deriv, _over_sites, _project, cov_deriv_sym_pk
+from .threep_dev import _at, _cdtype, _deriv, _hood, _over_sites, _project, cov_deriv_sym_pk
 
 _Z4_RE = torch.tensor([1.0, 0.0, -1.0, 0.0])
 _Z4_IM = torch.tensor([0.0, 1.0, 0.0, -1.0])
@@ -119,12 +118,11 @@ def _loop_all(a_pk: torch.Tensor, b_pk: torch.Tensor, mats: dict, lat: Lattice, 
         dens = _over_sites(chunk, (len(g),), lat.site_shape, b_pk.device, cdt)
         loops = _project(dens.reshape(len(g), 2, *lat.site_shape), lat, momenta, (0, 0, 0), fft)
         return {name: loops[i] for i, name in enumerate(mats)}
-    tables, u_flat = neighbour_tables(lat, b_pk.device), u_pk.flatten(-3)
+    hood = _hood(u_pk, lat, lat.site_shape, b_pk.device, None)
 
     def chunk_der(p, sl):
         ac = _at(a_flat, p, sl, cdt)
-        return torch.stack([weigh(ac, _deriv(u_flat, b_flat, tables, nu, p, sl, False))
-                            for nu in nus])
+        return torch.stack([weigh(ac, _deriv(hood, b_flat, nu, p, sl, False)) for nu in nus])
 
     dens = _over_sites(chunk_der, (len(nus), len(g)), lat.site_shape, b_pk.device, cdt)
     loops = _project(dens.reshape(len(nus), len(g), 2, *lat.site_shape), lat, momenta,

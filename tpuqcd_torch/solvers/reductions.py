@@ -11,6 +11,7 @@ so the solvers run unchanged on shards:
 
     with reductions.over(lmesh):
         x, relres, k, nref = _refined_solve(op, ...)
+    corr = reductions.mesh_sum(partial, lmesh)    # complex128 [n_mom, T] on every rank
 """
 from __future__ import annotations
 
@@ -49,6 +50,13 @@ def summed(s: torch.Tensor) -> torch.Tensor:
     if active():
         dist.all_reduce(s)
     return s
+
+
+def mesh_sum(s: torch.Tensor, lmesh) -> torch.Tensor:
+    """The sum over the ranks of ``lmesh`` of a partial sum (float64 or
+    complex128, any shape: a projection's [n_mom, T]), in place."""
+    with over(lmesh):
+        return summed(s)
 
 
 def _f64(x: torch.Tensor) -> torch.Tensor:
