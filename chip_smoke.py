@@ -147,6 +147,18 @@ Phases, each of which exits non-zero on failure:
       certified by the solver and by the plain float64 operator, every
       dataset within 1e-5 of the twin's largest value, both runs' seconds
       by stage and the mesh run's K6 launches printed;
+   u. tpuqcd_torch.cli.run_loops.measure on a one-rank LatticeMesh at
+      16^3x32 on 4p's gauge, beside its one-card twin: 4k's physics (TSM,
+      8 Lanczos modes to eig_outfile, 33 momenta, the one-derivative
+      loops) at 4o's action (kappa 0.115, mu 0.08, CG); the mesh run's
+      noises, sources, solutions and basis are the rank's blocks (the
+      Lanczos and deflation sums over the mesh, the truncated TSM solves
+      and every column one at a time through the sharded operators): every
+      full and low-mode column of both runs certified by the solver and by
+      the plain float64 operator, the mesh basis orthonormal to 1e-5 with
+      positive ascending Rayleigh quotients and its file read back bit for
+      bit, every dataset within 1e-5 of the twin's largest value, K6
+      launched and no batch, both runs' seconds by stage printed;
    s. BASELINE config 3: a beta = 6.0 heatbath gauge at 24^3x48 (seed 0,
       160 sweeps), the three-level MG of examples/invert_mg3_24cube.yaml
       (near_critical, n_vec 16 and 16, blocks 4^4 and 2^4: 6^3x12, then
@@ -293,10 +305,11 @@ THREEP_T_SINK = 12
 #: cell 4t: the source (t, z, y, x) off the origin and the sink 4j's 12
 #: timeslices after it, at MID
 MESH_SRC, MESH_T_SINK = (3, 5, 7, 9), 15
-#: cell 4t: max |mesh - twin| / max |twin| of each dataset.  Both runs certify
-#: every column to 1e-10; the twin solves 11 columns in lockstep, the mesh
-#: one at a time through solve_tm_sharded, so their float32 x differ near
-#: 1e-7, which the contractions carry linearly into the correlators
+#: cells 4t and 4u: max |mesh - twin| / max |twin| of each dataset.  Both
+#: runs certify every column to 1e-10; the twin solves 11 columns in
+#: lockstep, the mesh one at a time through solve_tm_sharded, so their
+#: float32 x differ near 1e-7, which the contractions carry linearly into
+#: the correlators and loops
 MESH_RUN_AGREE = 1e-5
 #: cell 4i: the columns of the lockstep MG solve (12 do not fit the card)
 MGB_COLUMNS = 4
@@ -1542,6 +1555,78 @@ def mesh_threep_path(dev, gauge, dims=MID):
     return counts, mesh.seconds, one.seconds, mesh_s, one_s
 
 
+def mesh_loops_path(dev, gauge, dims=MID):
+    """4u: run_loops.measure on a one-rank LatticeMesh at ``dims`` on 4p's
+    gauge, beside its one-card twin (the same call without the mesh): 4k's
+    physics (one Z4 noise in 12 spin-colour classes, TSM with 4 cheap
+    noises, 8 Lanczos modes written to eig_outfile, the 33 momenta of q^2
+    <= 4, the one-derivative loops) at 4o's action (KAPPA, MU, CG).  Every
+    full and low-mode column of both runs certified by the solver and by
+    the plain float64 operator; the mesh basis orthonormal with positive
+    ascending Rayleigh quotients and its eig_outfile read back bit for bit;
+    every dataset of the mesh run within MESH_RUN_AGREE of the twin's
+    largest value; the mesh run launching K6 (halo mode), no batch and no
+    plain call.  Returns (mesh counts, mesh stages, twin stages, mesh
+    seconds, twin seconds)."""
+    from tpuqcd_torch.cli import run_loops
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    from tpuqcd_torch.utils.checkpoint import load_eigenpairs
+    lat, u64, n_def = Lattice(dims), gauge.u_pk.double(), LOOPS_N_DEFLATE
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw in (("one card", {}), ("one-rank mesh", {"lmesh": LatticeMesh.make(lat, 1)})):
+            eig = os.path.join(tmp, f"eig{len(runs)}.npz")
+            cfg = loops_config(os.path.join(tmp, "unused.h5"), dims, KAPPA, MU, eig_outfile=eig)
+            t0 = time.perf_counter()
+            res, counts, audited, audit_s, peak = audited_measure(
+                run_loops.measure, cfg, dev, gauge, u64, lat, keep_fields=True, **kw)
+            seconds = time.perf_counter() - t0
+            check_columns(res, audited, 12 + n_def, f"{name}: the noise's 12 classes and "
+                          f"{n_def} low modes")
+            print(f"  {name}: {seconds:.3f} s (the plain-operator audit {audit_s:.3f} s), peak "
+                  f"memory {peak:.2f} GiB; seconds by stage: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items()), flush=True)
+            evals, evecs = load_eigenpairs(eig, expect_layout="packed", n_expect=n_def)
+            same = (np.array_equal(evals, res.evals)
+                    and torch.equal(torch.stack(evecs), res.evecs.cpu()))
+            runs[name] = (res, counts, seconds, same)
+    (one, _, one_s, _), (mesh, counts, mesh_s, same) = runs["one card"], runs["one-rank mesh"]
+    need_launches(counts, ("float32:halo", "float64:halo"))
+    if any(v for k, v in counts.items() if k.endswith(":batch")):
+        fail(f"the mesh run launched the batched kernel: {counts}")
+    if not all(len(r["relres"]) == 1 for r in mesh.solves):
+        fail("the mesh run did not solve its columns one at a time")
+    v = mesh.evecs.reshape(n_def, 2, -1).double()
+    vc = torch.complex(v[:, 0], v[:, 1])
+    gram = (vc.conj() @ vc.T - torch.eye(n_def, device=dev)).abs().max().item()
+    print(f"  mesh basis: |V^dag V - 1|_max {gram:.2e} (limit {BASIS_TOL:.0e}); Rayleigh "
+          f"quotients {', '.join(f'{e:.5e}' for e in mesh.evals)} (twin's: "
+          f"{', '.join(f'{e:.5e}' for e in one.evals)}); eig_outfile read back "
+          f"{'equal' if same else 'NOT equal'} to the basis in memory bit for bit")
+    if not (gram <= BASIS_TOL and (mesh.evals > 0).all() and (np.diff(mesh.evals) >= 0).all()):
+        fail("the mesh run's Lanczos basis is not orthonormal, or its Rayleigh quotients are "
+             "not positive and ascending")
+    if not same:
+        fail("the mesh run's saved eigenpairs differ from its basis in memory")
+    groups = ["loops/oneend", "loops/oneend_der", "loops/oneend_lowmode",
+              "loops/oneend_lowmode_der"]
+    if sorted(mesh.loops) != sorted(one.loops) or sorted(one.loops) != groups:
+        fail(f"the mesh run's datasets {sorted(mesh.loops)}, the twin's {sorted(one.loops)}")
+    worst, finite, n = 0.0, True, 0
+    for group, loops in one.loops.items():
+        for ins, w in loops.items():
+            got = mesh.loops[group][ins]
+            worst = max(worst, np.abs(got - w).max() / np.abs(w).max())
+            finite &= bool(np.isfinite(got).all() and got.shape == w.shape == (33, dims[3]))
+            n += 1
+    print(f"  {n} datasets: max over datasets of max|mesh - twin| / max|twin| {worst:.3e} "
+          f"(limit {MESH_RUN_AGREE:.0e}); finite, shape (33, {dims[3]}): {finite}")
+    if not (n == 2 * (16 + 64) and worst <= MESH_RUN_AGREE and finite):
+        fail("the loop run on the one-rank mesh differs from its one-card twin")
+    return counts, mesh.seconds, one.seconds, mesh_s, one_s
+
+
 def mg3_path(dev):
     """4s: BASELINE config 3, the three-level hierarchy of
     examples/invert_mg3_24cube.yaml at 24^3x48 on 4b's heatbath recipe at
@@ -2119,16 +2204,16 @@ def threep_path(dev, gauge, twop_proton, have_h5py: bool):
     return res, counts, audit_s
 
 
-def loops_config(output: str, **physics):
+def loops_config(output: str, dims=LARGE, kappa=TWOP_KAPPA, mu=TWOP_MU, **physics):
     """4k's configuration (4h's gauge and action, direct CG): one Z4 noise in
     12 spin-colour classes, TSM with 4 cheap noises, 8 Lanczos modes, the
     33 momenta of q^2 <= 4; ``physics`` keys replace its physics block's
-    (4l)."""
+    (4l), ``dims``, ``kappa`` and ``mu`` its lattice and action (4u)."""
     from tpuqcd_torch.utils.config import config_from_dict
     return config_from_dict({
-        "gauge": {"dims": list(LARGE), "heatbath_beta": MG_BETA,
+        "gauge": {"dims": list(dims), "heatbath_beta": MG_BETA,
                   "heatbath_sweeps": MG_SWEEPS, "random_seed": 0},
-        "action": {"kappa": TWOP_KAPPA, "mu": TWOP_MU},
+        "action": {"kappa": kappa, "mu": mu},
         "solver": {"solver": "cg", "sloppy_dtype": "float32", "rhs_batch": 12,
                    "tol": RELRES_MAX},
         "physics": {"n_noise": 1, "dilute_sc": True, "dilute_t": 1, "tsm_cheap": 4,
@@ -2139,17 +2224,17 @@ def loops_config(output: str, **physics):
 def audited_measure(measure, cfg, dev, gauge, u64, lat, on_column=None, **kw):
     """measure(cfg, dev, gauge, audit=..., **kw) with the launch counts set
     to 0 just before and read just after, every solver column held to the
-    plain float64 operator (its plain calls taken back out of the count),
-    and on_column(source, flavor) called on each column's source.  Returns
-    (result, counts, [(flavor, columns, worst plain relres)], audit seconds,
-    peak GiB)."""
+    plain float64 operator at cfg's action (its plain calls taken back out
+    of the count), and on_column(source, flavor) called on each column's
+    source.  Returns (result, counts, [(flavor, columns, worst plain
+    relres)], audit seconds, peak GiB)."""
     from tpuqcd_torch.ops import dslash_cuda
     audited, audit_s = [], [0.0]
 
     def audit(b, x, flavor):
         t0, plain = time.perf_counter(), dslash_cuda.counts["plain"]
-        rels = [plain_full_relres(u64, b[i].double(), x[i], lat, TWOP_KAPPA, TWOP_MU * flavor)
-                for i in range(b.shape[0])]
+        rels = [plain_full_relres(u64, b[i].double(), x[i], lat, cfg.action.kappa,
+                                  cfg.action.mu * flavor) for i in range(b.shape[0])]
         for i in range(b.shape[0]):
             if on_column is not None:
                 on_column(b[i], flavor)
@@ -3043,6 +3128,9 @@ def main() -> None:
     say("phase 4t: run_threeptwop.measure on a one-rank LatticeMesh beside its one-card twin "
         "at 16^3x32 (4j's action and smearing, P5z, the proton, the source off the origin)")
     mt_counts, mt_stages, mt_one_stages, mt_s, mt_one_s = mesh_threep_path(dev, gauge_mid)
+    say("phase 4u: run_loops.measure on a one-rank LatticeMesh beside its one-card twin at "
+        "16^3x32 (4k's physics: TSM, Lanczos to eig_outfile, one-derivative loops; 4o's action)")
+    mu_counts, mu_stages, mu_one_stages, mu_s, mu_one_s = mesh_loops_path(dev, gauge_mid)
     del gauge_mid
     torch.cuda.empty_cache()
     say("phase 4s: BASELINE config 3, the three-level MG of examples/invert_mg3_24cube.yaml "
@@ -3141,6 +3229,10 @@ def main() -> None:
     print(f"  three-point run on a one-rank mesh at 16^3x32 (4t): {mt_s:.3f} s, one card "
           f"{mt_one_s:.3f} s (both with the audit); by stage, mesh / one card: "
           + ", ".join(f"{k} {v:.3f} / {mt_one_stages[k]:.3f}" for k, v in mt_stages.items())
+          + f" {card_tag}")
+    print(f"  loop run on a one-rank mesh at 16^3x32 (4u): {mu_s:.3f} s, one card "
+          f"{mu_one_s:.3f} s (both with the audit); by stage, mesh / one card: "
+          + ", ".join(f"{k} {v:.3f} / {mu_one_stages[k]:.3f}" for k, v in mu_stages.items())
           + f" {card_tag}")
     for what, r in (("three-level", mg3_res), ("two-level", mg32_res)):
         print(f"  MG at 24^3x48 (4s), {what}: setup {r.setup_seconds['mg_setup']:.2f} s ("
@@ -3387,6 +3479,14 @@ def main() -> None:
         entry("dslash_eo<double> 18-real halo (K6, 4t's sharded certification), xpay timed on "
               "the one-rank mesh", mt_counts["float64:halo"], halo_abs["f64"],
               ("f64", "halo_xpay"), k6),
+        # the loop run on a one-rank mesh at 16^3x32 (4u)
+        entry("dslash_eo<float> reconstruct-12 halo (K6 with K2, the loop run on a one-rank "
+              "mesh 4u: Lanczos on M_d M_d^dag, xpay_full; full, low-mode and truncated TSM "
+              "columns one at a time, twist_inv/xpay), xpay timed on the one-rank mesh",
+              mu_counts["float32:halo"], halo_abs["f32"], ("f32", "halo_xpay"), k6),
+        entry("dslash_eo<double> 18-real halo (K6, 4u's sharded certification and the "
+              "truncated solves' residuals), xpay timed on the one-rank mesh",
+              mu_counts["float64:halo"], halo_abs["f64"], ("f64", "halo_xpay"), k6),
         # three-level MG at 24^3x48 (4s), and 4b's two-level recipe beside it
         entry("dslash_eo<float> reconstruct-12 (three-level MG 4s at 24^3x48: fine operator, "
               "null vectors), xpay_full timed", mg3_counts["float32"], fine_abs["f32"],
@@ -3436,7 +3536,7 @@ def main() -> None:
     path_counts = [counts, mg_counts, pl_counts, mgb_counts, mp_counts, cl_counts, mgc_counts,
                    nd_counts, sh_counts, tw_counts, ens_counts, gf_counts, tj_counts, tk_counts,
                    tl_counts, tl_cg_counts, mq_counts, sw_counts, sw_cold_counts, swm_counts,
-                   mt_counts, mg3_counts, mg32_counts,
+                   mt_counts, mu_counts, mg3_counts, mg32_counts,
                    *(mo[policy][1] for mo in (mo_tm, mo_cl) for policy in ("fused", "overlap"))]
     kernels.append(entry(
         "dslash_eo<bf16> one-site reconstruct-12 (the shapes ops/dslash_cuda.pair_sites refuses: "

@@ -1,8 +1,9 @@
 """Shared helpers of tests/test_torch_run_loops*.py: the configuration of a
 loop run at 2x2x2x4, the exact solver handed to tpuqcd (the dense inverse
-of tpuqcd's own full-lattice operator), and one run of
-tpuqcd's run_loops._measure and the port's run_loops.measure on the same
-gauge, noises and Lanczos start vector (see test_torch_run_loops.py)."""
+of tpuqcd's own full-lattice operator), tpuqcd's run_loops._measure with
+these stand-ins (run_tpuqcd; also tests/test_torch_run_loops_mesh.py's),
+and one run of it and of the port's run_loops.measure on the same gauge,
+noises and Lanczos start vector (see test_torch_run_loops.py)."""
 import dataclasses
 import functools
 from pathlib import Path
@@ -145,17 +146,16 @@ def read_all(path) -> dict:
     return out
 
 
-def run_both(case, tmp):
-    cfg = config_from_dict(raw_config(case, str(tmp / "port.h5")))
+def run_tpuqcd(raw: dict, u_np: np.ndarray) -> dict:
+    """tpuqcd's run_loops._measure of the one-device configuration ``raw``
+    on the links u_np (full layout, without the boundary phase, which is
+    applied here), with three stand-ins: the port's Z4 noises by tpuqcd's
+    keys, the port's Lanczos start vector and the exact solver of
+    _operators; the datasets of its physics.output."""
+    cfg, jcfg = config_from_dict(raw), j_config_from_dict(raw)
     ph = cfg.physics
-    if ph.n_deflate:
-        cfg = dataclasses.replace(cfg, physics=dataclasses.replace(
-            ph, eig_outfile=str(tmp / "port_eig.npz")))
-    jcfg = j_config_from_dict(raw_config(case, str(tmp / "ref.h5")))
-    u_np = gauge_full(LAT, 3)
     u_full = j_apply_boundary_phase(jnp.asarray(u_np.astype(np.complex64)), JLAT)
     u_dev = j_gauge_to_device(j_gauge_full_to_eo(u_full, JLAT), JLAT)
-    tu = t(jax_gauge_pk(u_np, JLAT, True, jnp.float32))
     inv = _operators(cfg, u_full, u_dev)
     # the shared inputs: the port's noises by tpuqcd's keys, the port's start vector
     noises = {}
@@ -175,7 +175,18 @@ def run_both(case, tmp):
                    lambda apply, _v0, n_ev, **kw: j_lanczos(apply, jnp.asarray(v0.numpy()),
                                                             n_ev, **kw))
         j_run._measure(jcfg)
-    ref = read_all(jcfg.physics.output)
+    return read_all(jcfg.physics.output)
+
+
+def run_both(case, tmp):
+    cfg = config_from_dict(raw_config(case, str(tmp / "port.h5")))
+    ph = cfg.physics
+    if ph.n_deflate:
+        cfg = dataclasses.replace(cfg, physics=dataclasses.replace(
+            ph, eig_outfile=str(tmp / "port_eig.npz")))
+    u_np = gauge_full(LAT, 3)
+    ref = run_tpuqcd(raw_config(case, str(tmp / "ref.h5")), u_np)
+    tu = t(jax_gauge_pk(u_np, JLAT, True, jnp.float32))
     plaq = plaquette(unpack_gauge(t(jax_gauge_pk(u_np, JLAT, False, jnp.float32))), LAT)
     audited = []
 

@@ -1,5 +1,6 @@
-"""One gloo rank of the two- and three-point programs on a mesh, for
-tests/test_torch_twop_mesh.py and test_torch_threep_mesh.py.  It imports
+"""One gloo rank of the physics programs on a mesh, for
+tests/test_torch_twop_mesh.py, test_torch_threep_mesh.py,
+test_torch_loops_mesh.py and test_torch_run_loops_mesh.py.  It imports
 tpuqcd_torch only:
 
     python -m torch.distributed.run --standalone --nproc_per_node 4 \\
@@ -18,11 +19,22 @@ is the test's, not the programs'):
             smearing), shift_<nu><+|-><c|n>, deriv_f32_<nu> (covariant
             shifts and derivatives), ultralocal, onederiv (insertions,
             projected)
+    loops   noise (two Z4 noises of seed 17), dilute_t3 (the first one's
+            time dilution in 3 classes), deflate (the projector Q on
+            float64 columns), oneend_<phase|fft>, oneend_der_<phase|fft>
+            (the one-end loops of float64 rows; the FFT where each rank
+            holds whole timeslices, else "refused"), lanczos_evals,
+            lanczos_evecs (run_loops.deflation_basis), eig_read (a basis
+            written by save_eigenpairs from the blocks to the input's
+            eig_path, then read back on the mesh)
 
---main run_twop | run_threeptwop: then the program's main on --config,
-with every gather of a field made to raise (forbid_gathers), measure's
-result kept; each rank writes to --out's stem + ".<rank>.npz" its solver
-records (relres, columns), its stages and how many datasets it wrote.
+--main run_twop | run_threeptwop | run_loops: then the program's main on
+each --config in turn, with every gather of a field made to raise
+(forbid_gathers) but those of the eigenpair file's write, measure's
+result kept; each rank writes to --out's stem + ".<rank>.npz"
+(".<i>.<rank>.npz" for the i-th of several) its solver records (relres,
+columns), its stages, how many datasets it wrote and how many fields the
+eigenpair write gathered.
 """
 import argparse
 import os
@@ -107,29 +119,103 @@ def threep_pieces(lmesh: LatticeMesh, inp, keep) -> None:
     keep("onederiv", torch.stack(list(c3.values())), whole=True)
 
 
+def loops_pieces(lmesh: LatticeMesh, inp, keep) -> None:
+    from tpuqcd_torch.cli.run_loops import NOISE_SEED, deflation_basis
+    from tpuqcd_torch.gammas import INSERTION_GAMMAS
+    from tpuqcd_torch.phys.loops_dev import (_loop_all, _one_end_mats, diluted_sources_pk,
+                                             make_deflate_pk, z4_noises)
+    from tpuqcd_torch.utils.checkpoint import load_eigenpairs, save_eigenpairs
+    from tpuqcd_torch.utils.config import config_from_dict
+    lat = lmesh.lat
+    noise = torch.stack(list(z4_noises(NOISE_SEED, 2, lat, lmesh=lmesh)))
+    keep("noise", noise)
+    keep("dilute_t3", diluted_sources_pk(noise[0], 3, lmesh=lmesh))
+    evecs, cols = (local_shard(torch.from_numpy(inp[k]), lmesh) for k in ("evecs", "cols"))
+    keep("deflate", make_deflate_pk(evecs, lmesh)(cols))
+    u, psis = torch.from_numpy(inp["u"]), local_shard(torch.from_numpy(inp["psis"]), lmesh)
+    mats = _one_end_mats(INSERTION_GAMMAS, float(inp["kappa"]), float(inp["mu"]))
+    for fft in (False, True):
+        tag = "fft" if fft else "phase"
+        try:
+            est = _loop_all(psis, psis, mats, lat, momenta(), fft, lmesh=lmesh)
+        except ValueError:
+            keep(f"oneend_{tag}", "refused", whole=True)
+            continue
+        der = _loop_all(psis, psis, mats, lat, momenta(), fft, u, (0, 1, 2, 3), lmesh)
+        keep(f"oneend_{tag}", torch.stack(list(est.values())), whole=True)
+        keep(f"oneend_der_{tag}", torch.stack(list(der.values())), whole=True)
+    cfg = config_from_dict({"gauge": {"dims": list(lat.dims)},
+                            "action": {"kappa": float(inp["kappa"]), "mu": float(inp["mu"])},
+                            "physics": {"n_deflate": int(inp["n_deflate"])}})
+    evals, lz = deflation_basis(cfg, lat, u.float(), lmesh,
+                                "overlap" if lmesh.ny > 1 else "fused")
+    keep("lanczos_evals", torch.from_numpy(evals), whole=True)
+    keep("lanczos_evecs", lz)
+    path = str(inp["eig_path"])
+    save_eigenpairs(path, inp["basis_evals"], local_shard(torch.from_numpy(inp["basis"]), lmesh),
+                    "packed", lmesh)
+    dist.barrier()
+    _, back = load_eigenpairs(path, "packed", len(inp["basis"]), lmesh)
+    keep("eig_read", torch.stack(back))
+
+
+#: one entry a field that the eigenpair write gathered (forbid_gathers lets it)
+GATHERED = []
+
+
+def _in_eigenpair_write() -> bool:
+    """Whether utils/checkpoint.save_eigenpairs is on the call stack."""
+    f = sys._getframe(2)
+    while f is not None:
+        code = f.f_code
+        if code.co_name == "save_eigenpairs" and code.co_filename.endswith(
+                os.path.join("utils", "checkpoint.py")):
+            return True
+        f = f.f_back
+    return False
+
+
 def forbid_gathers() -> None:
     """Make every gather of a field raise: the mesh path gathers none.  The
-    one all_gather left is the sharded multigrid's restriction
-    (mg/shard.py), which gathers a coarse vector for the coarse levels that
-    every rank holds whole (as in run_invert and in tpuqcd)."""
+    all_gathers left are the sharded multigrid's restriction (mg/shard.py),
+    which gathers a coarse vector for the coarse levels that every rank
+    holds whole (as in run_invert and in tpuqcd); the gathers left are the
+    eigenpair file's (utils/checkpoint.save_eigenpairs, a vector at a time
+    to rank 0, which writes the file; counted in GATHERED)."""
     def refuse(*args, **kwargs):
         raise AssertionError("a field was gathered on the mesh path")
-    all_gather = dist.all_gather
+    all_gather, gather, mesh_gather = dist.all_gather, dist.gather, LatticeMesh.gather
 
     def coarse_only(*args, **kwargs):
         if not sys._getframe(1).f_code.co_filename.endswith(os.path.join("mg", "shard.py")):
             refuse()
         return all_gather(*args, **kwargs)
+
+    def eigenpairs_only(real, count):
+        def call(*args, **kwargs):
+            if not _in_eigenpair_write():
+                refuse()
+            GATHERED.extend([1] * count)
+            return real(*args, **kwargs)
+        return call
     LatticeMesh.all_gather = refuse
-    LatticeMesh.gather = refuse
-    for name in ("gather", "all_gather_into_tensor", "broadcast", "scatter"):
+    LatticeMesh.gather = eigenpairs_only(mesh_gather, 1)
+    for name in ("all_gather_into_tensor", "broadcast", "scatter"):
         setattr(dist, name, refuse)
+    dist.gather = eigenpairs_only(gather, 0)
     dist.all_gather = coarse_only
 
 
-def run_main(program: str, config: str, stem: str, rank: int) -> None:
+def run_main(program: str, configs, stem: str, rank: int) -> None:
+    """The program's main on each of ``configs`` in turn, in one process
+    group (only the last main leaves it); the record of the i-th goes to
+    stem.<rank>.npz for one configuration, stem.<i>.<rank>.npz for
+    several."""
     import importlib
+
+    from tpuqcd_torch.parallel import dist as tdist
     mod = importlib.import_module(f"tpuqcd_torch.cli.{program}")
+    shutdown = tdist.shutdown
     results, written = [], []
     measure = mod.measure
 
@@ -137,25 +223,30 @@ def run_main(program: str, config: str, stem: str, rank: int) -> None:
         results.append(measure(*args, **kwargs))
         return results[-1]
     mod.measure = kept
-    for name in ("write_twop", "write_threep"):
+    for name in ("write_twop", "write_threep", "write_loops"):
         if hasattr(mod, name):
             real = getattr(mod, name)
             setattr(mod, name, lambda *a, real=real, **k: (written.append(a[1]), real(*a, **k)))
     forbid_gathers()
-    mod.main(["--config", config, "--device", "cpu"])
-    (res,) = results
-    np.savez(f"{stem}.{rank}.npz", relres=np.concatenate([r["relres"] for r in res.solves]),
-             columns=np.array([r["columns"] for r in res.solves]), written=len(written),
-             stages=np.array(sorted(res.seconds)))
+    for i, config in enumerate(configs):
+        for kept_list in (results, written, GATHERED):
+            kept_list.clear()
+        tdist.shutdown = shutdown if i == len(configs) - 1 else (lambda: None)
+        mod.main(["--config", config, "--device", "cpu"])
+        (res,) = results
+        out = f"{stem}.{rank}.npz" if len(configs) == 1 else f"{stem}.{i}.{rank}.npz"
+        np.savez(out, relres=np.concatenate([r["relres"] for r in res.solves]),
+                 columns=np.array([r["columns"] for r in res.solves]), written=len(written),
+                 stages=np.array(sorted(res.seconds)), gathered=len(GATHERED))
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mesh", type=int, nargs=3, required=True)
+    ap.add_argument("--mesh", type=int, nargs=3, help="the pieces' mesh")
     ap.add_argument("--out", required=True)
     ap.add_argument("--pieces", help="the pieces' inputs (npz); their kind is in 'kind'")
-    ap.add_argument("--main", choices=("run_twop", "run_threeptwop"))
-    ap.add_argument("--config")
+    ap.add_argument("--main", choices=("run_twop", "run_threeptwop", "run_loops"))
+    ap.add_argument("--config", nargs="+", help="the configurations --main runs, in turn")
     args = ap.parse_args()
     init_distributed("cpu")
     torch.set_num_threads(1)
@@ -172,7 +263,8 @@ def main():
             x = x if whole else lmesh.gather(x.contiguous())
             if x is not None:
                 out[name] = x.numpy()
-        {"twop": twop_pieces, "threep": threep_pieces}[str(inp["kind"])](lmesh, inp, keep)
+        {"twop": twop_pieces, "threep": threep_pieces,
+         "loops": loops_pieces}[str(inp["kind"])](lmesh, inp, keep)
         if rank == 0:
             np.savez(args.out, **out)
     if args.main:

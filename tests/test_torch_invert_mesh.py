@@ -2,15 +2,15 @@
 gloo, with twisted mass (fused faces along T), with twisted clover and
 multigrid (the overlap engine along T) and on a y-sharded mesh (comm_policy
 auto takes the overlap engine); and which configurations the programs
-take on a mesh: run_invert all of them, the mass sweep too, run_twop and
-run_threeptwop too, run_loops none (ROADMAP item 14).  Cost: about 45 s
+take on a mesh: every program all of them, the mass sweep too (run_loops
+since the loop run came to the mesh).  Cost: about 45 s
 serial (three torchrun launches)."""
 import re
 
 import pytest
 
 from tpuqcd_torch.cli.common import check_in_slice
-from tpuqcd_torch.utils.config import config_from_dict, load_config
+from tpuqcd_torch.utils.config import ConfigError, config_from_dict, load_config
 
 from _torch_mesh import ROOT, torchrun
 
@@ -48,27 +48,26 @@ MESH_CONFIGS = {
 
 @pytest.mark.parametrize("name", list(MESH_CONFIGS))
 def test_run_invert_takes_a_mesh_and_the_physics_programs_refuse_it(name):
-    """run_invert, run_twop and run_threeptwop take every mesh
-    configuration (tests/test_torch_twop_mesh.py and test_torch_threep_mesh.py
-    run the two physics programs on gloo ranks); run_loops still refuses a
-    mesh, citing ROADMAP item 14."""
+    """Every program takes every mesh configuration: run_invert, run_twop,
+    run_threeptwop (tests/test_torch_twop_mesh.py and
+    test_torch_threep_mesh.py run them on gloo ranks) and, since the loop
+    run came to the mesh, run_loops (tests/test_torch_run_loops_mesh.py);
+    the three-point run still refuses a configuration without t_sinks."""
     raw = {"gauge": {"dims": [4, 4, 4, 8]}, "physics": {"t_sinks": [2]}, **MESH_CONFIGS[name]}
     cfg = config_from_dict(raw)
-    check_in_slice(cfg, invert=True)
-    check_in_slice(cfg, twop=True)
+    check_in_slice(cfg)
     check_in_slice(cfg, threep=True)
-    with pytest.raises(NotImplementedError, match="run_loops.*item 14, physics on a mesh"):
-        check_in_slice(cfg)
+    with pytest.raises(ConfigError, match="t_sinks is empty"):
+        check_in_slice(config_from_dict({**raw, "physics": {}}), threep=True)
 
 
 def test_the_mass_sweep_stays_refused_on_a_mesh():
     """Since the mass sweep came, run_invert takes it on a mesh
-    (tests/test_torch_musweep_mesh.py runs it); the loop run still refuses
-    the mesh, the two- and three-point runs take it."""
+    (tests/test_torch_musweep_mesh.py runs it); since the loop run came to
+    the mesh, every program takes the mesh (the physics programs read no
+    mu_list, as in tpuqcd)."""
     cfg = config_from_dict({"gauge": {"dims": [4, 4, 4, 8]}, "mesh": {"nt": 2},
                             "physics": {"t_sinks": [2]}, "action": {"mu_list": [0.01, 0.02]}})
-    check_in_slice(cfg, invert=True)
-    check_in_slice(cfg, twop=True)
+    check_in_slice(cfg)
     check_in_slice(cfg, threep=True)
-    with pytest.raises(NotImplementedError, match="item 14, physics on a mesh"):
-        check_in_slice(cfg)
+    assert tuple(cfg.action.mu_list) == (0.01, 0.02)

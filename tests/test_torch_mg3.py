@@ -169,7 +169,7 @@ def test_mg3_example_parses_to_near_critical_levels_3_in_both_packages():
     as DeviceMGParams.near_critical(levels=3)."""
     path = str(ROOT / "examples/invert_mg3_24cube.yaml")
     cfg, jcfg = load_config(path), j_load_config(path)
-    check_in_slice(cfg, invert=True)
+    check_in_slice(cfg)
     assert dataclasses.asdict(cfg.mg) == dataclasses.asdict(jcfg.mg)
     p = mg_params(cfg)
     jm = jcfg.mg

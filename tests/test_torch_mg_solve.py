@@ -202,8 +202,8 @@ def test_mg_solver_builds_a_flavor_on_first_use_and_dumps(tmp_path):
 
 
 @pytest.mark.parametrize("raw", [
-    # the sharded multigrid, twisted mass and clover, is in run_invert's slice; the
-    # physics programs on a mesh are not
+    # the sharded multigrid, twisted mass and clover, is in every program's slice; its
+    # vector files stay single-card, as in tpuqcd
     {"mg": {"enabled": True}, "action": {"csw": 1.0}, "mesh": {"nt": 2}},
     {"mg": {"enabled": True, "gcr_dtype": "bfloat16"}},
     {"mg": {"enabled": True, "vec_dtype": "bfloat16"}},
@@ -219,9 +219,13 @@ def test_unported_mg_configurations_raise(raw):
         raw = {**raw, "mg": {"enabled": True}, "mesh": {"nt": 2}}
     cfg = config_from_dict(raw)
     if "mesh" in raw:
-        check_in_slice(cfg, invert=True)
-        with pytest.raises(NotImplementedError, match="item 14, physics on a mesh"):
-            check_in_slice(cfg)
+        check_in_slice(cfg)
+        from tpuqcd_torch.lattice import Lattice
+        from tpuqcd_torch.parallel.mesh import LatticeMesh
+        lat = Lattice(tuple(raw["gauge"]["dims"]))
+        files = config_from_dict({**raw, "mg": {**raw["mg"], "vec_outfile": "h"}})
+        with pytest.raises(NotImplementedError, match="single-card"):
+            MGSolver(files, lat, torch.zeros(1), LatticeMesh(lat, 2))
         return
     with pytest.raises(NotImplementedError) as e:
         check_in_slice(cfg)

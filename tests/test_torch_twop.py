@@ -186,11 +186,9 @@ def test_make_solver_refuses_what_is_not_ported(raw, match):
         check_in_slice(cfg)
         assert isinstance(make_solver(cfg, LAT, torch.zeros(1)), Solver)
         return
-    if match == "mesh":   # run_twop and run_threeptwop take a mesh, run_loops does not
-        check_in_slice(cfg, twop=True)
+    if match == "mesh":   # every program takes a mesh since the loop run came to it
+        check_in_slice(cfg)
         check_in_slice(config_from_dict({**raw, "physics": {"t_sinks": [2]}}), threep=True)
-        with pytest.raises(NotImplementedError, match="run_loops.*item 14"):
-            check_in_slice(cfg)
         # the solver takes the mesh and asks for its ranks (tests/test_torch_twop_mesh.py
         # runs them under torchrun)
         with pytest.raises(ValueError, match="needs 2 ranks"):

@@ -64,31 +64,25 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to tpuqcd_torch yet "
-                              f"(ROADMAP.md, Queue 1 item {item})")
-
-
 def is_mesh(cfg: RunConfig) -> bool:
     """Whether cfg.mesh spans several ranks (as in tpuqcd, a mesh of one
     device is no mesh)."""
     return cfg.mesh.nt * cfg.mesh.nz * cfg.mesh.ny > 1
 
 
-def check_in_slice(cfg: RunConfig, threep: bool = False, invert: bool = False,
-                   twop: bool = False) -> None:
+def _sloppy_dtype(cfg: RunConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.solver.sloppy_dtype == "bfloat16" else torch.float32
+
+
+def check_in_slice(cfg: RunConfig, threep: bool = False) -> None:
     """Refuse the configurations the port does not run yet; with ``threep``
-    (the three-point run) also one without physics.t_sinks.  ``invert``
-    (run_invert), ``twop`` (run_twop) and ``threep`` take a mesh; the loop
-    run (none of them) does not."""
+    (the three-point run) also one without physics.t_sinks.  Every program
+    takes a mesh; what tpuqcd refuses on one (MG vector files, eigCG with
+    clover) the solver refuses (MGSolver, Solver)."""
     if threep and not cfg.physics.t_sinks:
         raise ConfigError("physics.t_sinks is empty: the three-point run needs at least one "
                           "sink timeslice")
     mg = cfg.mg
-    if is_mesh(cfg) and not (invert or twop or threep):
-        _not_ported("a mesh for run_loops (its noise sharding, Lanczos over mesh reductions "
-                    "and loop site sums; run_invert, run_twop and run_threeptwop take a "
-                    "mesh)", "14, physics on a mesh")
     for key in ("gcr_dtype", "vec_dtype"):
         if mg.enabled and getattr(mg, key) != "float32":
             raise NotImplementedError(
@@ -342,7 +336,7 @@ def _tuning(cfg: RunConfig, lmesh, halo_gauge, u_pk: torch.Tensor, clover=None):
     from ..parallel.sharded import (ShardedTMCloverOperatorPC, ShardedTMOperatorPC,
                                     clover_fields_to)
     a, tb = cfg.action, -1 if cfg.gauge.antiperiodic_t else 1
-    sdt = torch.bfloat16 if cfg.solver.sloppy_dtype == "bfloat16" else torch.float32
+    sdt = _sloppy_dtype(cfg)
 
     def operands():
         ug = halo_gauge()
@@ -441,6 +435,7 @@ class Solver:
         x_full = solve(b_full)                         # complex128 [T, Z, Y, X, 4, 3]
         res = solve.solve_local(b_loc, flavor=+1)      # on a mesh: this rank's shard
         xs = solve.packed_src_batch(b_locs)            # on a mesh: this rank's blocks
+        xs = solve.truncated_batch(b_pks, +1, 1e-3, 50)  # TSM's cheap solves
 
     With mg.enabled the MG branch (MGSolver; the batch in chunks of
     solver.rhs_batch columns in lockstep); else with solver.solver eigcg
@@ -465,13 +460,15 @@ class Solver:
     communication policy (comm_policy), the direct branch
     solve.solve_tm_sharded on the sharded twisted-mass or clover operator,
     the MG branch mg/shard.ShardedFineLevel, eigCG
-    solve.ShardedEigCGSolver.  The columns go one at a time.
-    packed_src_batch takes this rank's blocks of the sources and returns
-    its blocks of the solutions (the physics programs; every rank calls
-    it); records, keep_first's x_first and the audit see the blocks too
-    (an audit that needs whole fields gathers them itself: it is a check,
-    not the path).  packed_src takes a whole source (every rank holds the
-    same), shards it and returns the whole solution on every rank."""
+    solve.ShardedEigCGSolver.  The columns go one at a time; TSM's
+    truncated solves (truncated_batch) take the sharded direct operators
+    on every branch.  packed_src_batch takes this rank's blocks of the
+    sources and returns its blocks of the solutions (the physics programs;
+    every rank calls it); records, keep_first's x_first and the audit see
+    the blocks too (an audit that needs whole fields gathers them itself:
+    it is a check, not the path).  packed_src takes a whole source (every
+    rank holds the same), shards it and returns the whole solution on
+    every rank."""
 
     keep_first = False
     audit = None
@@ -508,36 +505,58 @@ class Solver:
         """The mesh's policy and, on the direct branch, the sharded operators
         of both flavors and their operands."""
         from ..parallel.dist import local_shard
-        from ..parallel.sharded import (ShardedTMCloverOperatorPC, ShardedTMOperatorPC,
-                                        clover_fields_to, extend_gauge)
-        cfg, lmesh, a = self.cfg, self.lmesh, self.cfg.action
+        from ..parallel.sharded import extend_gauge
+        cfg, lmesh = self.cfg, self.lmesh
 
         @functools.lru_cache(maxsize=None)
         def halo_gauge():
             """The float64 HaloGauge (one face exchange), built when the
-            direct branch or the tuner reads it: the MG and eigCG levels
-            exchange their own."""
+            direct branch, the truncated solves or the tuner read it: the
+            MG and eigCG levels exchange their own."""
             return extend_gauge(lmesh, local_shard(self.u_pk.to(torch.float64), lmesh))
-
+        self._halo_gauge, self._sharded_ops = halo_gauge, {}
         direct = not cfg.mg.enabled and self.eigcg is None
         self.policy = comm_policy(cfg, lmesh, self.u_pk.device,
                                   _tuning(cfg, lmesh, halo_gauge, self.u_pk, self.clover))
         log.info("lattice mesh: %d x %d x %d ranks over (T, Z, Y), comm_policy %s -> %s",
                  lmesh.nt, lmesh.nz, lmesh.ny, cfg.solver.comm_policy, self.policy)
-        if not direct:
-            return
-        sdt = torch.bfloat16 if cfg.solver.sloppy_dtype == "bfloat16" else torch.float32
-        kw = dict(kappa=a.kappa, mu=a.mu, t_boundary=-1 if cfg.gauge.antiperiodic_t else 1,
-                  lmesh=lmesh, comm_policy=self.policy)
-        ug = halo_gauge()
+        if direct:
+            self.sharded = self._sharded_operators(_sloppy_dtype(cfg))
+
+    def _clover_fields(self):
+        """make_clover_fields's fields of the action (the direct branch's,
+        else made at the first call)."""
         if self.clover is None:
-            ops = {f: ShardedTMOperatorPC(lmesh.lat, flavor=f, **kw) for f in (+1, -1)}
-            fields = (ug.to(sdt, rows=2), ug.to(torch.float64))
-        else:
-            ops = {f: ShardedTMCloverOperatorPC(lmesh.lat, flavor=f, **kw) for f in (+1, -1)}
-            f64 = (ug, *(local_shard(c, lmesh) for c in self.clover))
-            fields = (clover_fields_to(f64, sdt, rows=2), clover_fields_to(f64, torch.float64))
-        self.sharded = (ops, *fields)
+            from ..solve import make_clover_fields
+            a = self.cfg.action
+            self.clover = make_clover_fields(self.u_pk, self.lat, kappa=a.kappa, mu=a.mu,
+                                             csw=a.csw)
+        return self.clover
+
+    def _sharded_operators(self, sdt: torch.dtype):
+        """(the sharded twisted-mass or clover operators of both flavors by
+        flavor, their operands with sloppy dtype sdt, in float64), built at
+        the first call for sdt."""
+        if sdt not in self._sharded_ops:
+            from ..parallel.dist import local_shard
+            from ..parallel.sharded import (ShardedTMCloverOperatorPC, ShardedTMOperatorPC,
+                                            clover_fields_to)
+            lmesh, a = self.lmesh, self.cfg.action
+            kw = dict(kappa=a.kappa, mu=a.mu,
+                      t_boundary=-1 if self.cfg.gauge.antiperiodic_t else 1, lmesh=lmesh,
+                      comm_policy=self.policy)
+            ug = self._halo_gauge()
+            if a.csw == 0.0:
+                ops = {f: ShardedTMOperatorPC(lmesh.lat, flavor=f, **kw) for f in (+1, -1)}
+                fields = (ug.to(sdt, rows=2), ug.to(torch.float64))
+            else:
+                ops = {f: ShardedTMCloverOperatorPC(lmesh.lat, flavor=f, **kw)
+                       for f in (+1, -1)}
+                f64 = (ug, *(local_shard(c, lmesh) for c in self._clover_fields()))
+                fields = (clover_fields_to(f64, sdt, rows=2),
+                          clover_fields_to(f64, torch.float64))
+            self._sharded_ops[sdt] = (ops, *fields)
+        return self._sharded_ops[sdt]
 
     def put(self, arr: torch.Tensor) -> torch.Tensor:
         """A packed array onto the solver's device."""
@@ -547,9 +566,7 @@ class Solver:
         c = self.cfg
         return dict(kappa=c.action.kappa, mu=c.action.mu, flavor=int(flavor),
                     tol=c.solver.tol, maxiter=c.solver.maxiter, inner_tol=c.solver.inner_tol,
-                    solver=c.solver.solver,
-                    sloppy_dtype=(torch.bfloat16 if c.solver.sloppy_dtype == "bfloat16"
-                                  else torch.float32),
+                    solver=c.solver.solver, sloppy_dtype=_sloppy_dtype(c),
                     t_boundary=-1 if c.gauge.antiperiodic_t else 1, csw=c.action.csw,
                     clover=self.clover)
 
@@ -678,6 +695,32 @@ class Solver:
             outs.append(self._batch(b_pks[lo:lo + batch_n], flavor, lo))
         return torch.cat(outs)
 
+    def truncated_batch(self, b_pks: torch.Tensor, flavor: int, tol: float,
+                        maxiter: int) -> torch.Tensor:
+        """The truncated solves of TSM (tpuqcd/cli/run_loops.py:134-154): to
+        ``tol`` or ``maxiter`` sloppy matvecs, inner_tol max(tol, 1e-3), CG
+        where the solver is eigCG, float32 sloppy arithmetic; uncertified
+        by design, so neither recorded nor audited.  On one card the
+        columns b_pks [n, 2(par), 2(ri), ...] run as one solve_tm_batch; on
+        a mesh they are this rank's blocks and go one at a time through
+        solve_tm_sharded on the sharded operators (built at the first call
+        on the MG and eigCG branches).  Returns float32 solutions."""
+        c, a = self.cfg, self.cfg.action
+        solver = "cg" if c.solver.solver == "eigcg" else c.solver.solver
+        kw = dict(tol=tol, maxiter=maxiter, inner_tol=max(tol, 1e-3), solver=solver)
+        b_pks = self.put(b_pks)
+        if self.lmesh is None:
+            from ..solve import solve_tm_batch
+            res = solve_tm_batch(self.u_pk, b_pks, self.lat, kappa=a.kappa, mu=a.mu,
+                                 flavor=int(flavor), t_boundary=-1 if c.gauge.antiperiodic_t
+                                 else 1, csw=a.csw,
+                                 clover=self._clover_fields() if a.csw != 0.0 else None, **kw)
+            return res.x.to(torch.float32)
+        from ..solve import solve_tm_sharded
+        ops, fields_s, fields_hp = self._sharded_operators(torch.float32)
+        return torch.stack([solve_tm_sharded(ops[int(flavor)], fields_s, fields_hp, b, **kw)
+                            .x.to(torch.float32) for b in b_pks])
+
     def packed(self, b_full: torch.Tensor, flavor: int = +1) -> torch.Tensor:
         """A full-layout source complex [T, Z, Y, X, 4, 3] -> packed solution."""
         return self.packed_src(full_to_packed(self.put(b_full), self.lat), flavor)
@@ -690,8 +733,8 @@ class Solver:
 def make_solver(cfg: RunConfig, lat: Lattice, u_pk: torch.Tensor, lmesh=None) -> Solver:
     """The solver of run_invert and of the physics programs (see Solver),
     on the mesh of cfg.mesh or ``lmesh``; refuses what the port does not
-    run yet (run_loops refuses a mesh itself, check_in_slice)."""
-    check_in_slice(cfg, twop=True)
+    run yet (check_in_slice)."""
+    check_in_slice(cfg)
     if cfg.action.epsbar != 0.0:
         raise NotImplementedError("make_solver solves the light (degenerate) twisted-mass "
                                   "quark; action.epsbar selects run_invert's doublet solve")

@@ -130,7 +130,7 @@ def main(argv=None):
 def invert(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None) -> InvertResult:
     """The solve of ``cfg`` on ``device``; ``gauge``, what setup_gauge(cfg,
     device) returned before, saves generating it again."""
-    check_in_slice(cfg, invert=True)
+    check_in_slice(cfg)
     log.info("solver.backend=%s selects nothing in the port: the tensors' device "
              "(%s) runs the CUDA kernel or, on the CPU, its plain version",
              cfg.solver.backend, device)

@@ -19,6 +19,21 @@ no expectation value.
     python -m tpuqcd_torch.cli.run_loops --config examples/loops.yaml
     python -m tpuqcd_torch.cli.run_loops --config examples/loops_strange.yaml --device cpu
 
+With a mesh of more than one rank (``mesh.nt/nz/ny``; torchrun, one
+process per card, NCCL, or gloo with ``--device cpu``) each rank holds
+only its block of every noise, source, solution and eigenvector: the
+noises and the Lanczos start vector are drawn whole on every rank and
+cut, the Lanczos sums and the deflation coefficients are summed over the
+ranks, the columns go one at a time through the sharded solver, the
+truncated TSM solves through solve_tm_sharded, the covariant derivative
+reads a ghost layer and the projections' [n_mom, T] partial sums are
+summed over the ranks.  The one field gathered is the basis of
+physics.eig_outfile, a vector at a time to rank 0, which writes it in the
+one-card file's format; rank 0 alone writes the loops.
+
+    torchrun --nproc_per_node 2 -m tpuqcd_torch.cli.run_loops \\
+        --config examples/loops_mesh.yaml --device cpu
+
 Strange and charm loops (Osterwalder-Seiler) are the same run at the
 heavy twisted mass (examples/loops_strange.yaml).  The noise, the cheap
 noise and the Lanczos start vector come from CPU generators seeded 17, 23
@@ -50,7 +65,7 @@ from ..utils.config import RunConfig
 from ..utils.profile import Profile
 from .common import (Gauge, check_in_slice, ensemble_members, log, make_solver, parse_args,
                      setup_gauge)
-from .run_twop import stage_timer
+from .run_twop import mesh_of, stage_timer
 
 #: seeds of the noise, the cheap TSM noise and the Lanczos start vector
 #: (tpuqcd/cli/run_loops.py:69-71, :191-194)
@@ -80,6 +95,7 @@ class LoopsResult:
     tsm: dict | None
     #: kept only with keep_fields: the packed float32 gauge and the basis
     #: in the MG layout of eig_outfile, [n, 2(ri), 2(par), 4, 3, T, Z, S]
+    #: (on a mesh this rank's blocks)
     u_pk: torch.Tensor | None = None
     evecs: torch.Tensor | None = None
 
@@ -88,34 +104,40 @@ def _g5(device) -> torch.Tensor:
     return torch.tensor(G5_DIAG, dtype=torch.float32, device=device).view(4, 1, 1, 1, 1)
 
 
-def deflation_basis(cfg: RunConfig, lat, u_pk: torch.Tensor):
+def deflation_basis(cfg: RunConfig, lat, u_pk: torch.Tensor, lmesh=None,
+                    comm_policy: str = "fused"):
     """(evals, evecs [n_deflate, 2(ri), 2(par), 4, 3, T, Z, S] float32): read
     from physics.eig_infile, or the packed Lanczos on M_d M_d^dag =
     M_d (g5 M_u g5) on the fine level of the action (n_iter = max(40, 3
-    n_deflate)), saved to physics.eig_outfile when set."""
+    n_deflate)), saved to physics.eig_outfile when set.  On a mesh
+    (``lmesh``) evecs are this rank's blocks: the fine level is
+    mg/shard.ShardedFineLevel under ``comm_policy``, the start vector is
+    drawn whole and cut, every rank reads eig_infile and keeps its blocks,
+    and eig_outfile gets the basis gathered to rank 0 (save_eigenpairs)."""
     from ..solvers.lanczos import lanczos_lowest_pk
     from ..utils.checkpoint import load_eigenpairs, save_eigenpairs
     from .common import _mg_fine_level
     ph, device = cfg.physics, u_pk.device
     if ph.eig_infile:
         evals, evecs = load_eigenpairs(ph.eig_infile, expect_layout="packed",
-                                       n_expect=ph.n_deflate)
+                                       n_expect=ph.n_deflate, lmesh=lmesh)
         log.info("loaded %d deflation eigenpairs from %s", len(evecs), ph.eig_infile)
         return np.asarray(evals, np.float64), torch.stack(evecs).to(device)
-    lv_p, lv_m = (_mg_fine_level(cfg, lat, u_pk, f) for f in (+1, -1))
+    lv_p, lv_m = (_mg_fine_level(cfg, lat, u_pk, f, lmesh, comm_policy) for f in (+1, -1))
     g5 = _g5(device)[None]                 # MG layout [2(ri), 2(par), 4, 3, T, Z, S]
 
     def apply_mmdag(v):
         return lv_m.apply(g5 * lv_p.apply(g5 * v))
 
     gen = torch.Generator().manual_seed(LANCZOS_SEED)
-    v0 = torch.randn((2, 2, 4, 3, *lat.site_shape), generator=gen).to(device)
+    v0 = torch.randn((2, 2, 4, 3, *lat.site_shape), generator=gen)
+    v0 = (v0 if lmesh is None else lmesh.shard(v0)).to(device)
     log.info("packed Lanczos deflation: %d modes", ph.n_deflate)
     evals, evecs = lanczos_lowest_pk(apply_mmdag, v0, ph.n_deflate,
-                                     n_iter=max(40, 3 * ph.n_deflate))
+                                     n_iter=max(40, 3 * ph.n_deflate), lmesh=lmesh)
     log.info("deflation basis ready (lowest Ritz value %.3e)", evals[0])
     if ph.eig_outfile:
-        save_eigenpairs(ph.eig_outfile, evals, evecs, layout="packed")
+        save_eigenpairs(ph.eig_outfile, evals, evecs, layout="packed", lmesh=lmesh)
         log.info("wrote deflation eigenpairs -> %s", ph.eig_outfile)
     return evals, evecs
 
@@ -126,17 +148,20 @@ def _tsm_combine(a, b_full, b_cheap):
 
 
 def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
-            keep_fields: bool = False, audit=None) -> LoopsResult:
+            keep_fields: bool = False, audit=None, lmesh=None) -> LoopsResult:
     """The loop measurement of ``cfg`` on ``device``.  ``gauge``, what
     setup_gauge(cfg, device) returned before, saves generating it again;
     ``audit`` goes to the solver (Solver.audit: every full and low-mode
-    column, its source g5 b and float64 solution)."""
-    from ..solve import make_clover_fields, solve_tm_batch
+    column, its source g5 b and float64 solution).  On the mesh of
+    cfg.mesh, or ``lmesh`` (a LatticeMesh; one rank runs the mesh path
+    too), the fields, kept ones included, are this rank's blocks and every
+    rank returns the whole loops."""
     check_in_slice(cfg)
     ph, a = cfg.physics, cfg.action
     lat, u_pk, plaq, gauge_seconds = setup_gauge(cfg, device) if gauge is None else gauge
-    solve = make_solver(cfg, lat, u_pk)
+    solve = make_solver(cfg, lat, u_pk, lmesh)
     solve.audit = audit
+    lmesh = mesh_of(solve, plaq)
     momenta = np.asarray(ph.momenta)
     prof = Profile()
     prof.times["gauge"] = gauge_seconds
@@ -147,26 +172,16 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
         """(M_d^dag)^{-1} b = g5 M_u^{-1} g5 b, batched."""
         return solve.packed_src_batch(b_pks * g5, flavor=+1) * g5
 
-    clover = solve.clover                  # the cheap solves' (None on the MG branch)
-    if clover is None and a.csw != 0.0 and ph.tsm_cheap > 0:
-        clover = make_clover_fields(u_pk, lat, kappa=a.kappa, mu=a.mu, csw=a.csw)
-
     def cheap_batch(b_pks):
         """The truncated TSM solve, uncertified by design (run_loops.py:134-154)."""
-        res = solve_tm_batch(u_pk, b_pks * g5, lat, kappa=a.kappa, mu=a.mu, flavor=+1,
-                             tol=ph.tsm_tol, maxiter=ph.tsm_maxiter_cheap,
-                             inner_tol=max(ph.tsm_tol, 1e-3),
-                             solver="cg" if cfg.solver.solver == "eigcg" else cfg.solver.solver,
-                             t_boundary=-1 if cfg.gauge.antiperiodic_t else 1, csw=a.csw,
-                             clover=clover)
-        return res.x.to(torch.float32) * g5
+        return solve.truncated_batch(b_pks * g5, +1, ph.tsm_tol, ph.tsm_maxiter_cheap) * g5
 
     evals = evecs = deflate = None
     if ph.n_deflate > 0:
         with stage("lanczos"):
-            evals, evecs = deflation_basis(cfg, lat, u_pk)
+            evals, evecs = deflation_basis(cfg, lat, u_pk, lmesh, solve.policy)
             evecs_solver = evecs.transpose(1, 2).contiguous()     # -> [n, 2(par), 2(ri), ...]
-            deflate = make_deflate_pk(evecs_solver)
+            deflate = make_deflate_pk(evecs_solver, lmesh)
 
     def timed(name, fn):
         def run(*args):
@@ -176,11 +191,11 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
 
     def estimate(seed, n, name, solve_fn):
         return stochastic_oneend_pk(
-            z4_noises(seed, n, lat, device), timed(name, solve_fn), INSERTION_GAMMAS, lat,
-            momenta, a.kappa, a.mu, u_pk=u_pk, derivs=True, dilute_t=ph.dilute_t,
+            z4_noises(seed, n, lat, device, lmesh), timed(name, solve_fn), INSERTION_GAMMAS,
+            lat, momenta, a.kappa, a.mu, u_pk=u_pk, derivs=True, dilute_t=ph.dilute_t,
             dilute_sc=bool(ph.dilute_sc),
             deflate_fn=None if deflate is None else timed(name, deflate),
-            timer=stage)
+            timer=stage, lmesh=lmesh)
 
     tsm = None
     if ph.tsm_cheap > 0:
@@ -197,7 +212,7 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
         log.info("exact low-mode one-end part (%d production solves)", evecs.shape[0])
         low, low_der = oneend_lowmode_exact_pk(
             evecs_solver, timed("lowmode", solve_ddag_batch), INSERTION_GAMMAS, lat, momenta,
-            a.kappa, a.mu, u_pk=u_pk, derivs=True, timer=stage)
+            a.kappa, a.mu, u_pk=u_pk, derivs=True, timer=stage, lmesh=lmesh)
         loops.update({"loops/oneend_lowmode": low, "loops/oneend_lowmode_der": low_der})
     meta = {"n_noise": ph.n_noise, "kappa": a.kappa, "mu": a.mu, "tsm_cheap": ph.tsm_cheap,
             "n_deflate": ph.n_deflate, "dilute_t": ph.dilute_t,
@@ -215,7 +230,9 @@ def measure(cfg: RunConfig, device: torch.device, gauge: Gauge | None = None,
 def write(cfg: RunConfig, result: LoopsResult) -> None:
     """Every dataset into physics.output with write_loops (one dataset per
     insertion, the meta as attributes); adds the seconds to result.seconds
-    as "write"."""
+    as "write".  On a mesh rank 0 alone writes."""
+    if tdist.rank() != 0:
+        return
     t0 = time.perf_counter()
     out = cfg.physics.output
     if os.path.dirname(out):

@@ -12,6 +12,12 @@ device, so each re-orthogonalisation pass is two matrix products over it
 (the complex coefficients <V_j, w> of every basis vector at once, then
 the update), as in tpuqcd; the host reads alpha and beta once per step
 and diagonalises the tridiagonal matrix in numpy float64.
+
+On a mesh (``lmesh``) the fields are this rank's blocks and every sum over
+a field is summed over the ranks (solvers/reductions.summed inside
+``reductions.over(lmesh)``), so every rank sees the same alpha, beta and
+Rayleigh quotients and keeps its blocks of the same basis; on one card
+the sums are the float32 sums they were.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from ..utils import pkalg as pk
+from .reductions import over, summed
 
 
 #: re-orthogonalisation passes a step (tpuqcd's default)
@@ -33,15 +40,16 @@ def _reorthogonalize(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     coefficient, then V^T C the update."""
     m, n = V.shape[0], w.shape[1]
     flat = V.reshape(m, 2 * n)
-    c = flat @ torch.stack([w.reshape(-1), torch.cat([w[1], -w[0]])], dim=1)   # [m, 2]
+    c = summed(flat @ torch.stack([w.reshape(-1), torch.cat([w[1], -w[0]])], dim=1))  # [m, 2]
     p = (flat.T @ c).reshape(2, n, 2)               # [ri of V, N, (cr, ci)]
     return w - torch.stack([p[0, :, 0] - p[1, :, 1], p[1, :, 0] + p[0, :, 1]])
 
 
 def lanczos_lowest_pk(apply_a: Callable, v0_pk: torch.Tensor, n_ev: int, *,
-                      n_iter: int = 60):
+                      n_iter: int = 60, lmesh=None):
     """The lowest n_ev eigenpairs of a Hermitian positive definite A acting on
-    packed fields of v0_pk's shape (``[2(ri), ...]``, any trailing layout).
+    packed fields of v0_pk's shape (``[2(ri), ...]``, any trailing layout;
+    on a mesh this rank's block, and apply_a the sharded operator).
 
     The 2 n_ev lowest Ritz pairs are ranked by their Rayleigh quotient on
     A.  The returned vectors are orthonormalised (complex Gram-Schmidt,
@@ -50,20 +58,25 @@ def lanczos_lowest_pk(apply_a: Callable, v0_pk: torch.Tensor, n_ev: int, *,
 
     Returns (evals float64 [n_ev] ascending Rayleigh quotients, evecs
     float32 [n_ev, *v0_pk.shape])."""
+    with over(lmesh):
+        return _lanczos(apply_a, v0_pk, n_ev, n_iter)
+
+
+def _lanczos(apply_a, v0_pk, n_ev, n_iter):
     shape, n_flat = v0_pk.shape, v0_pk.numel() // 2
     v = v0_pk.to(torch.float32).reshape(2, n_flat)
-    v = v / torch.sqrt(torch.sum(v * v))
+    v = v / torch.sqrt(summed(torch.sum(v * v)))
     V = torch.zeros((n_iter, 2, n_flat), dtype=torch.float32, device=v.device)
     alpha, beta, k = [], [], 0
     for j in range(n_iter):
         V[j] = v
         k = j + 1
         w = apply_a(v.reshape(shape)).reshape(2, n_flat)
-        a = torch.sum(v * w)                       # Re <v, A v>, A Hermitian
+        a = summed(torch.sum(v * w))               # Re <v, A v>, A Hermitian
         w = w - a * v
         for _ in range(REORTH_PASSES):
             w = _reorthogonalize(V, w)
-        b = torch.sqrt(torch.sum(w * w))
+        b = torch.sqrt(summed(torch.sum(w * w)))
         v = w / torch.clamp(b, min=1e-30)
         a_host, b_host = torch.stack([a, b]).tolist()
         alpha.append(a_host)
@@ -78,10 +91,11 @@ def lanczos_lowest_pk(apply_a: Callable, v0_pk: torch.Tensor, n_ev: int, *,
     n_take = min(k, 2 * n_ev)
     sel = torch.as_tensor(np.asarray(s_t[:, :n_take], np.float32), device=v.device)
     X = (sel.T @ V[:k].reshape(k, 2 * n_flat)).reshape(n_take, 2, n_flat)
-    X = X / torch.clamp(torch.sqrt(torch.sum(X * X, dim=(1, 2), keepdim=True)), min=1e-30)
-    rq = [torch.sum(X[i] * apply_a(X[i].reshape(shape)).reshape(2, n_flat))
-          for i in range(n_take)]
-    pairs = sorted(zip(torch.stack(rq).tolist(), range(n_take)))[:n_ev]
+    X = X / torch.clamp(torch.sqrt(summed(torch.sum(X * X, dim=(1, 2), keepdim=True))),
+                        min=1e-30)
+    rq = summed(torch.stack([torch.sum(X[i] * apply_a(X[i].reshape(shape)).reshape(2, n_flat))
+                             for i in range(n_take)]))
+    pairs = sorted(zip(rq.tolist(), range(n_take)))[:n_ev]
     evals = np.asarray([lam for lam, _ in pairs], np.float64)
     evecs = torch.stack([X[i].reshape(shape) for _, i in pairs])
     return evals, _orthonormalize_pk(evecs)
@@ -97,10 +111,10 @@ def _orthonormalize_pk(vs: torch.Tensor) -> torch.Tensor:
         for _ in range(2):
             for j in range(i):
                 u = F[j]
-                cr = torch.sum(u[0] * v[0] + u[1] * v[1])
-                ci = torch.sum(u[0] * v[1] - u[1] * v[0])
+                cr, ci = summed(torch.stack([torch.sum(u[0] * v[0] + u[1] * v[1]),
+                                             torch.sum(u[0] * v[1] - u[1] * v[0])]))
                 v = v - torch.stack([cr * u[0] - ci * u[1], cr * u[1] + ci * u[0]])
-        F[i] = v / torch.clamp(torch.sqrt(torch.sum(v * v)), min=1e-30)
+        F[i] = v / torch.clamp(torch.sqrt(summed(torch.sum(v * v))), min=1e-30)
     return F.reshape(vs.shape)
 
 

@@ -83,23 +83,36 @@ def load_device_mg(path: str, fine_level, params):
     return DeviceMG.from_parts(fine_level, params, transfers, coarse)
 
 
-def save_eigenpairs(path: str, evals, evecs, layout: str = "") -> None:
+def save_eigenpairs(path: str, evals, evecs, layout: str = "", lmesh=None) -> None:
     """evals [n] and evecs (a stack or a list of n fields) into ``path``
     (numpy adds .npz when the name lacks it).  layout: "packed" (the
     device basis, MG layout [2(ri), 2(par), 4, 3, T, Z, S]) or "full"
     (tpuqcd's host basis), recorded so that a reload on the other path
     fails instead of feeding the wrong layout on.  Uncompressed (tpuqcd
     compresses; np.load reads both): float32 eigenvectors hardly compress,
-    and zlib takes tens of seconds on a 32^3x64 basis."""
+    and zlib takes tens of seconds on a 32^3x64 basis.  On a mesh
+    (``lmesh``; every rank calls it) evecs are this rank's blocks of
+    packed fields: each vector is gathered whole to rank 0 in turn, and
+    rank 0 alone writes the one-card file."""
+    if lmesh is not None:
+        whole = []
+        for v in evecs:             # to the host one at a time: rank 0's card holds one
+            v = lmesh.gather(torch.as_tensor(v).contiguous())
+            if v is not None:
+                whole.append(v.cpu())
+        if lmesh.rank != 0:
+            return
+        evecs = whole
     np.savez(path, evals=np.asarray(evals),
                         evecs=np.stack([torch.as_tensor(v).cpu().numpy() for v in evecs]),
                         layout=np.asarray(layout))
 
 
 def load_eigenpairs(path: str, expect_layout: str | None = None,
-                    n_expect: int | None = None):
+                    n_expect: int | None = None, lmesh=None):
     """(evals, [evec tensors on the CPU]) from a save_eigenpairs file; with
-    ``n_expect`` the first n_expect pairs.  A file of another layout than
+    ``n_expect`` the first n_expect pairs; on a mesh (``lmesh``) this rank's
+    blocks of packed fields.  A file of another layout than
     ``expect_layout``, or with fewer than n_expect pairs, raises."""
     z = np.load(path)
     if expect_layout and "layout" in z:
@@ -109,6 +122,8 @@ def load_eigenpairs(path: str, expect_layout: str | None = None,
                              f"{expect_layout!r} (device and host deflation bases are not "
                              "interchangeable: regenerate on this path or drop eig_infile)")
     evecs = [torch.from_numpy(np.ascontiguousarray(v)) for v in z["evecs"]]
+    if lmesh is not None:
+        evecs = [lmesh.shard(v).contiguous() for v in evecs]
     evals = z["evals"]
     if n_expect is not None:
         if len(evecs) < n_expect:
