@@ -58,7 +58,8 @@ Phases, each of which exits non-zero on failure:
 4. the main paths, each with the kernel's launch counts set to 0 just
    before it and read just after (no bfloat16 launch on the one-site
    kernel), the certified residual, and an independent float64 residual
-   of the solution through the plain version:
+   of the solution through the plain version (an audit of many columns
+   takes AUDIT_COLUMNS of them a plain call):
    a. tpuqcd_torch.cli.run_invert at 32^3x64 (random gauge seed 1,
       kappa 0.115, mu 0.08, CG, tol 1e-10);
    b. run_invert's multigrid path at 32^3x64 on the gauge of 4b and every
@@ -107,6 +108,18 @@ Phases, each of which exits non-zero on failure:
       hierarchy (lockstep GCR), each certified, one held to the plain
       float64 operator, beside the seconds of the first two one by one
       (scaled to four);
+   v. 4b's hierarchy with MG's bfloat16 solver buffers (mg.gcr_dtype,
+      mg.vec_dtype): its twin from the same null vectors (DeviceMG.rebuilt:
+      the bank rounded to bfloat16, Linv from the rounded bank, the
+      Galerkin links probed again), 4b's source solved on it to 1e-10:
+      certified by the solver and by the plain float64 operator, the inner
+      iterations beside 4b's, the solve's peak allocation at least
+      PEAK_DROP_SHARE of the reckoned drop (half the GCR basis and half the
+      bank) under 4b's solve's, restrict + prolong timed on both banks, and
+      more lockstep columns admitted by _check_batch_fits with the
+      bfloat16 basis than with the float32 one; and after 4p, the twin of
+      4p's sharded hierarchy on the one-rank mesh at 16^3x32 solving 4p's
+      source, certified the same way;
    o. 4a's twisted-mass and 4c's twisted-clover solves at 16^3x32 (each
       first on one card through run_invert, its twin), then through
       solve_tm_sharded on a one-rank LatticeMesh, under the fused policy
@@ -244,6 +257,8 @@ no result.  ``--invert-rank`` runs one rank of phase 4g (invert_rank).
 from __future__ import annotations
 
 import atexit
+import contextlib
+import copy
 import dataclasses
 import itertools
 import json
@@ -313,6 +328,10 @@ MESH_SRC, MESH_T_SINK = (3, 5, 7, 9), 15
 MESH_RUN_AGREE = 1e-5
 #: cell 4i: the columns of the lockstep MG solve (12 do not fit the card)
 MGB_COLUMNS = 4
+#: cell 4v: the least share of the reckoned drop of the MG solve's peak
+#: allocation (half the GCR basis and half the null-vector bank) that the
+#: bfloat16 buffers must show against 4b's float32 buffers
+PEAK_DROP_SHARE = 0.7
 #: cells 4k and 4l: the loop run's deflation modes and its limits on the
 #: basis (orthonormality, deflated sources' overlap with it) and, in 4l, on
 #: eigCG's loops against the batched CG's (both certified to 1e-10)
@@ -334,6 +353,11 @@ RECON8_TOL = {"f64": (1e-12, 1e-12), "f32": (1e-5, 1e-5), "bf16": (1e-2, 2e-2)}
 FLOP_PER_SITE = 1320
 CLOVER_FLOP_PER_SITE = 552   # two 6x6 complex mat-vecs
 RELRES_MAX = 1e-10
+#: columns of an audit's plain float64 residual in one plain call: the plain
+#: version's cost is mostly a call's, not a column's (at 32^3x64 a column
+#: alone 0.31-0.39 s, two in one call 0.043 s a column, bit for bit the same
+#: residuals; two columns add 7.6 GiB while the call runs, three about 11)
+AUDIT_COLUMNS = 2
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet, at the 700 W limit
 #: peak rates outside the tensor cores (H100 SXM data sheet): bfloat16
 #: storage computes in float32
@@ -1056,6 +1080,32 @@ def plain_full_relres(u64, b, x, lat, kappa=KAPPA, mu=MU, a64=None) -> float:
     return (r.square().sum() / b.square().sum()).sqrt().item()
 
 
+def plain_relres_cols(u64, b, x, lat, kappa=KAPPA, mu=MU) -> list:
+    """plain_full_relres of every column of b, x [N, 2(par), 2(ri), 4, 3, T,
+    Z, S], AUDIT_COLUMNS columns a plain call (its batch axis): the same
+    float64 residuals, without the plain version's cost a call for each.
+    A call of one column costs what an unbatched call does, so an odd
+    count's last three columns go together and a lone column is paired
+    with itself (its second residual dropped)."""
+    from tpuqcd_torch.ops.dslash_cuda import dslash_eo_plain
+    n = b.shape[0]
+    starts = list(range(0, n - 1, AUDIT_COLUMNS)) if n > 1 else [0]
+    out = []
+    for i, s in enumerate(starts):
+        e = starts[i + 1] if i + 1 < len(starts) else n
+        bs, xs = b[s:e].double(), x[s:e]
+        if e - s == 1:
+            bs, xs = bs.expand(2, *bs.shape[1:]), xs.expand(2, *xs.shape[1:])
+        m = [dslash_eo_plain(u64, xs[:, 1 - par].contiguous(), 1 - par, lat, epilogue="xpay",
+                             kappa=kappa, mu=mu, psi0=xs[:, par].contiguous(),
+                             xpay_scale=kappa)
+             for par in (0, 1)]
+        r = bs - torch.stack(m, dim=1)
+        rel = (r.square().flatten(1).sum(1) / bs.square().flatten(1).sum(1)).sqrt().tolist()
+        out += rel[:e - s]
+    return out
+
+
 def counted_invert(cfg, dev, gauge=None, flavors=False, dims=LARGE):
     """run_invert's invert with the launch counts set to 0 just before and
     read just after; returns (result, counts).  ``flavors``: x is a
@@ -1299,7 +1349,8 @@ def mesh_mg_path(dev, mg_res, gauge, dims=MID):
     kernel's, so from the same seed the hierarchy and the solve are the
     twin's: x within X_AGREE of the twin's, certified by the solver and the
     plain float64 operator, the inner iterations equal and the seconds
-    beside the twin's.  Returns (setup seconds, solve seconds, counts)."""
+    beside the twin's.  Returns (setup seconds, solve seconds, counts, the
+    sharded hierarchy, the solve's result)."""
     from tpuqcd_torch.cli.common import MGSolver
     from tpuqcd_torch.lattice import Lattice
     from tpuqcd_torch.parallel.mesh import LatticeMesh
@@ -1334,7 +1385,7 @@ def mesh_mg_path(dev, mg_res, gauge, dims=MID):
     if res.iters != mg_res.iters:
         fail(f"the sharded MG took {res.iters} inner iterations, its twin {mg_res.iters}: on a "
              "one-rank mesh the hierarchy and the solve are the one-card run's")
-    return setup, seconds - setup, counts
+    return setup, seconds - setup, counts, mg, res
 
 
 def mesh_eigcg_path(dev, gauge, dims=MID):
@@ -2018,8 +2069,7 @@ def ensemble_path(dev, files, plaquettes, have_h5py: bool):
             def audit(b, x, flavor):
                 t0, plain = time.perf_counter(), dslash_cuda.counts["plain"]
                 audited.append((flavor, b.shape[0], max(
-                    plain_full_relres(u64, b[j].double(), x[j], lat, TWOP_KAPPA,
-                                      TWOP_MU * flavor) for j in range(b.shape[0]))))
+                    plain_relres_cols(u64, b, x, lat, TWOP_KAPPA, TWOP_MU * flavor))))
                 dslash_cuda.counts["plain"] = plain
                 torch.cuda.synchronize()
                 audit_s[flavor] += time.perf_counter() - t0
@@ -2233,8 +2283,7 @@ def audited_measure(measure, cfg, dev, gauge, u64, lat, on_column=None, **kw):
 
     def audit(b, x, flavor):
         t0, plain = time.perf_counter(), dslash_cuda.counts["plain"]
-        rels = [plain_full_relres(u64, b[i].double(), x[i], lat, cfg.action.kappa,
-                                  cfg.action.mu * flavor) for i in range(b.shape[0])]
+        rels = plain_relres_cols(u64, b, x, lat, cfg.action.kappa, cfg.action.mu * flavor)
         for i in range(b.shape[0]):
             if on_column is not None:
                 on_column(b[i], flavor)
@@ -2579,6 +2628,156 @@ def mg_batch_path(dev, mg, u_pk):
     if not refused:
         fail("the memory check let 64 columns through")
     return t_batch, t_single, [r.iters for r in singles], counts
+
+
+@contextlib.contextmanager
+def solve_peak():
+    """Within it, every cli/common.MGSolver solve records the device memory
+    allocated as it starts ("base") and the most allocated while it runs
+    ("peak": torch.cuda.max_memory_allocated, reset as it starts)."""
+    from tpuqcd_torch.cli import common
+    call, rec = common.MGSolver.__call__, {}
+
+    def peaked(self, *args, **kw):
+        torch.cuda.synchronize()
+        rec["base"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = call(self, *args, **kw)
+        torch.cuda.synchronize()
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        return out
+
+    common.MGSolver.__call__ = peaked
+    try:
+        yield rec
+    finally:
+        common.MGSolver.__call__ = call
+
+
+def bf16_params(params):
+    """MG params with both bfloat16 solver buffers (mg.gcr_dtype, vec_dtype)."""
+    return dataclasses.replace(params, gcr_dtype="bfloat16", vec_dtype="bfloat16")
+
+
+def mg_bf16_twin(mg):
+    """4v, first half: the bfloat16-buffer twin of 4b's hierarchy (DeviceMG.
+    rebuilt: the same null vectors rounded to bfloat16, Linv from the rounded
+    bank, the Galerkin links probed again), with the launch counts set to 0
+    just before; and restrict + prolong, as a V-cycle runs them, timed on
+    both banks (CUDA events, 20 after 2).  Returns (twin, {"build": seconds,
+    "float32" and "bfloat16": ms})."""
+    from tpuqcd_torch.ops import dslash_cuda
+    torch.cuda.synchronize()
+    dslash_cuda.reset_counts()
+    t0 = time.perf_counter()
+    twin = mg.rebuilt(bf16_params(mg.params))
+    torch.cuda.synchronize()
+    out = {"build": time.perf_counter() - t0}
+    lv = mg.levels[0]
+    r = torch.randn((2, 2, 4, 3, *lv.lat.site_shape), device=lv.device,
+                    generator=torch.Generator(device=lv.device).manual_seed(11))
+    for key, tr in (("float32", mg.transfers[0]), ("bfloat16", twin.transfers[0])):
+        out[key] = time_ms(lambda: tr.prolong(tr.restrict(r)), reps=20)
+    return twin, out
+
+
+def admitted_columns(mg) -> int:
+    """The most columns (up to 64) _check_batch_fits lets through."""
+    n = 0
+    while n < 64:
+        try:
+            mg._check_batch_fits(n + 1)
+        except MemoryError:
+            break
+        n += 1
+    return n
+
+
+def mg_bf16_path(dev, twin, mg_res, f32_peak, built):
+    """4v, second half: 4b's source solved to 1e-10 on the twin, both buffers
+    in bfloat16 (4b's float32 hierarchy freed first: the twin shares its fine
+    level), its peak allocation beside 4b's solve's on the float32 hierarchy
+    (solve_peak), and the columns _check_batch_fits admits with the float32
+    and the bfloat16 GCR basis.  Fails unless the solve is certified by the
+    solver and by the plain float64 operator, the peak drops by at least
+    PEAK_DROP_SHARE of the reckoned drop (half the basis, 2 restart fine
+    fields, and half the bank, n_vec fine fields), the bfloat16 basis admits
+    more columns, and the twin's build and solve launched the kernels
+    (float32, bfloat16, float64, legs_out) and no plain call.  Returns
+    (result, counts, seconds, peak bytes)."""
+    from tpuqcd_torch.ops import dslash_cuda
+    from tpuqcd_torch.solve import solve_tm_mg
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = solve_tm_mg(twin, mg_res.b_pk, tol=RELRES_MAX, inner_tol=1e-7)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(dslash_cuda.counts)
+    print(f"  launches during the twin's build and solve: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail(f"the bfloat16-buffer MG called the plain version {counts['plain']} times")
+    need_launches(counts, ("float32", "bfloat16", "float64", "float32:legs_out"))
+    rel = plain_full_relres(mg_res.u_pk.double(), mg_res.b_pk.double(), res.x,
+                            twin.levels[0].lat, MG_KAPPA, MG_MU)
+    p = twin.params
+    field = twin._fine_field_bytes()
+    reckoned = (p.restart + p.n_vec[0] // 2) * field
+    drop = f32_peak["peak"] - peak
+    admits = {}
+    for gcr in ("float32", "bfloat16"):
+        probe = copy.copy(twin)
+        probe.params = dataclasses.replace(p, gcr_dtype=gcr)
+        admits[gcr] = admitted_columns(probe)
+    print(f"  twin built in {built['build']:.2f} s (Linv and probing; no null-vector solve); "
+          f"restrict + prolong per V-cycle: float32 bank {built['float32']:.3f} ms, bfloat16 "
+          f"bank {built['bfloat16']:.3f} ms")
+    print(f"  certified relres {res.relres:.3e}, plain-operator relres {rel:.3e}; inner "
+          f"iterations {res.iters} (4b, float32 buffers: {mg_res.iters}), refinements "
+          f"{res.refinements} (4b: {mg_res.refinements}); solve {seconds:.3f} s (4b: "
+          f"{mg_res.seconds:.3f} s)")
+    print(f"  peak allocation of the solve: float32 buffers (4b) {f32_peak['peak'] / 1e9:.3f} GB "
+          f"(allocated at its start {f32_peak['base'] / 1e9:.3f} GB), bfloat16 buffers "
+          f"{peak / 1e9:.3f} GB (at its start {base / 1e9:.3f} GB): {drop / 1e9:.3f} GB lower; "
+          f"reckoned {reckoned / 1e9:.3f} GB ({p.restart} + {p.n_vec[0] // 2} fine fields of "
+          f"{field / 1e6:.1f} MB), limit {PEAK_DROP_SHARE:.0%} of it")
+    print(f"  columns _check_batch_fits admits: float32 basis {admits['float32']}, bfloat16 "
+          f"basis {admits['bfloat16']}")
+    if not (res.relres <= RELRES_MAX and rel <= RELRES_MAX and torch.isfinite(res.x).all()):
+        fail("the bfloat16-buffer MG solve is not certified")
+    if not drop >= PEAK_DROP_SHARE * reckoned:
+        fail(f"the bfloat16 buffers lowered the solve's peak by {drop / 1e9:.3f} GB, under "
+             f"{PEAK_DROP_SHARE:.0%} of the reckoned {reckoned / 1e9:.3f} GB")
+    if not admits["bfloat16"] > admits["float32"]:
+        fail("the bfloat16 GCR basis does not admit more lockstep columns")
+    return res, counts, seconds, peak
+
+
+def mesh_mg_bf16_path(dev, mg, mp_res, mp_twin, gauge):
+    """4v on a mesh: 4p's sharded hierarchy's bfloat16-buffer twin (DeviceMG.
+    rebuilt, the probing in K6 dirs launches) solves 4p's source to 1e-10:
+    certified by the solver and the plain float64 operator, its inner
+    iterations beside 4p's.  Returns (seconds, counts)."""
+    from tpuqcd_torch.solve import solve_tm_mg
+
+    def run():
+        twin = mg.rebuilt(bf16_params(mg.params))
+        return solve_tm_mg(twin, mp_twin.b_pk, tol=RELRES_MAX, inner_tol=1e-7)
+    res, seconds, counts = _counted(run)
+    print(f"  launches during the twin's build and solve: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail(f"the sharded bfloat16-buffer MG called the plain version {counts['plain']} times")
+    need_launches(counts, ("float32:halo", "bfloat16:halo", "float64:halo", "float32:dirs:halo"))
+    rel = plain_full_relres(gauge.u_pk.double(), mp_twin.b_pk.double(), res.x, mg.lmesh.lat,
+                            MG_KAPPA, MG_MU)
+    print(f"  certified relres {res.relres:.3e}, plain-operator relres {rel:.3e}; inner "
+          f"iterations {res.iters} (4p, float32 buffers: {mp_res.iters}), refinements "
+          f"{res.refinements}; twin build and solve {seconds:.3f} s")
+    if not (res.relres <= RELRES_MAX and rel <= RELRES_MAX):
+        fail("the sharded bfloat16-buffer MG solve is not certified")
+    return seconds, counts
 
 
 def slim(result):
@@ -3095,15 +3294,22 @@ def main() -> None:
     atexit.register(shutil.rmtree, ens_dir, True)
     gauge, chain = chain_gauge(dev, ens_dir)
     say("phase 4b: main path, tpuqcd_torch.cli.run_invert (MG) at 32^3x64")
-    mg_res, mg_counts = mg_path(dev, gauge)
+    with solve_peak() as mg_peak:
+        mg_res, mg_counts = mg_path(dev, gauge)
     say("phase 4b: the same coarse operator by per-leg probing")
     pl_counts = per_leg_probing(mg_res)
     say("phase 4i: four point-source columns in lockstep on 4b's hierarchy "
           "(solve_tm_mg_batch)")
     mgb_batch_s, mgb_single_s, _, mgb_counts = mg_batch_path(dev, mg_res.mg, gauge.u_pk)
-    mg_res = dataclasses.replace(mg_res, mg=None)
-    torch.cuda.empty_cache()
+    say("phase 4v: 4b's hierarchy with MG's bfloat16 solver buffers (mg.gcr_dtype, "
+        "mg.vec_dtype): the twin built from the same null vectors, 4b's source solved")
+    twin, v_built = mg_bf16_twin(mg_res.mg)
     mg_x = mg_res.x.cpu()
+    mg_res = dataclasses.replace(mg_res, mg=None, x=None)
+    torch.cuda.empty_cache()
+    v_res, v_counts, v_seconds, v_peak = mg_bf16_path(dev, twin, mg_res, mg_peak, v_built)
+    del twin, v_res
+    torch.cuda.empty_cache()
     mg_res = slim(mg_res)
     say("phase 4r: main path, run_invert's mass sweep (examples/invert_musweep_32cube.yaml: "
         "multishift CG, every mass certified) on c0000 at 32^3x64, then four cold solves")
@@ -3118,7 +3324,11 @@ def main() -> None:
     hb_mid_s = gauge_mid.seconds
     mp_twin, _ = mg_path(dev, gauge_mid, dims=MID)
     mp_twin = dataclasses.replace(mp_twin, mg=None)
-    mp_setup_s, mp_solve_s, mp_counts = mesh_mg_path(dev, mp_twin, gauge_mid)
+    mp_setup_s, mp_solve_s, mp_counts, mp_mg, mp_res = mesh_mg_path(dev, mp_twin, gauge_mid)
+    say("phase 4v: 4p's sharded hierarchy on the one-rank mesh with MG's bfloat16 solver "
+        "buffers, 4p's source solved")
+    vm_seconds, vm_counts = mesh_mg_bf16_path(dev, mp_mg, mp_res, mp_twin, gauge_mid)
+    del mp_mg, mp_res
     mp_twin = slim(mp_twin)
     say("phase 4q: three columns through ShardedEigCGSolver on a one-rank LatticeMesh beside "
         "the one-card EigCGSolver at 16^3x32")
@@ -3261,6 +3471,11 @@ def main() -> None:
           + f" (both with the audit) {card_tag}")
     print(f"  MG, 4 point-source columns (4i): lockstep {mgb_batch_s:.2f} s, one by one "
           f"{mgb_single_s:.2f} s {card_tag}")
+    print(f"  MG with bfloat16 solver buffers (4v) at 32^3x64: twin {v_built['build']:.2f} s, "
+          f"solve {v_seconds:.3f} s (4b: {mg_res.seconds:.3f} s), peak {v_peak / 1e9:.3f} GB "
+          f"(4b: {mg_peak['peak'] / 1e9:.3f} GB); restrict + prolong {v_built['bfloat16']:.3f} ms "
+          f"(float32 bank {v_built['float32']:.3f} ms); on the one-rank mesh at 16^3x32 twin and "
+          f"solve {vm_seconds:.3f} s {card_tag}")
     print(f"  heatbath chain (4b): c0000 {MG_SWEEPS} compound sweeps {chain['sweeps'][0]:.3f} s, "
           f"c0001 {CHAIN_SKIP} more {chain['sweeps'][1]:.3f} s; "
           + "; ".join(io_line(f"write c000{i}", w) for i, w in enumerate(chain["writes"]))
@@ -3445,6 +3660,31 @@ def main() -> None:
               "probing 4p, one leg a launch), one dirs leg (t, +1) timed on the one-rank mesh",
               mp_counts["float32:dirs:halo"], dirs_abs["f32"], ("f32", "halo_dirs"),
               "tpuqcd/ops/dslash_pallas.py:428"),
+        # MG with bfloat16 solver buffers (4v): the twin's probing and its solve, on
+        # one card at 32^3x64 and on the one-rank mesh at 16^3x32
+        entry("dslash_eo<float> reconstruct-12 (MG fine operator, bfloat16 GCR basis and "
+              "null-vector bank 4v), xpay_full timed", v_counts["float32"], fine_abs["f32"],
+              ("f32", "xpay_full")),
+        entry("dslash_eo<bf16> pair reconstruct-12 (MG smoother 4v), xpay_full timed",
+              v_counts["bfloat16"], fine_abs["bf16"], ("bf16", "xpay_full")),
+        entry("dslash_eo<double> 18-real (MG certification operator 4v), xpay_full timed",
+              v_counts["float64"], fine_abs["f64"], ("f64", "xpay_full")),
+        entry("dslash_eo<float> reconstruct-12 legs_out (K4, the Galerkin probing of 4v's "
+              "bfloat16 bank)", v_counts["float32:legs_out"], legs_abs["f32"],
+              ("f32", "legs_out")),
+        entry("dslash_eo<float> reconstruct-12 halo xpay_full (K6 with K2, sharded MG fine "
+              "operator 4v), xpay timed on the one-rank mesh", vm_counts["float32:halo"],
+              halo_abs["f32"], ("f32", "halo_xpay"), k6),
+        entry("dslash_eo<bf16> pair reconstruct-12 halo xpay_full (K6 with K2, sharded MG smoother "
+              "4v), xpay timed on the one-rank mesh", vm_counts["bfloat16:halo"],
+              halo_abs["bf16"], ("bf16", "halo_xpay"), k6),
+        entry("dslash_eo<double> 18-real halo xpay_full (K6 with K2, sharded MG certification "
+              "4v), xpay timed on the one-rank mesh", vm_counts["float64:halo"],
+              halo_abs["f64"], ("f64", "halo_xpay"), k6),
+        entry("dslash_eo<float> reconstruct-12 halo dirs (K6 with K4, the sharded probing of 4v's "
+              "bfloat16 bank, one leg a launch), one dirs leg (t, +1) timed on the one-rank mesh",
+              vm_counts["float32:dirs:halo"], dirs_abs["f32"], ("f32", "halo_dirs"),
+              "tpuqcd/ops/dslash_pallas.py:428"),
         entry("dslash_eo<float> reconstruct-12 halo twist_inv/xpay (K6 with K2, sharded eigCG "
               "normal operator 4q), xpay timed on the one-rank mesh", mq_counts["float32:halo"],
               halo_abs["f32"], ("f32", "halo_xpay"), k6),
@@ -3533,7 +3773,8 @@ def main() -> None:
               "tpuqcd/ops/dslash_pallas.py:705"),
     ]
     # the one-site bfloat16 kernel: the shapes pair_sites refuses, on no main path
-    path_counts = [counts, mg_counts, pl_counts, mgb_counts, mp_counts, cl_counts, mgc_counts,
+    path_counts = [counts, mg_counts, pl_counts, mgb_counts, v_counts, mp_counts, vm_counts,
+                   cl_counts, mgc_counts,
                    nd_counts, sh_counts, tw_counts, ens_counts, gf_counts, tj_counts, tk_counts,
                    tl_counts, tl_cg_counts, mq_counts, sw_counts, sw_cold_counts, swm_counts,
                    mt_counts, mu_counts, mg3_counts, mg32_counts,

@@ -23,6 +23,9 @@ gathers each result and writes them to --out:
             1e-6, then certify_musweep to 1e-10
     mg3     mg3_x, mg3_relres, mg3_iters, mg3_links1, mg3_links2: the sharded
             three-level MG (MG3_PARAMS), certified to 1e-12
+    mgbf    mgbf_x, mgbf_relres, mgbf_iters, mgbf_links: the sharded MG with
+            bfloat16 solver buffers (MGBF_PARAMS), twisted mass, certified to
+            1e-12
 
 ops, solve and mg read the clover fields cl, clp, clm and psi from the
 inputs; eigcg the columns cols; the others u, b, dims, kappa, mu and
@@ -44,6 +47,8 @@ MG_PARAMS = dict(n_vec=(4,), block=((2, 2, 2, 2),), setup_iters=20, mu_factor=1.
 #: the three-level hierarchy (an 8^4 lattice: 4^4, then 2^4), with the
 #: coarsest level's mu boost
 MG3_PARAMS = dict(n_vec=(4, 4), block=((2, 2, 2, 2), (2, 2, 2, 2)), setup_iters=10)
+#: MG_PARAMS with the bfloat16 GCR basis and null-vector bank
+MGBF_PARAMS = dict(MG_PARAMS, gcr_dtype="bfloat16", vec_dtype="bfloat16")
 #: the masses of the sweep, unsorted
 MUSWEEP_MU = (0.2, 0.05, 0.1)
 
@@ -141,6 +146,13 @@ def main():
             keep(f"{name}_x", x)
             out[f"{name}_relres"], out[f"{name}_iters"] = relres, iters
             out[f"{name}_links"] = torch.view_as_real(links).double().numpy()
+
+    if "mgbf" in args.tasks:
+        x, relres, iters, (links,) = mg_solve(lmesh, u64.float(), None, kappa, mu, b64, pol,
+                                              params=MGBF_PARAMS)
+        keep("mgbf_x", x)
+        out.update(mgbf_relres=relres, mgbf_iters=iters)
+        out["mgbf_links"] = torch.view_as_real(links).double().numpy()
 
     if "eigcg" in args.tasks:
         from tpuqcd_torch.solve import ShardedEigCGSolver

@@ -10,8 +10,14 @@ hierarchy up to the order of the sums.  References: the port's one-rank
 MG from the same seed (x, inner iterations, coarse links); tpuqcd's
 one-device solve_tm of the same system (jax.random and torch draw
 different null vectors, so MG is held to tpuqcd through its certified
-solution).  Both solves to 1e-12 agree to 1e-10.  Cost: about 120 s
-serial (two torchrun launches, tpuqcd's two solves)."""
+solution).  Both solves to 1e-12 agree to 1e-10.  The same launches run
+the twisted-mass MG with bfloat16 solver buffers (mg.gcr_dtype and
+vec_dtype, task "mgbf") against its one-rank twin.  Cost: about 130 s
+serial (two torchrun launches, tpuqcd's two solves; the bfloat16 task
+about 5 s of each launch)."""
+import functools
+
+import numpy as np
 import pytest
 import torch
 
@@ -20,9 +26,9 @@ from tpuqcd_torch.mg.shard import ShardedFineLevel
 from tpuqcd_torch.parallel.mesh import LatticeMesh
 from tpuqcd_torch.utils.config import ConfigError, config_from_dict
 
-from _torch_inputs import t
+from _torch_inputs import n, t
 from _torch_mesh import KAPPA, LAT, MESHES, MU, inputs, run_worker
-from _torch_mesh_worker import MG_PARAMS
+from _torch_mesh_worker import MG_PARAMS, MGBF_PARAMS, mg_solve
 from _torch_mg_mesh import (IDS, NAMES, check_builds_the_one_rank_hierarchy,
                             check_matches_one_rank, check_matches_tpuqcd_solution)
 
@@ -33,7 +39,7 @@ CASES = [("t", "fused"), ("tz", "overlap")]
 def ranks(request, tmp_path_factory):
     mesh, policy = request.param
     return run_worker(tmp_path_factory.mktemp(f"mg{mesh}"), inputs(True), MESHES[mesh], policy,
-                      ["mg"])
+                      ["mg", "mgbf"])
 
 
 @pytest.mark.parametrize("name", NAMES, ids=IDS)
@@ -49,6 +55,34 @@ def test_sharded_mg_builds_the_one_rank_hierarchy(ranks, name):
 @pytest.mark.parametrize("name", NAMES, ids=IDS)
 def test_sharded_mg_matches_tpuqcd_solution(ranks, name):
     check_matches_tpuqcd_solution(ranks, name)
+
+
+@functools.lru_cache(maxsize=None)
+def one_rank_bf16():
+    """The one-rank MG with bfloat16 buffers: (x, inner iterations, links)."""
+    inp = inputs(True)
+    x, relres, iters, (links,) = mg_solve(LatticeMesh(LAT, 1), t(inp["u"], torch.float32),
+                                          None, KAPPA, MU, t(inp["b"]), "fused",
+                                          params=MGBF_PARAMS)
+    assert relres <= 1e-12
+    return n(x), iters, n(torch.view_as_real(links).double())
+
+
+def test_sharded_bf16_buffers_match_one_rank(ranks):
+    """The bfloat16 GCR basis and null-vector bank on the ranks: the same
+    inner iterations as the one-rank hierarchy from the same seed, x within
+    1e-10 (both certified to 1e-12), and the replicated coarse links within
+    1e-3 of their largest value.  The ranks round the same null vectors to
+    bfloat16 (their float32 values summed over the ranks in another order,
+    1e-7 apart); where one falls on the other side of a rounding midpoint,
+    an element moves by a bfloat16 ulp (2^-8 of itself), which float32
+    summation order's 3e-5 does not cover."""
+    x, iters, want = one_rank_bf16()
+    assert ranks["mgbf_relres"] <= 1e-12
+    assert ranks["mgbf_iters"] == iters
+    np.testing.assert_allclose(ranks["mgbf_x"], x, atol=1e-10, rtol=0)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(ranks["mgbf_links"] / scale, want / scale, atol=1e-3, rtol=0)
 
 
 def test_one_rank_sharded_level_draws_what_one_card_draws():

@@ -205,11 +205,9 @@ def test_mg_solver_builds_a_flavor_on_first_use_and_dumps(tmp_path):
     # the sharded multigrid, twisted mass and clover, is in every program's slice; its
     # vector files stay single-card, as in tpuqcd
     {"mg": {"enabled": True}, "action": {"csw": 1.0}, "mesh": {"nt": 2}},
-    {"mg": {"enabled": True, "gcr_dtype": "bfloat16"}},
-    {"mg": {"enabled": True, "vec_dtype": "bfloat16"}},
     {"mg": {"enabled": True}, "mesh": {"nt": 2}},
     {"gauge": {"heatbath_beta": 6.0, "heatbath_n_cfg": 2}},
-], ids=["mg-csw", "gcr_dtype", "vec_dtype", "mg-mesh", "heatbath_n_cfg"])
+], ids=["mg-csw", "mg-mesh", "heatbath_n_cfg"])
 def test_unported_mg_configurations_raise(raw):
     raw = {**raw, "gauge": {"dims": [8, 8, 8, 8], **raw.get("gauge", {})}}
     if "heatbath_n_cfg" in raw["gauge"]:
@@ -218,24 +216,13 @@ def test_unported_mg_configurations_raise(raw):
         check_in_slice(config_from_dict(raw))
         raw = {**raw, "mg": {"enabled": True}, "mesh": {"nt": 2}}
     cfg = config_from_dict(raw)
-    if "mesh" in raw:
-        check_in_slice(cfg)
-        from tpuqcd_torch.lattice import Lattice
-        from tpuqcd_torch.parallel.mesh import LatticeMesh
-        lat = Lattice(tuple(raw["gauge"]["dims"]))
-        files = config_from_dict({**raw, "mg": {**raw["mg"], "vec_outfile": "h"}})
-        with pytest.raises(NotImplementedError, match="single-card"):
-            MGSolver(files, lat, torch.zeros(1), LatticeMesh(lat, 2))
-        return
-    with pytest.raises(NotImplementedError) as e:
-        check_in_slice(cfg)
-    assert "not ported" in str(e.value)
-    if "dtype" not in str(e.value):
-        assert "ROADMAP" in str(e.value)
-    for key in ("gcr_dtype", "vec_dtype"):
-        if key in raw.get("mg", {}):       # DeviceMG refuses them as well
-            with pytest.raises(NotImplementedError, match=key):
-                DeviceMG(_port_fine(), DeviceMGParams(**PARAMS, **{key: "bfloat16"}))
+    check_in_slice(cfg)
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.parallel.mesh import LatticeMesh
+    lat = Lattice(tuple(raw["gauge"]["dims"]))
+    files = config_from_dict({**raw, "mg": {**raw["mg"], "vec_outfile": "h"}})
+    with pytest.raises(NotImplementedError, match="single-card"):
+        MGSolver(files, lat, torch.zeros(1), LatticeMesh(lat, 2))
 
 
 def test_mg_config_mirrors_tpuqcd():

@@ -75,20 +75,14 @@ def _sloppy_dtype(cfg: RunConfig) -> torch.dtype:
 
 
 def check_in_slice(cfg: RunConfig, threep: bool = False) -> None:
-    """Refuse the configurations the port does not run yet; with ``threep``
-    (the three-point run) also one without physics.t_sinks.  Every program
-    takes a mesh; what tpuqcd refuses on one (MG vector files, eigCG with
-    clover) the solver refuses (MGSolver, Solver)."""
+    """Refuse, with ``threep`` (the three-point run), a configuration without
+    physics.t_sinks.  Every other configuration of tpuqcd's is in the
+    port's slice, MG's bfloat16 solver buffers (mg.gcr_dtype, vec_dtype)
+    and a mesh included; what tpuqcd refuses on a mesh (MG vector files,
+    eigCG with clover) the solver refuses (MGSolver, Solver)."""
     if threep and not cfg.physics.t_sinks:
         raise ConfigError("physics.t_sinks is empty: the three-point run needs at least one "
                           "sink timeslice")
-    mg = cfg.mg
-    for key in ("gcr_dtype", "vec_dtype"):
-        if mg.enabled and getattr(mg, key) != "float32":
-            raise NotImplementedError(
-                f"mg.{key}: {getattr(mg, key)} is not ported to tpuqcd_torch: bfloat16 "
-                "solver buffers fitted the MG solve into a 16 GB TPU (ROADMAP.md, 'How "
-                "the new hardware changes the port'); set it to float32")
 
 
 def ensemble_members(cfg: RunConfig, device: torch.device):

@@ -27,7 +27,13 @@ PyTorch here, laid out for batched complex products on the card:
     chirality), and the inverse Cholesky factor Linv of their Gram
     matrix per (chirality, aggregate), [2, Nagg, n, n]; restrict is
     Linv (V^dag r) and prolong V (Linv^dag x), each two batched
-    products, and R P = I.
+    products, and R P = I;
+  - with mg.vec_dtype bfloat16 the bank is bfloat16 (re, im) pairs
+    [2(chir), Nagg, K, n, 2] (PyTorch has no complex bfloat16), widened
+    to complex64 a chunk of aggregates at a time (BANK_CHUNK_FIELDS) for
+    every product: the arithmetic is float32, as tpuqcd's bfloat16
+    vectors times float32 fields (tpuqcd/mg/device.py:451-470), and no
+    whole float32 copy of the bank is ever formed.
 
 The JAX layouts (null vectors [n, 2, 2, 4, 3, T, Z, S], Linv
 [2, 2, n, n, Tc, Zc, Sc], links [2, 9, N, N, Vc]) are what
@@ -37,6 +43,7 @@ give back, so state moves between the two packages unchanged
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -325,10 +332,22 @@ class DeviceCoarseLevel:
 # --------------------------------------------------------------------------
 # transfers
 
+#: A bfloat16 bank is widened to complex64 a chunk of aggregates at a time,
+#: never whole (a whole copy is the memory the bfloat16 bank saves: n_vec
+#: fields of the level, 16 GB at 48^3x96).  A chunk holds the n_vec
+#: vectors of n_agg * BANK_CHUNK_FIELDS // n_vec aggregates: at most this
+#: many fields of the level in complex64, which bounds what restrict,
+#: prolong and gram_linv add to the peak.
+BANK_CHUNK_FIELDS = 1
+
+
 class _Transfer:
-    """restrict/prolong from the aggregate-major null vectors ``v``
-    [2(chir), Nagg, K, n] and Linv [2, Nagg, n, n] (complex64).
-    Subclasses map their fields to and from [2(chir), Nagg, K, B]."""
+    """restrict/prolong from the aggregate-major null vectors ``v`` and
+    Linv [2, Nagg, n, n] (complex64).  ``v`` is complex64 [2(chir), Nagg,
+    K, n] or, a bfloat16 bank, bfloat16 (re, im) pairs [2(chir), Nagg, K,
+    n, 2].  Subclasses map their fields to and from [2(chir), Nagg, K, B]
+    (``_to_agg``/``_from_agg``, through the permutations ``_agg_perm``/
+    ``_agg_unperm`` of a batch of complex or real fields)."""
 
     field_ndim: int
 
@@ -338,7 +357,12 @@ class _Transfer:
 
     @property
     def n_vec(self) -> int:
-        return self.v.shape[-1]
+        return self.v.shape[3]
+
+    @property
+    def vec_dtype(self) -> torch.dtype:
+        """The bank's storage: torch.float32 (complex64) or torch.bfloat16."""
+        return torch.bfloat16 if self.v.dtype == torch.bfloat16 else torch.float32
 
     @property
     def n_c(self) -> int:
@@ -353,12 +377,50 @@ class _Transfer:
         """The aggregates this transfer holds (Vc, or a shard's share)."""
         return self.v.shape[1]
 
+    def _chunks(self) -> list:
+        """The aggregate slices the bank is widened by (BANK_CHUNK_FIELDS)."""
+        step = max(1, self.n_agg * BANK_CHUNK_FIELDS // self.n_vec)
+        return [slice(a, a + step) for a in range(0, self.n_agg, step)]
+
+    def _bank(self, s: slice) -> torch.Tensor:
+        """The bfloat16 bank's aggregates s, widened exactly to complex64."""
+        return torch.view_as_complex(self.v[:, s].float().contiguous())
+
+    def _wdag(self, a: torch.Tensor) -> torch.Tensor:
+        """V^dag a per aggregate: [2, Nagg, K, B] -> [2, Nagg, n, B]."""
+        if self.v.dtype != torch.bfloat16:
+            return self.v.mH @ a
+        out = a.new_empty((2, self.n_agg, self.n_vec, a.shape[-1]))
+        for s in self._chunks():
+            out[:, s] = self._bank(s).mH @ a[:, s]
+        return out
+
+    def _vmul(self, tmp: torch.Tensor) -> torch.Tensor:
+        """V tmp per aggregate: [2, Nagg, n, B] -> [2, Nagg, K, B]."""
+        if self.v.dtype != torch.bfloat16:
+            return self.v @ tmp
+        out = tmp.new_empty((2, self.n_agg, self.v.shape[2], tmp.shape[-1]))
+        for s in self._chunks():
+            out[:, s] = self._bank(s) @ tmp[:, s]
+        return out
+
+    def _gram(self) -> torch.Tensor:
+        """V^dag V per (chirality, aggregate), [2, Nagg, n, n]."""
+        if self.v.dtype != torch.bfloat16:
+            return self.v.mH @ self.v
+        out = torch.empty((2, self.n_agg, self.n_vec, self.n_vec), dtype=torch.complex64,
+                          device=self.v.device)
+        for s in self._chunks():
+            w = self._bank(s)
+            out[:, s] = w.mH @ w
+        return out
+
     def gram_linv(self) -> torch.Tensor:
         """Linv from the raw vectors: the Gram matrix of each (chirality,
         aggregate), Cholesky and triangular inverse (utils/pkalg)."""
         from ..utils import pkalg as pk
         n = self.n_vec
-        G = self.v.mH @ self.v                                 # [2, Nagg, n, n]
+        G = self._gram()                                      # [2, Nagg, n, n]
         g = torch.stack([G.real, G.imag]).permute(0, 3, 4, 1, 2)
         M = pk.tril_inverse_pk(pk.cholesky_pk(g, n), n)        # [2ri, n, n, 2, Nagg]
         return torch.complex(M[0], M[1]).permute(2, 3, 0, 1).contiguous()
@@ -368,7 +430,7 @@ class _Transfer:
         single = r.ndim == self.field_ndim
         rb = r[None] if single else r
         B = rb.shape[0]
-        rc = self.linv @ (self.v.mH @ self._to_agg(rb))       # [2, Nagg, n, B]
+        rc = self.linv @ self._wdag(self._to_agg(rb))         # [2, Nagg, n, B]
         c = rc.permute(3, 0, 2, 1).reshape(B, self.n_c, self.n_agg)
         out = torch.stack([c.real, c.imag], dim=1)
         return out[0] if single else out
@@ -379,7 +441,7 @@ class _Transfer:
         xb = xc[None] if single else xc
         c = torch.complex(xb[:, 0], xb[:, 1]).reshape(-1, 2, self.n_vec, self.n_agg)
         tmp = self.linv.mH @ c.permute(1, 3, 2, 0)             # [2, Nagg, n, B]
-        out = self._from_agg(self.v @ tmp)
+        out = self._from_agg(self._vmul(tmp))
         return out[0] if single else out
 
     def linv_pk(self) -> torch.Tensor:
@@ -389,8 +451,52 @@ class _Transfer:
         return torch.stack([lc.real, lc.imag]).contiguous()
 
     def v_pk(self) -> torch.Tensor:
-        """tpuqcd's null-vector bank [n, *field shape], float32."""
-        return self._from_agg(self.v)
+        """tpuqcd's null-vector bank [n, *field shape], float32 (a bfloat16
+        bank widened exactly, a vector at a time)."""
+        if self.v.dtype != torch.bfloat16:
+            return self._from_agg(self.v)
+        out = None
+        for i in range(self.n_vec):
+            c = self._agg_unperm(self.v[:, :, :, i])           # [2(ri), *field], bfloat16
+            if out is None:
+                out = torch.empty((self.n_vec, *c.shape), dtype=torch.float32, device=c.device)
+            out[i] = c
+        return out
+
+    def _to_agg(self, r: torch.Tensor) -> torch.Tensor:
+        """real [B, 2(ri), *field] -> complex [2(chir), Nagg, K, B]."""
+        return self._agg_perm(torch.complex(r[:, 0], r[:, 1]))
+
+    def _from_agg(self, a: torch.Tensor) -> torch.Tensor:
+        """complex [2(chir), Nagg, K, B] -> real [B, 2(ri), *field]."""
+        c = self._agg_unperm(a)
+        return torch.stack([c.real, c.imag], dim=1)
+
+    def _bank_from_pk(self, v_pk: torch.Tensor) -> torch.Tensor:
+        """tpuqcd's null vectors [n, 2(ri), *field] -> the bank: complex64
+        from float32, and from bfloat16 the (re, im) pairs, permuted a
+        vector at a time (the re/im axis of one vector is the batch axis
+        of _agg_perm), so that no float32 copy of the bank is made."""
+        if v_pk.dtype != torch.bfloat16:
+            return self._to_agg(v_pk.float())
+        bank = None
+        for i in range(v_pk.shape[0]):
+            a = self._agg_perm(v_pk[i])                        # [2(chir), Nagg, K, 2(ri)]
+            if bank is None:
+                bank = a.new_empty((*a.shape[:3], v_pk.shape[0], 2))
+            bank[:, :, :, i] = a
+        return bank
+
+    def stored(self, dtype: torch.dtype) -> "_Transfer":
+        """This transfer with its bank stored in ``dtype`` (torch.float32 or
+        torch.bfloat16, rounded to nearest even) and the same Linv, as
+        tpuqcd casts v_pk after setup (tpuqcd/mg/dsolve.py:171-175)."""
+        if dtype == self.vec_dtype:
+            return self
+        tr = copy.copy(self)
+        tr.v = (torch.view_as_real(self.v).to(torch.bfloat16) if dtype == torch.bfloat16
+                else torch.view_as_complex(self.v.float()))
+        return tr
 
     @staticmethod
     def _linv_from_pk(linv_pk: torch.Tensor) -> torch.Tensor:
@@ -422,12 +528,12 @@ class DeviceFineTransfer(_Transfer):
     def from_pk(cls, lat: Lattice, block, v_pk: torch.Tensor,
                 linv_pk: torch.Tensor | None = None) -> "DeviceFineTransfer":
         """From tpuqcd's layouts: null vectors [n, 2, 2, 4, 3, T, Z, S]
-        (float32) and, optionally, Linv [2, 2, n, n, Tc, Zc, Sc]."""
+        (float32, or bfloat16 for a bfloat16 bank) and, optionally, Linv
+        [2, 2, n, n, Tc, Zc, Sc]."""
         tr = cls.__new__(cls)
         tr.lat, tr.block = lat, tuple(int(b) for b in block)
-        v = tr._to_agg(v_pk.float())
         linv = None if linv_pk is None else cls._linv_from_pk(linv_pk)
-        cls.__init__(tr, lat, block, v, linv)
+        cls.__init__(tr, lat, block, tr._bank_from_pk(v_pk), linv)
         return tr
 
     @property
@@ -441,23 +547,22 @@ class DeviceFineTransfer(_Transfer):
         Tc, Zc, Yc, Xc = self.dims_c
         return Tc, bt, Zc, bz, Yc, by, Xc, bx // 2
 
-    def _to_agg(self, r: torch.Tensor) -> torch.Tensor:
-        """real [B, 2, 2(par), 4, 3, T, Z, S] -> complex [2(chir), Nagg, K, B]."""
-        B = r.shape[0]
+    def _agg_perm(self, c: torch.Tensor) -> torch.Tensor:
+        """[B, 2(par), 4, 3, T, Z, S] -> [2(chir), Nagg, K, B]."""
+        B = c.shape[0]
         Tc, bt, Zc, bz, Yc, by, Xc, bxh = g = self._geom()
-        c = torch.complex(r[:, 0], r[:, 1]).reshape(B, 2, 2, 2, 3, *g)
+        c = c.reshape(B, 2, 2, 2, 3, *g)
         # B par chir s col | Tc bt Zc bz Yc by Xc bxh
         c = c.permute(2, 5, 7, 9, 11, 1, 3, 4, 6, 8, 10, 12, 0)
         return c.reshape(2, Tc * Zc * Yc * Xc, -1, B)
 
-    def _from_agg(self, a: torch.Tensor) -> torch.Tensor:
-        """complex [2(chir), Nagg, K, B] -> real [B, 2, 2(par), 4, 3, T, Z, S]."""
+    def _agg_unperm(self, a: torch.Tensor) -> torch.Tensor:
+        """[2(chir), Nagg, K, B] -> [B, 2(par), 4, 3, T, Z, S]."""
         B = a.shape[-1]
         Tc, bt, Zc, bz, Yc, by, Xc, bxh = self._geom()
         c = a.reshape(2, Tc, Zc, Yc, Xc, 2, 2, 3, bt, bz, by, bxh, B)
         c = c.permute(12, 5, 0, 6, 7, 1, 8, 2, 9, 3, 10, 4, 11)
-        c = c.reshape(B, 2, 4, 3, *self.lat.site_shape)
-        return torch.stack([c.real, c.imag], dim=1)
+        return c.reshape(B, 2, 4, 3, *self.lat.site_shape)
 
 
 class DeviceCoarseTransfer(_Transfer):
@@ -476,12 +581,12 @@ class DeviceCoarseTransfer(_Transfer):
     @classmethod
     def from_pk(cls, dims, n_f: int, block, v_pk: torch.Tensor,
                 linv_pk: torch.Tensor | None = None) -> "DeviceCoarseTransfer":
-        """From tpuqcd's layouts: null vectors [n, 2, N, Vf] and Linv."""
+        """From tpuqcd's layouts: null vectors [n, 2, N, Vf] (float32 or
+        bfloat16) and Linv."""
         tr = cls.__new__(cls)
         tr.dims, tr.n_f, tr.block = tuple(dims), int(n_f), tuple(block)
-        v = tr._to_agg(v_pk.float())
         linv = None if linv_pk is None else cls._linv_from_pk(linv_pk)
-        cls.__init__(tr, dims, n_f, block, v, linv)
+        cls.__init__(tr, dims, n_f, block, tr._bank_from_pk(v_pk), linv)
         return tr
 
     @property
@@ -493,20 +598,21 @@ class DeviceCoarseTransfer(_Transfer):
         bt, bz, by, bx = self.block
         return Tc, bt, Zc, bz, Yc, by, Xc, bx
 
-    def _to_agg(self, r: torch.Tensor) -> torch.Tensor:
-        B = r.shape[0]
+    def _agg_perm(self, c: torch.Tensor) -> torch.Tensor:
+        """[B, N, Vf] -> [2(chir), Nagg, K, B]."""
+        B = c.shape[0]
         Tc, bt, Zc, bz, Yc, by, Xc, bx = g = self._geom()
-        c = torch.complex(r[:, 0], r[:, 1]).reshape(B, 2, self.n_f // 2, *g)
+        c = c.reshape(B, 2, self.n_f // 2, *g)
         # B chir h | Tc bt Zc bz Yc by Xc bx
         c = c.permute(1, 3, 5, 7, 9, 2, 4, 6, 8, 10, 0)
         return c.reshape(2, Tc * Zc * Yc * Xc, -1, B)
 
-    def _from_agg(self, a: torch.Tensor) -> torch.Tensor:
+    def _agg_unperm(self, a: torch.Tensor) -> torch.Tensor:
+        """[2(chir), Nagg, K, B] -> [B, N, Vf]."""
         B = a.shape[-1]
         Tc, bt, Zc, bz, Yc, by, Xc, bx = self._geom()
         c = a.reshape(2, Tc, Zc, Yc, Xc, self.n_f // 2, bt, bz, by, bx, B)
-        c = c.permute(10, 0, 5, 1, 6, 2, 7, 3, 8, 4, 9).reshape(B, self.n_f, -1)
-        return torch.stack([c.real, c.imag], dim=1)
+        return c.permute(10, 0, 5, 1, 6, 2, 7, 3, 8, 4, 9).reshape(B, self.n_f, -1)
 
 
 # --------------------------------------------------------------------------

@@ -21,6 +21,7 @@ its columns go one at a time.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import NamedTuple
@@ -44,8 +45,10 @@ class DeviceMGParams:
     (kernel storage); coarse_dtype "bfloat16" rounds the coarse links to
     bfloat16; setup_solver "cgne" is CG on M^dag M = g5 M_{-f} g5 M_f,
     "bicgstab" fixed BiCGStab on M (coarse levels always use BiCGStab).
-    gcr_dtype and vec_dtype other than float32 were memory fitting for a
-    16 GB TPU and are not ported: DeviceMG refuses them.
+    gcr_dtype "bfloat16" stores the fine level's outer GCR basis (2 restart
+    fields a column) in bfloat16, vec_dtype "bfloat16" the null-vector bank
+    of every transfer; every product and sum stays float32 (tpuqcd's
+    buffers; mg/device.py's BANK_CHUNK_FIELDS, solvers/krylov_pk._gcr_cycle).
     """
     n_vec: tuple = (8, 8)
     block: tuple = ((4, 4, 4, 4), (2, 2, 2, 2))
@@ -107,7 +110,7 @@ class DeviceMG:
             t0 = time.perf_counter()
             with self._scope(depth):
                 nulls = self._gen_null_vectors(level, nv, params.setup_iters, generator,
-                                               params.setup_solver)
+                                               params.setup_solver, self._vec_dtype())
             sync(fine.device)
             self.setup_seconds[f"nulls{depth}"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -127,12 +130,50 @@ class DeviceMG:
                 print(f"[mg] level {depth + 1}: dims={coarse.dims} n={coarse.n} "
                       f"({self.setup_seconds[f'nulls{depth}']:.1f}s nulls, "
                       f"{self.setup_seconds[f'galerkin{depth}']:.1f}s RAP)")
+        self._boost_and_round()
+        self._finish()
+
+    def rebuilt(self, params: DeviceMGParams) -> "DeviceMG":
+        """This hierarchy's null vectors under ``params`` (the same n_vec and
+        blocks): each bank stored in params.vec_dtype, its Linv and the
+        Galerkin links built again from it, the coarsest level boosted and
+        rounded as a setup does, and no null-vector solve.  From a float32
+        setup it is the hierarchy that a setup with vec_dtype bfloat16 from
+        the same starts builds (on two levels exactly; deeper levels keep
+        the null vectors this hierarchy drew on its own coarse levels)."""
+        _check_params(params)
+        if (params.n_vec, params.block) != (self.params.n_vec, self.params.block):
+            raise ValueError(f"rebuilt keeps the null vectors: n_vec {params.n_vec} and block "
+                             f"{params.block} must be {self.params.n_vec} and "
+                             f"{self.params.block}")
+        mg = DeviceMG.__new__(DeviceMG)
+        mg.params, mg.lmesh = params, self.lmesh
+        fine = self.levels[0]
+        mg.levels, mg.transfers, mg.setup_seconds = [fine], [], {}
+        level = fine
+        for depth, tr in enumerate(self.transfers):
+            t0 = time.perf_counter()
+            tr = copy.copy(tr.stored(mg._vec_dtype()))
+            tr.linv = tr.gram_linv()
+            coarse = build_coarse_device(level, tr)
+            sync(fine.device)
+            mg.setup_seconds[f"galerkin{depth}"] = time.perf_counter() - t0
+            mg.transfers.append(tr)
+            mg.levels.append(coarse)
+            level = coarse
+        mg._boost_and_round()
+        mg._finish()
+        return mg
+
+    def _boost_and_round(self):
+        """The coarsest level's twisted-mass boost (mu_factor) and the
+        bfloat16 coarse links (coarse_dtype), after the probing."""
+        fine, params = self.levels[0], self.params
         if params.mu_factor != 1.0 and fine.mu != 0.0:
             delta = 2.0 * fine.kappa * fine.mu * (params.mu_factor - 1.0)
             self.levels[-1] = self.levels[-1].boosted(delta)
         if params.coarse_dtype == "bfloat16":
             self.levels[1:] = [lv.rounded(torch.bfloat16) for lv in self.levels[1:]]
-        self._finish()
 
     @classmethod
     def from_parts(cls, fine: DeviceFineLevel, params: DeviceMGParams, transfers,
@@ -144,7 +185,7 @@ class DeviceMG:
         mg.params = params
         mg.lmesh = getattr(fine, "lmesh", None)
         mg.levels = [fine, *coarse_levels]
-        mg.transfers = list(transfers)
+        mg.transfers = [tr.stored(mg._vec_dtype()) for tr in transfers]
         mg.setup_seconds = {}
         mg._finish()
         return mg
@@ -155,11 +196,21 @@ class DeviceMG:
                             if self.params.smoother_dtype == "bfloat16" else None)
         self._hp = None
 
+    def _vec_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.params.vec_dtype == "bfloat16" else torch.float32
+
+    def _basis_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.params.gcr_dtype == "bfloat16" else torch.float32
+
     @staticmethod
     def _gen_null_vectors(level, n_vec: int, iters: int, generator: torch.Generator,
-                          setup_solver: str = "bicgstab") -> torch.Tensor:
+                          setup_solver: str = "bicgstab",
+                          store_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """n_vec normalized near-null vectors [n_vec, *field shape], each
-        from a random start."""
+        from a random start, solved and normalised in float32 and stored in
+        ``store_dtype``: a bfloat16 bank is bfloat16 from the first vector
+        (tpuqcd's store_dtype, tpuqcd/mg/dsolve.py:181-227), so that the
+        float32 bank is never held whole."""
         if setup_solver == "cgne" and hasattr(level, "flavor"):
             level_m = dataclasses.replace(level, flavor=-level.flavor)
 
@@ -174,7 +225,7 @@ class DeviceMG:
             x = gen(level.random_field(generator))
             x = x * torch.rsqrt(torch.clamp(pk.norm2(x), min=1e-30))
             if buf is None:
-                buf = torch.empty((n_vec, *x.shape), dtype=x.dtype, device=x.device)
+                buf = torch.empty((n_vec, *x.shape), dtype=store_dtype, device=x.device)
             buf[i] = x
         return buf
 
@@ -228,16 +279,23 @@ class DeviceMG:
     def batch_bytes(self, n_rhs: int) -> int:
         """Device memory solve_certified_batch holds at its peak for n_rhs
         columns: on the fine level the GCR basis (Z and V, 2 restart fields
-        a column), and about 10 more float32 fields a column for the
-        iterate, residual, V-cycle temporaries and the float64 iterate,
-        source and residual; on every coarse level as many of its fields
-        (its GCR basis and V-cycle temporaries)."""
-        return n_rhs * (2 * self.params.restart + 10) * self._column_field_bytes()
+        a column, in gcr_dtype), and about 10 more float32 fields a column
+        for the iterate, residual, V-cycle temporaries and the float64
+        iterate, source and residual; on every coarse level as many of its
+        float32 fields (its GCR basis, float32 at every depth as in tpuqcd,
+        and V-cycle temporaries)."""
+        basis = 2 * self.params.restart
+        fine_basis = basis * torch.finfo(self._basis_dtype()).bits // 32
+        coarse = self._column_field_bytes() - self._fine_field_bytes()
+        return n_rhs * ((fine_basis + 10) * self._fine_field_bytes() + (basis + 10) * coarse)
+
+    def _fine_field_bytes(self) -> int:
+        """One float32 field of the fine level."""
+        return 4 * 2 * 2 * 12 * self.levels[0].lat.half_volume
 
     def _column_field_bytes(self) -> int:
         """One float32 field of every level, summed."""
-        fine = 4 * 2 * 2 * 12 * self.levels[0].lat.half_volume
-        return fine + sum(4 * 2 * lv.n * lv.Vc for lv in self.levels[1:])
+        return self._fine_field_bytes() + sum(4 * 2 * lv.n * lv.Vc for lv in self.levels[1:])
 
     def _check_batch_fits(self, n_rhs: int) -> None:
         dev = self.levels[0].device
@@ -248,11 +306,14 @@ class DeviceMG:
         free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
         need = self.batch_bytes(n_rhs)
         if need > free:
+            gcr = self.params.gcr_dtype
             raise MemoryError(
                 f"a batched MG solve of {n_rhs} right-hand sides needs about "
                 f"{need / 2**30:.1f} GiB ({n_rhs} x (2 x restart {self.params.restart} + 10) "
-                f"float32 fields of every level, {self._column_field_bytes() / 2**20:.0f} MiB "
-                f"a set) and {free / 2**30:.1f} GiB are free on {dev}: lower solver.rhs_batch")
+                f"fields of every level, {self._column_field_bytes() / 2**20:.0f} MiB a set "
+                f"in float32, the fine GCR basis in {gcr}) and {free / 2**30:.1f} GiB are "
+                f"free on {dev}: lower solver.rhs_batch"
+                + ("" if gcr == "bfloat16" else " or set mg.gcr_dtype: bfloat16"))
 
     def solve_batch(self, b: torch.Tensor, tol: float = 1e-6,
                     maxiter: int = 200) -> GCRResultPk:
@@ -274,7 +335,8 @@ class DeviceMG:
         tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
         rsq, it = pk.norm2(r, cols=True), 0
         while rsq.max().item() > tol2 and it < maxiter:
-            x, r = _gcr_cycle(apply, precond, x, r, self.params.restart, cols=True)
+            x, r = _gcr_cycle(apply, precond, x, r, self.params.restart, cols=True,
+                              basis_dtype=self._basis_dtype())
             rsq = pk.norm2(r, cols=True)
             it += self.params.restart
         relres = torch.sqrt(torch.where(live, rsq, torch.zeros_like(rsq))).flatten().tolist()
@@ -343,7 +405,8 @@ class DeviceMG:
         tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
         rsq, it = 1.0, 0
         while rsq > tol2 and it < maxiter:
-            x, r = _gcr_cycle(apply, self.precondition, x, r, self.params.restart)
+            x, r = _gcr_cycle(apply, self.precondition, x, r, self.params.restart,
+                              basis_dtype=self._basis_dtype())
             rsq = pk.norm2(r).item()
             it += self.params.restart
         relres = rsq ** 0.5
@@ -400,11 +463,6 @@ class DeviceMG:
 
 
 def _check_params(params: DeviceMGParams) -> None:
-    for name in ("gcr_dtype", "vec_dtype"):
-        if getattr(params, name) != "float32":
-            raise NotImplementedError(
-                f"DeviceMGParams.{name}={getattr(params, name)!r}: bfloat16 solver "
-                "buffers were memory fitting for a 16 GB TPU and are not ported")
     if len(params.n_vec) != len(params.block):
         raise ValueError(f"n_vec {params.n_vec} and block {params.block} need one entry "
                          "per coarsening")

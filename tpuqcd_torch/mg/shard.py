@@ -39,9 +39,11 @@ class ShardedFineTransfer(DeviceFineTransfer):
 
     @classmethod
     def from_pk(cls, lmesh: LatticeMesh, block, v_pk: torch.Tensor) -> "ShardedFineTransfer":
+        """From the rank's null vectors [n, 2, 2, 4, 3, T, Z, S] of the local
+        lattice, float32 or (a bfloat16 bank) bfloat16."""
         tr = cls.__new__(cls)
         tr.lmesh, tr.lat, tr.block = lmesh, lmesh.local_lat, tuple(int(b) for b in block)
-        DeviceFineTransfer.__init__(tr, lmesh.local_lat, block, tr._to_agg(v_pk.float()))
+        DeviceFineTransfer.__init__(tr, lmesh.local_lat, block, tr._bank_from_pk(v_pk))
         return tr
 
     @property

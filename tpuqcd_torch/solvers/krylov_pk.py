@@ -53,24 +53,32 @@ def cg_fixed_pk(matvec: Callable, b: torch.Tensor, iters: int) -> torch.Tensor:
 
 
 def _gcr_cycle(matvec: Callable, precond: Callable, x: torch.Tensor, r: torch.Tensor,
-               m: int, cols: bool = False):
+               m: int, cols: bool = False, basis_dtype: torch.dtype | None = None):
     """One flexible-GCR restart cycle of m iterations with modified
-    Gram-Schmidt against the stored (Z, V) directions."""
-    Z = torch.empty((m, *x.shape), dtype=x.dtype, device=x.device)
+    Gram-Schmidt against the stored (Z, V) directions.
+
+    basis_dtype (default x's) stores Z and V: bfloat16 halves the solver's
+    largest workspace, 2 m fields (tpuqcd's gcr_dtype).  The arithmetic
+    stays in x's dtype: Gram-Schmidt widens one stored direction at a
+    time, and the iteration's own update takes the normalised z and v
+    before they are rounded for storage (tpuqcd/solvers/krylov_pk.py:84-101)."""
+    bdt = x.dtype if basis_dtype is None else basis_dtype
+    Z = torch.empty((m, *x.shape), dtype=bdt, device=x.device)
     V = torch.empty_like(Z)
     for i in range(m):
         z = precond(r)
         v = matvec(z)
         for j in range(i):
-            br, bi = pk.cdot(V[j], v, cols=cols)
-            z = pk.csub(br, bi, Z[j], z, cols)
-            v = pk.csub(br, bi, V[j], v, cols)
+            vj = V[j].to(v.dtype)
+            br, bi = pk.cdot(vj, v, cols=cols)
+            z = pk.csub(br, bi, Z[j].to(z.dtype), z, cols)
+            v = pk.csub(br, bi, vj, v, cols)
         inv = torch.rsqrt(torch.clamp(pk.norm2(v, cols=cols), min=1e-30))
-        Z[i] = inv * z
-        V[i] = inv * v
-        ar, ai = pk.cdot(V[i], r, cols=cols)
-        x = pk.caxpy(ar, ai, Z[i], x, cols)
-        r = pk.csub(ar, ai, V[i], r, cols)
+        z, v = inv * z, inv * v
+        Z[i], V[i] = z, v
+        ar, ai = pk.cdot(v, r, cols=cols)
+        x = pk.caxpy(ar, ai, z, x, cols)
+        r = pk.csub(ar, ai, v, r, cols)
     return x, r
 
 

@@ -13,9 +13,12 @@ the null-vector solves, the block orthogonalization and the probing.
 128-157) keep a deflation basis under the keys ``evals``, ``evecs`` and
 ``layout``; files of either package load in the other.
 
-tpuqcd writes bfloat16 coarse links (coarse_dtype "bfloat16") with
-ml_dtypes' bfloat16, which ``np.load`` returns as a 2-byte void dtype;
-they are read here as the bfloat16 bit patterns they are.
+tpuqcd writes bfloat16 coarse links (coarse_dtype "bfloat16") and a
+bfloat16 null-vector bank (vec_dtype "bfloat16") with ml_dtypes'
+bfloat16, which ``np.load`` returns as a 2-byte void dtype; they are read
+here as the bfloat16 bit patterns they are.  The port writes a bfloat16
+bank as its exact float32 widening, and either file loads into a
+bfloat16 bank bit for bit when params.vec_dtype is "bfloat16".
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import torch
 
 def save_device_mg(path: str, mg) -> None:
     """Dump a DeviceMG (tpuqcd_torch.mg.dsolve) hierarchy; float32 arrays
-    (bfloat16-rounded coarse links are exact in float32)."""
+    (bfloat16-rounded coarse links and a bfloat16 bank are exact in
+    float32)."""
     blobs = {"n_transfers": np.asarray(len(mg.transfers))}
     for i, tr in enumerate(mg.transfers):
         blobs[f"t{i}_v"] = tr.v_pk().cpu().numpy()
@@ -53,21 +57,25 @@ def float_array(arr: np.ndarray, name: str = "array") -> np.ndarray:
 
 
 def load_device_mg(path: str, fine_level, params):
-    """Rebuild a DeviceMG on ``fine_level`` from a dump (no setup)."""
+    """Rebuild a DeviceMG on ``fine_level`` from a dump (no setup).  With
+    params.vec_dtype "bfloat16" the null vectors reach the device in
+    bfloat16 (rounded on the host, exact for a bfloat16 bank's file)."""
     from ..mg.device import DeviceCoarseLevel, DeviceCoarseTransfer, DeviceFineTransfer
     from ..mg.dsolve import DeviceMG
 
     dev = fine_level.device
     z = np.load(path)
+    vec_dtype = torch.bfloat16 if params.vec_dtype == "bfloat16" else torch.float32
 
-    def tensor(key):
-        return torch.from_numpy(np.ascontiguousarray(float_array(z[key], key))).to(dev)
+    def tensor(key, dtype=None):
+        host = torch.from_numpy(np.ascontiguousarray(float_array(z[key], key)))
+        return (host if dtype is None else host.to(dtype)).to(dev)
 
     transfers, coarse = [], []
     level = fine_level
     for i in range(int(z["n_transfers"])):
         block = tuple(int(b) for b in z[f"t{i}_block"])
-        v, linv = tensor(f"t{i}_v"), tensor(f"t{i}_linv")
+        v, linv = tensor(f"t{i}_v", vec_dtype), tensor(f"t{i}_linv")
         if i == 0:
             tr = DeviceFineTransfer.from_pk(fine_level.lat, block, v, linv)
         else:

@@ -111,7 +111,8 @@ class MGParamsCfg:
     setup_solver: str = "bicgstab"       # bicgstab | cgne
     smoother_dtype: str = "float32"      # float32 | bfloat16
     coarse_dtype: str = "float32"        # float32 | bfloat16
-    #: bfloat16 solver buffers: not ported (cli/common.check_in_slice)
+    #: bfloat16 solver buffers: the fine level's outer GCR basis, the
+    #: null-vector bank (mg/dsolve.DeviceMGParams)
     gcr_dtype: str = "float32"
     vec_dtype: str = "float32"
     #: hierarchy dumps (utils/checkpoint.py), one file per flavor
