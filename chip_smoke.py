@@ -8,7 +8,8 @@ Phases, each of which exits non-zero on failure:
    torch.cuda.get_device_name;
 2. the build of tpuqcd_torch/csrc/ with nvcc for sm_90a (dslash_eo_inst.cu
    once per storage type, arithmetic type and link format, side by side,
-   linked with dslash_eo.cu), its seconds, and ptxas' registers, shared
+   linked with dslash_eo.cu) on a thread while 4b's heatbath chain, which
+   launches no kernel, runs; its seconds, and ptxas' registers, shared
    bytes and spills of each kernel instantiation, the single, the pair
    (bfloat16, two sites a thread) and the batched kernel apart;
 3. the Dslash kernel against its plain PyTorch version on the card, at
@@ -120,6 +121,22 @@ Phases, each of which exits non-zero on failure:
       bfloat16 basis than with the float32 one; and after 4p, the twin of
       4p's sharded hierarchy on the one-rank mesh at 16^3x32 solving 4p's
       source, certified the same way;
+   w. solve_certified_batch on 4v's twin at the width the lockstep memory
+      check (DeviceMG.batch_buffers) admits with the columns allocated
+      (4b's source and point sources at the origin): its first refinement's
+      first GCR cycle between the float64 residuals, where the whole
+      solve's peak falls (mg_lockstep_memory.py runs the width to the end):
+      the peak growth at or below batch_bytes(N), each column's residual
+      after the cycle below 1 and equal to the plain float64 operator's on
+      the same x, the batched launches; one column more refused before
+      allocating;
+   x. run_invert's main under torchrun as one rank over NCCL (a process
+      group of one) on a heatbath chain of two members at 32^3x64 (10
+      sweeps, skip 2, 4a's action), started before phase 3 and run beside
+      its checks, which are not timed: the rank generates and writes each
+      member behind one all-reduce (cli/common._heatbath_chain_members),
+      reads it back and solves on it, every member certified; its files
+      byte for byte the same chain generated in this process after 4w;
    o. 4a's twisted-mass and 4c's twisted-clover solves at 16^3x32 (each
       first on one card through run_invert, its twin), then through
       solve_tm_sharded on a one-rank LatticeMesh, under the fused policy
@@ -268,6 +285,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -328,6 +346,14 @@ MESH_SRC, MESH_T_SINK = (3, 5, 7, 9), 15
 MESH_RUN_AGREE = 1e-5
 #: cell 4i: the columns of the lockstep MG solve (12 do not fit the card)
 MGB_COLUMNS = 4
+#: cell 4w: a column's float64 residual after the lockstep cycle against the
+#: plain float64 operator's on the same x, relative (two float64 sums of the
+#: same terms in another order)
+LOCKSTEP_RES_AGREE = 1e-8
+#: cell 4x: the heatbath chain run_invert generates as one rank under
+#: torchrun over NCCL: its members, the sweeps to the first, the sweeps
+#: between members
+CHAIN_RANK_MEMBERS, CHAIN_RANK_SWEEPS, CHAIN_RANK_SKIP = 2, 10, 2
 #: cell 4v: the least share of the reckoned drop of the MG solve's peak
 #: allocation (half the GCR basis and half the null-vector bank) that the
 #: bfloat16 buffers must show against 4b's float32 buffers
@@ -394,6 +420,12 @@ def build() -> float:
     loads)."""
     from tpuqcd_torch.ops.dslash_cuda import library
     library.get()
+    return build_report()
+
+
+def build_report() -> float:
+    """build()'s lines for the library already built; its build seconds."""
+    from tpuqcd_torch.ops.dslash_cuda import library
     unit = name = spill = ""
     for ln in library.build_log.splitlines():
         if ln.startswith("== "):
@@ -1758,6 +1790,97 @@ def torchrun_invert(n: int, cfg: dict, extra=()) -> tuple[str, torch.Tensor, str
         return line[0], torch.load(x_path), r.stdout + r.stderr
 
 
+def _chain_rank_gauge() -> dict:
+    return {"dims": list(LARGE), "heatbath_beta": MG_BETA, "random_seed": 0,
+            "heatbath_sweeps": CHAIN_RANK_SWEEPS, "heatbath_n_cfg": CHAIN_RANK_MEMBERS,
+            "heatbath_skip": CHAIN_RANK_SKIP}
+
+
+def torchrun_chain_start(ens_dir: str) -> dict:
+    """4x, first half: run_invert's main as one rank under torchrun over NCCL
+    (a process group of one: parallel/dist.init_distributed) on a heatbath
+    chain of CHAIN_RANK_MEMBERS members at 32^3x64 (CHAIN_RANK_SWEEPS sweeps
+    to the first, CHAIN_RANK_SKIP between), 4a's action, started beside
+    phase 3 (whose checks are not timed): the rank generates the chain,
+    writes each member behind one all-reduce (cli/common.
+    _heatbath_chain_members), then solves on each member read back.  A
+    thread reads its output and notes when it ended."""
+    import threading
+
+    import yaml
+    rank_dir = os.path.join(ens_dir, "rank_chain")
+    cfg_path = os.path.join(ens_dir, "chain_rank.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({"action": {"kappa": KAPPA, "mu": MU},
+                        "solver": {"solver": "cg", "tol": RELRES_MAX},
+                        "gauge": {**_chain_rank_gauge(), "heatbath_dir": rank_dir},
+                        "physics": {"output": os.path.join(ens_dir, "chain_rank.h5")}}, f)
+    torch.cuda.empty_cache()
+    run = {"dir": rank_dir, "t0": time.perf_counter()}
+    run["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "tpuqcd_torch.cli.run_invert", "--config", cfg_path], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def read():
+        run["text"] = run["proc"].communicate()[0]
+        run["seconds"] = time.perf_counter() - run["t0"]
+    run["reader"] = threading.Thread(target=read, name="4x", daemon=True)
+    run["reader"].start()
+    atexit.register(lambda: run["proc"].poll() is None and run["proc"].kill())
+    return run
+
+
+def torchrun_chain_finish(dev, ens_dir: str, run: dict) -> dict:
+    """4x, second half: the same chain generated and written in this process
+    (no group), then the rank's result.  Checks: the launch's exit code,
+    its NCCL group, one certified RESULT line a member, and its member files
+    byte for byte this process's.  Returns the seconds and this process's
+    writes."""
+    import filecmp
+
+    from tpuqcd_torch.cli.common import _heatbath_chain_members
+    from tpuqcd_torch.utils.config import config_from_dict
+    from torch.distributed import constants
+    here_dir = os.path.join(ens_dir, "local_chain")
+    t0 = time.perf_counter()
+    keep = []
+    here = _heatbath_chain_members(config_from_dict(
+        {"action": {"kappa": KAPPA, "mu": MU},
+         "gauge": {**_chain_rank_gauge(), "heatbath_dir": here_dir}}), dev, keep)
+    t_here = time.perf_counter() - t0
+    run["reader"].join(timeout=600)
+    proc, text = run["proc"], run.get("text", "")
+    if run["reader"].is_alive():
+        proc.kill()
+        fail("the torchrun launch of 4x did not end within 600 s of the chain here")
+    results = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+    nccl = re.search(r"distributed: rank 0/1 \(nccl\)", text)
+    if proc.returncode != 0 or len(results) != CHAIN_RANK_MEMBERS or nccl is None:
+        fail(f"torchrun of run_invert on a heatbath chain: rc {proc.returncode}, "
+             f"{len(results)} RESULT lines, NCCL group {'formed' if nccl else 'missing'}\n"
+             f"{text[-3000:]}")
+    rels = [float(re.search(r"relres=(\S+)", ln).group(1)) for ln in results]
+    files = [os.path.basename(g.config_file) for _, g in here]
+    same = [filecmp.cmp(os.path.join(run["dir"], name), os.path.join(here_dir, name),
+                        shallow=False) for name in files]
+    waits = re.findall(r"heatbath chain member (\d+) .*write (\S+) s", text)
+    print(f"  one rank over NCCL (torch.distributed default timeout "
+          f"{getattr(constants, 'default_pg_nccl_timeout', constants.default_pg_timeout)}): "
+          f"{CHAIN_RANK_MEMBERS} members, certified relres {', '.join(f'{r:.3e}' for r in rels)}; "
+          f"the rank's writes {', '.join(f'{w} s' for _, w in waits)}; its launch "
+          f"{run['seconds']:.2f} s, beside phase 3; the chain in this process {t_here:.2f} s "
+          "(writes " + ", ".join(f"{sum(k['write'].values()):.3f} s" for k in keep) + ")")
+    print(f"  member files byte for byte the same chain generated here: "
+          f"{', '.join(f'{n} {s}' for n, s in zip(files, same))}")
+    if not (all(same) and max(rels) <= RELRES_MAX):
+        fail("the chain under torchrun is not this process's chain, or a member's solve is "
+             "not certified")
+    shutil.rmtree(run["dir"], True)
+    shutil.rmtree(here_dir, True)
+    return {"rank": run["seconds"], "here": t_here, "writes": [k["write"] for k in keep]}
+
+
 def multi_card_path(nd_x, tm_x, mg_x, mg_gauge: dict) -> None:
     """4g: run_invert under torchrun on a mesh nt = n over NCCL, n the
     largest of 2 or 4 that the visible cards hold: the doublet (4e's
@@ -2755,6 +2878,87 @@ def mg_bf16_path(dev, twin, mg_res, f32_peak, built):
     return res, counts, seconds, peak
 
 
+def lockstep_admitted_path(dev, twin, mg_res):
+    """4w: solve_certified_batch on 4v's bfloat16-buffer twin at the width the
+    lockstep memory check admits, the columns (4b's source, then point
+    sources at the origin, as mg_lockstep_memory.py takes them) allocated
+    first, as a caller hands them over: its first refinement's first GCR
+    cycle between the float64 residuals (maxiter = restart, max_refine = 1),
+    where the whole solve's peak already falls (mg_lockstep_memory.py ran the
+    width to the end, every column certified: PERF.md section 5), with the
+    launch counts set to 0 just before.  Checks: the peak growth (max memory
+    allocated past the call's start) at or below batch_bytes(N); every
+    column's float64 residual after the cycle below 1 and equal to the plain
+    float64 operator's on the returned x to LOCKSTEP_RES_AGREE; the batched
+    float32, bfloat16 and float64 launches and no plain call; one column
+    more refused before allocating.  Returns (N, seconds, counts)."""
+    from tpuqcd_torch.lattice import Lattice
+    from tpuqcd_torch.ops import dslash_cuda
+    lat = Lattice(LARGE)
+
+    def cols(n):
+        b = [mg_res.b_pk.to(torch.float32)[None]]
+        if n > 1:
+            b.append(point_columns(lat, dev, n - 1))
+        return torch.cat(b).transpose(1, 2).contiguous()
+
+    n = admitted_columns(twin) + 1
+    while True:
+        b = cols(n)
+        try:
+            twin._check_batch_fits(n)
+            break
+        except MemoryError:
+            del b
+            n -= 1
+    need = twin.batch_bytes(n)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dslash_cuda.reset_counts()
+    t0 = time.perf_counter()
+    res = twin.solve_certified_batch(b, tol=RELRES_MAX, inner_tol=1e-7,
+                                     maxiter=twin.params.restart, max_refine=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    growth = torch.cuda.max_memory_allocated() - base
+    counts = dict(dslash_cuda.counts)
+    print(f"  launches during the cycle: {counts}")
+    if counts.get("plain", 0) != 0:
+        fail(f"the lockstep MG called the plain version {counts['plain']} times")
+    need_launches(counts, ("float32:batch", "bfloat16:batch", "float64:batch"))
+    field = twin._fine_field_bytes()
+    plain = plain_relres_cols(mg_res.u_pk.double(), b.transpose(1, 2),
+                              res.x.transpose(1, 2), lat, MG_KAPPA, MG_MU)
+    agree = max(abs(p - r) / p for p, r in zip(plain, res.relres))
+    print(f"  {n} columns admitted with them allocated; one GCR cycle of {res.iters} "
+          f"iterations between the float64 residuals in {seconds:.2f} s; relres after it "
+          f"{min(res.relres):.3e}-{max(res.relres):.3e}, the plain float64 operator's on the "
+          f"same x within {agree:.1e} of them (limit {LOCKSTEP_RES_AGREE:.0e})")
+    print(f"  peak growth {growth / 1e9:.3f} GB ({growth / field:.2f} fine fields), "
+          f"batch_bytes({n}) {need / 1e9:.3f} GB ({need / field:.2f}): "
+          + ", ".join(f"{k} {v / field:.2f}" for k, v in twin.batch_buffers(n).items()))
+    if not (growth <= need and max(res.relres) < 1.0 and agree <= LOCKSTEP_RES_AGREE
+            and bool(torch.isfinite(res.x).all())):
+        fail("the lockstep MG at the admitted width grew past batch_bytes, or its residuals "
+             "are not the plain operator's")
+    del res, b
+    torch.cuda.empty_cache()
+    b = cols(n + 1)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        twin.solve_certified_batch(b, tol=RELRES_MAX, inner_tol=1e-7)
+        fail(f"the memory check let {n + 1} columns through")
+    except MemoryError as e:
+        if torch.cuda.max_memory_allocated() != before:
+            fail("the memory check refused after allocating")
+        print(f"  {n + 1} columns refused before allocating: {e}")
+    del b
+    torch.cuda.empty_cache()
+    return n, seconds, counts
+
+
 def mesh_mg_bf16_path(dev, mg, mp_res, mp_twin, gauge):
     """4v on a mesh: 4p's sharded hierarchy's bfloat16-buffer twin (DeviceMG.
     rebuilt, the probing in K6 dirs launches) solves 4p's source to 1e-10:
@@ -3246,12 +3450,34 @@ def main() -> None:
     print(f"  nvidia-smi: {smi}; torch: {name}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    say("phase 2: build")
-    t0 = time.perf_counter()
-    secs = build()
+    say("phase 2: build, on a thread beside 4b's heatbath chain (which launches no kernel)")
+    from tpuqcd_torch.ops.dslash_cuda import library
+    t0, built = time.perf_counter(), {}
+
+    def build_in_thread():
+        try:
+            library.get()
+        except Exception as e:          # failed below, on the main thread
+            built["error"] = e
+    build_thread = threading.Thread(target=build_in_thread, name="build")
+    build_thread.start()
+    say(f"phase 4b: the gauge: a heatbath chain (beta {MG_BETA}, seed 0) of two members "
+        f"written to ILDG, {MG_SWEEPS} sweeps to c0000 and {CHAIN_SKIP} more to c0001; c0000 "
+        "read back")
+    ens_dir = tempfile.mkdtemp(prefix="tpuqcd_ensemble_")
+    atexit.register(shutil.rmtree, ens_dir, True)
+    gauge, chain = chain_gauge(dev, ens_dir)
+    build_thread.join()
+    if "error" in built:
+        fail(f"the kernel library did not build: {built['error']}")
+    secs = build_report()
     print(f"  built tpuqcd_torch/csrc/ (13 translation units side by side, one link) in "
-          f"{secs:.1f} s (load {time.perf_counter() - t0:.1f} s); h5py "
+          f"{secs:.1f} s, beside the chain (phase 2 and 4b's chain together "
+          f"{time.perf_counter() - t0:.1f} s); h5py "
           f"{'imports' if have_h5py else 'does not import'} here", flush=True)
+    say("phase 4x, started: run_invert's main as one rank under torchrun over NCCL on a "
+        f"heatbath chain of {CHAIN_RANK_MEMBERS} members at 32^3x64, beside phase 3")
+    x_run = torchrun_chain_start(ens_dir)
 
     say("phase 3: kernel against plain version")
     compare(SMALL, dev)
@@ -3287,12 +3513,6 @@ def main() -> None:
     mo_tm = mesh_direct_path(dev, main_path(dev, MID)[0])
     tm_x = res.x.cpu()
     res = slim(res)
-    say(f"phase 4b: the gauge: a heatbath chain (beta {MG_BETA}, seed 0) of two members "
-        f"written to ILDG, {MG_SWEEPS} sweeps to c0000 and {CHAIN_SKIP} more to c0001; c0000 "
-        "read back")
-    ens_dir = tempfile.mkdtemp(prefix="tpuqcd_ensemble_")
-    atexit.register(shutil.rmtree, ens_dir, True)
-    gauge, chain = chain_gauge(dev, ens_dir)
     say("phase 4b: main path, tpuqcd_torch.cli.run_invert (MG) at 32^3x64")
     with solve_peak() as mg_peak:
         mg_res, mg_counts = mg_path(dev, gauge)
@@ -3308,9 +3528,17 @@ def main() -> None:
     mg_res = dataclasses.replace(mg_res, mg=None, x=None)
     torch.cuda.empty_cache()
     v_res, v_counts, v_seconds, v_peak = mg_bf16_path(dev, twin, mg_res, mg_peak, v_built)
-    del twin, v_res
+    del v_res
+    torch.cuda.empty_cache()
+    say("phase 4w: the lockstep MG on 4v's twin at the width the memory check admits "
+        "(solve_certified_batch): its first refinement's first GCR cycle")
+    w_n, w_seconds, w_counts = lockstep_admitted_path(dev, twin, mg_res)
+    del twin
     torch.cuda.empty_cache()
     mg_res = slim(mg_res)
+    say(f"phase 4x: the same chain generated here ({CHAIN_RANK_SWEEPS} sweeps, skip "
+        f"{CHAIN_RANK_SKIP}) beside the files of the rank started before phase 3")
+    x_chain = torchrun_chain_finish(dev, ens_dir, x_run)
     say("phase 4r: main path, run_invert's mass sweep (examples/invert_musweep_32cube.yaml: "
         "multishift CG, every mass certified) on c0000 at 32^3x64, then four cold solves")
     sw_res, sw_counts, sw_cold_counts, sw_cold = musweep_path(dev, gauge, chain)
@@ -3399,9 +3627,9 @@ def main() -> None:
     tl_n, tl_ns = max(tl_widths), ", ".join(map(str, tl_widths))
     torch.cuda.empty_cache()
     widths = sorted({*tw_widths, *tj_widths, *tk_widths, *tl_widths, MGB_COLUMNS,
-                     WITNESS_COLUMNS})
+                     WITNESS_COLUMNS, w_n})
     say("phase 3: the batch axis at 32^3x64 with the numbers of columns 4h's, 4i's, 4j's, "
-        f"4k's, 4l's, 4m's and 4n's launches had, N = {', '.join(map(str, widths))}")
+        f"4k's, 4l's, 4m's, 4n's and 4w's launches had, N = {', '.join(map(str, widths))}")
     batch_abs = compare_batch(LARGE, dev, widths)
 
     say(f"phase 5: times {card_tag}")
@@ -3476,6 +3704,9 @@ def main() -> None:
           f"(4b: {mg_peak['peak'] / 1e9:.3f} GB); restrict + prolong {v_built['bfloat16']:.3f} ms "
           f"(float32 bank {v_built['float32']:.3f} ms); on the one-rank mesh at 16^3x32 twin and "
           f"solve {vm_seconds:.3f} s {card_tag}")
+    print(f"  lockstep MG at the admitted width (4w): {w_n} columns, one GCR cycle "
+          f"{w_seconds:.2f} s; one rank under torchrun over NCCL (4x): its launch "
+          f"{x_chain['rank']:.2f} s, the same chain here {x_chain['here']:.2f} s {card_tag}")
     print(f"  heatbath chain (4b): c0000 {MG_SWEEPS} compound sweeps {chain['sweeps'][0]:.3f} s, "
           f"c0001 {CHAIN_SKIP} more {chain['sweeps'][1]:.3f} s; "
           + "; ".join(io_line(f"write c000{i}", w) for i, w in enumerate(chain["writes"]))
@@ -3598,6 +3829,15 @@ def main() -> None:
         entry(f"dslash_eo<double> 18-real batch axis (lockstep MG certification operator, {nb} "
               f"columns), xpay_full N={nb} timed", mgb_counts["float64:batch"],
               batch_abs[("f64", nb)], ("f64", f"xpay_full_b{nb}"), vmap),
+        entry(f"dslash_eo<float> reconstruct-12 batch axis (lockstep MG fine operator at the "
+              f"admitted width 4w, {w_n} columns), xpay N={w_n} timed", w_counts["float32:batch"],
+              batch_abs[("f32", w_n)], ("f32", f"xpay_b{w_n}"), vmap),
+        entry(f"dslash_eo<bf16> reconstruct-12 batch axis (lockstep MG smoother 4w, {w_n} "
+              f"columns), xpay_full N={w_n} timed", w_counts["bfloat16:batch"],
+              batch_abs[("bf16", w_n)], ("bf16", f"xpay_full_b{w_n}"), vmap),
+        entry(f"dslash_eo<double> 18-real batch axis (lockstep MG certification 4w, {w_n} "
+              f"columns), xpay_full N={w_n} timed", w_counts["float64:batch"],
+              batch_abs[("f64", w_n)], ("f64", f"xpay_full_b{w_n}"), vmap),
         entry(f"dslash_eo<float> reconstruct-12 batch axis (loop run 4k: dilution classes, "
               f"cheap TSM and low-mode solves, {tk_ns} columns a launch), xpay N={tk_n} timed",
               tk_counts["float32:batch"], batch_abs[("f32", tk_n)], ("f32", f"xpay_b{tk_n}"),
@@ -3773,7 +4013,8 @@ def main() -> None:
               "tpuqcd/ops/dslash_pallas.py:705"),
     ]
     # the one-site bfloat16 kernel: the shapes pair_sites refuses, on no main path
-    path_counts = [counts, mg_counts, pl_counts, mgb_counts, v_counts, mp_counts, vm_counts,
+    path_counts = [counts, mg_counts, pl_counts, mgb_counts, v_counts, w_counts, mp_counts,
+                   vm_counts,
                    cl_counts, mgc_counts,
                    nd_counts, sh_counts, tw_counts, ens_counts, gf_counts, tj_counts, tk_counts,
                    tl_counts, tl_cg_counts, mq_counts, sw_counts, sw_cold_counts, swm_counts,

@@ -1,8 +1,10 @@
 """The checks of the sharded multigrid on gloo ranks, shared by
-tests/test_torch_mg_mesh.py ((t) and (t, z) meshes) and
-test_torch_mg_mesh_y.py ((t, y)): the workers' results (_torch_mesh.run_worker,
-task "mg") against the port's one-rank MG from the same seed and against
-tpuqcd's one-device solve_tm of the same system."""
+tests/test_torch_mg_mesh.py ((t), fused), test_torch_mg_mesh_tz.py ((t, z),
+overlap) and test_torch_mg_mesh_y.py ((t, y), overlap), one torchrun launch
+a file: the workers' results (_torch_mesh.run_worker, task "mg"; with
+"mgbf" the bfloat16 solver buffers) against the port's one-rank MG from
+the same seed and against tpuqcd's one-device solve_tm of the same
+system."""
 import functools
 
 import jax.numpy as jnp
@@ -17,7 +19,7 @@ from tpuqcd_torch.utils.packed import pack_clover
 
 from _torch_inputs import n, t
 from _torch_mesh import CSW, JLAT, KAPPA, LAT, MU, inputs
-from _torch_mesh_worker import mg_solve
+from _torch_mesh_worker import MGBF_PARAMS, mg_solve
 
 #: the worker's results of twisted mass and of twisted clover, and their test ids
 NAMES, IDS = ["mg", "mgc"], ["tm", "clover"]
@@ -72,3 +74,31 @@ def check_matches_tpuqcd_solution(ranks, name):
     clover: tpuqcd's A blocks, which the MG fine level applies, with their
     odd twisted inverses in complex128)."""
     np.testing.assert_allclose(ranks[f"{name}_x"], tpuqcd_solution(name), atol=1e-10, rtol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def one_rank_bf16():
+    """The one-rank MG with bfloat16 buffers: (x, inner iterations, links)."""
+    inp = inputs(True)
+    x, relres, iters, (links,) = mg_solve(LatticeMesh(LAT, 1), t(inp["u"], torch.float32),
+                                          None, KAPPA, MU, t(inp["b"]), "fused",
+                                          params=MGBF_PARAMS)
+    assert relres <= 1e-12
+    return n(x), iters, n(torch.view_as_real(links).double())
+
+
+def check_bf16_buffers_match_one_rank(ranks):
+    """The bfloat16 GCR basis and null-vector bank on the ranks: the same
+    inner iterations as the one-rank hierarchy from the same seed, x within
+    1e-10 (both certified to 1e-12), and the replicated coarse links within
+    1e-3 of their largest value.  The ranks round the same null vectors to
+    bfloat16 (their float32 values summed over the ranks in another order,
+    1e-7 apart); where one falls on the other side of a rounding midpoint,
+    an element moves by a bfloat16 ulp (2^-8 of itself), which float32
+    summation order's 3e-5 does not cover."""
+    x, iters, want = one_rank_bf16()
+    assert ranks["mgbf_relres"] <= 1e-12
+    assert ranks["mgbf_iters"] == iters
+    np.testing.assert_allclose(ranks["mgbf_x"], x, atol=1e-10, rtol=0)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(ranks["mgbf_links"] / scale, want / scale, atol=1e-3, rtol=0)

@@ -28,13 +28,20 @@ is the test's, not the programs'):
             written by save_eigenpairs from the blocks to the input's
             eig_path, then read back on the mesh)
 
+--chain-failures cfg.yaml: before --main, cli/common._heatbath_chain_members
+on the heatbath chain of cfg.yaml twice, made to fail on one rank: first
+as given (its gauge.heatbath_dir one that rank 0 cannot create), then into
+a writable directory with rank 1's plaquette raising; each rank writes
+the class of what each attempt raised to --out's stem + ".failures.<rank>.npz".
+
 --main run_twop | run_threeptwop | run_loops: then the program's main on
 each --config in turn, with every gather of a field made to raise
 (forbid_gathers) but those of the eigenpair file's write, measure's
 result kept; each rank writes to --out's stem + ".<rank>.npz"
 (".<i>.<rank>.npz" for the i-th of several) its solver records (relres,
-columns), its stages, how many datasets it wrote and how many fields the
-eigenpair write gathered.
+columns) over every ensemble member, its stages, how many datasets it
+wrote, how many members it measured and how many fields the eigenpair
+write gathered.
 """
 import argparse
 import os
@@ -233,11 +240,41 @@ def run_main(program: str, configs, stem: str, rank: int) -> None:
             kept_list.clear()
         tdist.shutdown = shutdown if i == len(configs) - 1 else (lambda: None)
         mod.main(["--config", config, "--device", "cpu"])
-        (res,) = results
+        solves = [r for res in results for r in res.solves]
         out = f"{stem}.{rank}.npz" if len(configs) == 1 else f"{stem}.{i}.{rank}.npz"
-        np.savez(out, relres=np.concatenate([r["relres"] for r in res.solves]),
-                 columns=np.array([r["columns"] for r in res.solves]), written=len(written),
-                 stages=np.array(sorted(res.seconds)), gathered=len(GATHERED))
+        np.savez(out, relres=np.concatenate([r["relres"] for r in solves]),
+                 columns=np.array([r["columns"] for r in solves]), written=len(written),
+                 stages=np.array(sorted(results[0].seconds)), members=len(results),
+                 gathered=len(GATHERED))
+
+
+def chain_failures(config: str, stem: str, rank: int) -> None:
+    """_heatbath_chain_members made to fail on rank 0 (its directory), then
+    on rank 1 (a member's plaquette): what each rank raised, by class."""
+    import dataclasses
+
+    from tpuqcd_torch.cli import common
+    from tpuqcd_torch.utils.config import load_config
+    cfg = load_config(config)
+    cpu = torch.device("cpu")
+    raised = {}
+
+    def attempt(key, c):
+        try:
+            common._heatbath_chain_members(c, cpu)
+            raised[key] = "nothing"
+        except Exception as e:
+            raised[key] = type(e).__name__
+    attempt("dir", cfg)
+    plaquette = common.plaquette
+
+    def failing(*args, **kwargs):
+        raise ValueError("a rank's own failure")
+    common.plaquette = failing if rank == 1 else plaquette
+    attempt("member", dataclasses.replace(cfg, gauge=dataclasses.replace(
+        cfg.gauge, heatbath_dir=f"{stem}.writable")))
+    common.plaquette = plaquette
+    np.savez(f"{stem}.failures.{rank}.npz", **raised)
 
 
 def main():
@@ -247,10 +284,13 @@ def main():
     ap.add_argument("--pieces", help="the pieces' inputs (npz); their kind is in 'kind'")
     ap.add_argument("--main", choices=("run_twop", "run_threeptwop", "run_loops"))
     ap.add_argument("--config", nargs="+", help="the configurations --main runs, in turn")
+    ap.add_argument("--chain-failures", help="a heatbath chain's configuration to fail")
     args = ap.parse_args()
     init_distributed("cpu")
     torch.set_num_threads(1)
     rank = dist.get_rank() if dist.is_initialized() else 0
+    if args.chain_failures:
+        chain_failures(args.chain_failures, args.out[:-len(".npz")], rank)
     if args.pieces:
         inp = np.load(args.pieces)
         lmesh = LatticeMesh.make(Lattice(tuple(int(d) for d in inp["dims"])), *args.mesh)

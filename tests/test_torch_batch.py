@@ -239,8 +239,11 @@ def test_solve_tm_mg_batch_against_single_solves(hierarchies):
 
 def test_batch_memory_sum(hierarchies):
     _, mg = hierarchies
-    # a float32 fine field and a float32 field of the coarse level: the sum
-    # counts every level
-    field = 4 * 2 * 2 * 12 * LAT.half_volume + 4 * 2 * mg.levels[1].n * mg.levels[1].Vc
-    assert mg.batch_bytes(3) == 3 * (2 * MG_PARAMS["restart"] + 10) * field
+    # a float32 fine field and a float32 field of the coarse level: a column
+    # counts both levels' bases and work fields (DeviceMG.batch_buffers)
+    fine = 4 * 2 * 2 * 12 * LAT.half_volume
+    coarse = 4 * 2 * mg.levels[1].n * mg.levels[1].Vc
+    basis = 2 * MG_PARAMS["restart"]
+    assert mg.batch_bytes(3) - mg.batch_bytes(0) == 3 * ((basis + 16) * fine
+                                                         + (basis + 23) * coarse)
     mg._check_batch_fits(10 ** 6)                       # no card here: nothing to check

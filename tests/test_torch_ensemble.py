@@ -161,7 +161,8 @@ def test_run_twop_main_matches_tpuqcd_over_its_ildg_files(tmp_path, monkeypatch)
     assert not np.allclose(got["conf3"][k], got["conf5"][k])
 
 
-@pytest.mark.parametrize("name", ["twop_ensemble.yaml", "twop_ensemble_heatbath.yaml"])
+@pytest.mark.parametrize("name", ["twop_ensemble.yaml", "twop_ensemble_heatbath.yaml",
+                                  "twop_ensemble_heatbath_mesh.yaml"])
 def test_ensemble_examples_load_with_every_key(name):
     def tup(v):
         return tuple(tup(x) for x in v) if isinstance(v, list) else v
@@ -170,6 +171,20 @@ def test_ensemble_examples_load_with_every_key(name):
     for section, keys in raw.items():
         for key, value in keys.items():
             assert getattr(getattr(cfg, section), key) == tup(value), (section, key)
+
+
+def test_the_torchrun_chain_example_loads_as_in_tpuqcd():
+    """examples/twop_ensemble_heatbath_mesh.yaml, a heatbath chain under
+    torchrun: both packages read the same chain, mesh and physics, and its
+    members (tags, files under heatbath_dir, outputs) are tpuqcd's."""
+    path = str(ROOT / "examples" / "twop_ensemble_heatbath_mesh.yaml")
+    cfg, jcfg = load_config(path), j_load_config(path)
+    assert dataclasses.asdict(cfg.gauge) == dataclasses.asdict(jcfg.gauge)
+    assert (cfg.mesh.nt, cfg.mesh.nz, cfg.mesh.ny) == (jcfg.mesh.nt, jcfg.mesh.nz,
+                                                      jcfg.mesh.ny) == (2, 1, 1)
+    for key in ("source_positions", "momenta", "projectors", "meson_channels", "output"):
+        assert getattr(cfg.physics, key) == getattr(jcfg.physics, key), key
+    assert cfg.gauge.heatbath_n_cfg == 2 and cfg.gauge.heatbath_beta is not None
 
 
 def test_a_file_of_another_lattice_raises(tmp_path):

@@ -603,3 +603,35 @@ def test_run_threeptwop_on_the_card_matches_the_cpu(cuda):
     assert len(pairs) == 4 + 8 * 32
     for name, got, want in pairs:
         assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), name
+
+
+@pytest.mark.parametrize("buffers", ["float32", "bfloat16"])
+def test_batch_bytes_covers_what_the_lockstep_solve_allocates(cuda, buffers):
+    """DeviceMG.batch_bytes(N), taken before the call, at or above how far
+    solve_certified_batch's allocation grows (max_memory_allocated past
+    its start) at N = 1, 2 and 4 columns, at 8^3x16 with the float32 and the
+    bfloat16 solver buffers and the float64 operator built inside the call;
+    every column certified."""
+    import dataclasses
+    cfg = config_from_dict({"gauge": {"dims": [8, 8, 8, 16], "random_seed": 1},
+                            "action": {"kappa": KAPPA, "mu": MU},
+                            "mg": {"enabled": True, "n_vec": [8], "block": [[4, 4, 4, 4]],
+                                   "setup_iters": 20, "smoother_dtype": "bfloat16"}})
+    mg = invert(cfg, cuda).mg
+    if buffers == "bfloat16":
+        mg = mg.rebuilt(dataclasses.replace(mg.params, gcr_dtype="bfloat16",
+                                            vec_dtype="bfloat16"))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for n in (1, 2, 4):
+        b = torch.randn((n, 2, 2, 4, 3, *mg.levels[0].lat.site_shape), generator=gen,
+                        device=cuda)
+        mg._hp = None
+        need = mg.batch_bytes(n)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = mg.solve_certified_batch(b, tol=1e-10, inner_tol=1e-6)
+        torch.cuda.synchronize()
+        growth = torch.cuda.max_memory_allocated() - base
+        assert max(res.relres) <= 1e-10
+        assert growth <= need, (n, growth, need, mg.batch_buffers(n))

@@ -156,11 +156,15 @@ def test_batch_bytes_count_every_level():
                    generator=torch.Generator().manual_seed(14))
     mg3 = DeviceMG(_port_fine(), DeviceMGParams(**dict(PARAMS, setup_iters=2)),
                    generator=torch.Generator().manual_seed(14))
-    per_col = 2 * PARAMS["restart"] + 10
+    restart = PARAMS["restart"]
     coarse = [4 * 2 * lv.n * lv.Vc for lv in mg3.levels[1:]]
     fine = 4 * 2 * 2 * 12 * LAT.half_volume
-    assert mg3.batch_bytes(3) == 3 * per_col * (fine + sum(coarse))
-    assert mg2.batch_bytes(3) == 3 * per_col * (fine + coarse[0])
+
+    def per_columns(mg):                      # what 3 columns add to the once terms
+        return mg.batch_bytes(3) - mg.batch_bytes(0)
+    assert per_columns(mg3) == 3 * ((2 * restart + 16) * fine
+                                    + (2 * restart + 23) * sum(coarse))
+    assert per_columns(mg2) == 3 * ((2 * restart + 16) * fine + (2 * restart + 23) * coarse[0])
 
 
 def test_mg3_example_parses_to_near_critical_levels_3_in_both_packages():

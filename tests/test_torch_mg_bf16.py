@@ -289,21 +289,57 @@ def test_port_setup_with_bf16_buffers_certifies_one_and_three_columns():
         assert _hp_relres(b[i], batch.x[i]) <= 1e-10
 
 
-def test_batch_bytes_count_the_basis_at_its_storage_size():
-    """The fine GCR basis counts 2 bytes an element with gcr_dtype bfloat16;
-    the coarse levels' bases stay float32, as in tpuqcd."""
-    fine = _port_fine()
-    mg = DeviceMG(fine, DeviceMGParams(**dict(PARAMS, setup_iters=2)),
-                  generator=torch.Generator().manual_seed(25))
-    half = DeviceMG.from_parts(fine, DeviceMGParams(**dict(PARAMS, setup_iters=2),
-                                                    gcr_dtype="bfloat16"),
-                               mg.transfers, mg.levels[1:])
-    f = 4 * 2 * 2 * 12 * LAT.half_volume
-    c = 4 * 2 * mg.levels[1].n * mg.levels[1].Vc
-    basis = 2 * PARAMS["restart"]
-    assert mg.batch_bytes(3) == 3 * (basis + 10) * (f + c)
-    assert half.batch_bytes(3) == 3 * ((basis // 2 + 10) * f + (basis + 10) * c)
-    assert half.transfers == mg.transfers        # vec_dtype float32: the banks as given
+def _hierarchy_of(levels: int, buffers: dict) -> DeviceMG:
+    """A cheap two-level hierarchy at 4^3x8, or three levels at 8^4 (blocks
+    2^4 twice), with the buffers ``buffers`` (BF16 or none)."""
+    if levels == 2:
+        fine, kw = _port_fine(), dict(PARAMS, setup_iters=2)
+    else:
+        lat8, jlat8 = lattices((8, 8, 8, 8))
+        fine = DeviceFineLevel(lat8, t(jax_gauge_pk(gauge_full(lat8, 51), jlat8, True,
+                                                    jnp.float32)), KAPPA, MU)
+        kw = dict(PARAMS, n_vec=(4, 4), block=((2, 2, 2, 2),) * 2, setup_iters=2)
+    return DeviceMG(fine, DeviceMGParams(**kw, **buffers),
+                    generator=torch.Generator().manual_seed(25))
+
+
+@pytest.mark.parametrize("levels", [2, 3])
+@pytest.mark.parametrize("buffers", ["float32", "bfloat16"])
+def test_batch_bytes_count_the_basis_at_its_storage_size(buffers, levels):
+    """batch_bytes is the sum of the buffers batch_buffers names, each its
+    allocation's size: the fine GCR basis 2 bytes an element with gcr_dtype
+    bfloat16, 4 with float32; 16 float32 fine fields of work a column; 2
+    restart + 23 float32 fields of every coarse level a column (their bases
+    stay float32, as in tpuqcd); each transfer's bank once in restrict (a
+    float32 bank's conjugate, n_vec fields of the finer level; a bfloat16
+    bank's widened chunk and its conjugate, 2); and the float64 operator
+    once, until a solve builds it."""
+    mg = _hierarchy_of(levels, BF16 if buffers == "bfloat16" else {})
+    restart, fine = mg.params.restart, mg.levels[0]
+    f = 4 * 2 * 2 * 12 * fine.lat.half_volume
+    coarse = sum(4 * 2 * lv.n * lv.Vc for lv in mg.levels[1:])
+    assert len(mg.levels) == levels
+    items = mg.batch_buffers(3)
+    assert mg.batch_bytes(3) == sum(items.values())
+    basis = 3 * 2 * restart * f * (2 if buffers == "bfloat16" else 4) // 4
+    assert items[f"GCR basis ({buffers})"] == basis
+    work = {k: v for k, v in items.items()
+            if k not in (f"GCR basis ({buffers})", "coarse levels", "restrict's bank",
+                         "float64 operator")}
+    assert sum(work.values()) == 3 * 16 * f
+    assert items["coarse levels"] == 3 * (2 * restart + 23) * coarse
+    fields = [f] + [4 * 2 * lv.n * lv.Vc for lv in mg.levels[1:-1]]
+    assert items["restrict's bank"] == sum((2 if buffers == "bfloat16" else nv) * field
+                                           for nv, field in zip(mg.params.n_vec, fields))
+    assert items["float64 operator"] == 2 * fine.u_pk.nbytes == fine.as_hp().u_pk.nbytes
+    mg._hp = fine.as_hp()                     # what solve_certified_batch builds once
+    assert "float64 operator" not in mg.batch_buffers(3)
+    assert mg.batch_bytes(3) - mg.batch_bytes(0) == 3 * ((2 * restart * (
+        2 if buffers == "bfloat16" else 4) // 4 + 16) * f + (2 * restart + 23) * coarse)
+    if buffers == "float32":                  # vec_dtype float32: the banks as given
+        half = DeviceMG.from_parts(fine, dataclasses.replace(mg.params, gcr_dtype="bfloat16"),
+                                   mg.transfers, mg.levels[1:])
+        assert half.transfers == mg.transfers
 
 
 def test_bf16_bank_dumps_round_trip(jax_bf16_hierarchy, tmp_path):
@@ -372,3 +408,25 @@ def test_48cube_example_parses_to_the_same_params_in_both_packages():
     assert cfg.solver.inner_tol == near.inner_tol
     assert cfg.gauge.dims == (48, 48, 48, 96) and cfg.gauge.heatbath_sweeps == 160
     assert (cfg.action.kappa, cfg.action.mu) == (0.157, 0.0009)
+
+
+def test_twop_32cube_example_parses_to_the_same_params_in_both_packages():
+    """examples/twop_mg_bf16_32cube.yaml (the two-point run at 32^3x64 through
+    the MG branch in lockstep batches with both bfloat16 buffers): in the
+    slice, read by both packages into the same MG params, solver and
+    physics, with 4b's gauge recipe and action."""
+    path = str(ROOT / "examples/twop_mg_bf16_32cube.yaml")
+    cfg, jcfg = load_config(path), j_load_config(path)
+    check_in_slice(cfg)
+    assert dataclasses.asdict(cfg.mg) == dataclasses.asdict(jcfg.mg)
+    assert dataclasses.asdict(cfg.solver) == dataclasses.asdict(jcfg.solver)
+    for key in ("source_positions", "momenta", "projectors", "meson_channels",
+                "smear_n_gauss", "smear_alpha_gauss", "smear_n_ape"):
+        assert getattr(cfg.physics, key) == getattr(jcfg.physics, key), key
+    assert dataclasses.asdict(mg_params(cfg)) == {
+        **dataclasses.asdict(DeviceMGParams.near_critical()), **BF16,
+        "inner_tol": mg_params(cfg).inner_tol}
+    assert 1 < cfg.solver.rhs_batch < 12
+    assert cfg.gauge.dims == (32, 32, 32, 64) and cfg.gauge.heatbath_sweeps == 160
+    assert (cfg.action.kappa, cfg.action.mu, cfg.gauge.random_seed) == (0.157, 0.0009, 0)
+

@@ -6,11 +6,10 @@ iterations) and certified to 1e-10 mass by mass; a three-level
 hierarchy (8^4 -> 4^4 -> 2^4, replicated coarse levels) on 2 ranks over
 t against the one-rank hierarchy from the same seed (both levels' coarse
 links, the inner iterations, the certified x), as tests/_torch_mg_mesh.py
-holds the two-level one; and run_invert's CLI with action.mu_list on 2
-gloo ranks over t and over y.  Cost: about 65 s serial (five torchrun
-launches)."""
+holds the two-level one (run_invert's CLI with action.mu_list on 2 gloo
+ranks: test_torch_musweep_mesh_cli.py).  Cost: about 45 s serial (three
+torchrun launches)."""
 import functools
-import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +20,7 @@ from tpuqcd_torch.parallel.mesh import LatticeMesh
 from tpuqcd_torch.solve import full_system_relres
 
 from _torch_inputs import gauge_full, jax_gauge_pk, lattices, n, spinor_pk, t
-from _torch_mesh import KAPPA, LAT, MU, ROOT, inputs, run_worker, torchrun
+from _torch_mesh import KAPPA, LAT, MU, inputs, run_worker
 from _torch_mesh_worker import MG3_PARAMS, MUSWEEP_MU, mg_solve, musweep
 
 #: the sweep's meshes of 2 ranks: (t) under fused, (y) under overlap
@@ -109,24 +108,3 @@ def test_sharded_three_level_matches_one_rank(mg3_ranks):
     np.testing.assert_allclose(mg3_ranks["mg3_x"], x, atol=1e-10, rtol=0)
     assert full_system_relres(t(inp["u"]), t(inp["b"]), t(mg3_ranks["mg3_x"]), LAT3,
                               kappa=KAPPA, mu=MU) <= 1e-11
-
-
-@pytest.mark.parametrize("mesh,policy", [({"nt": 2}, "fused"), ({"ny": 2}, "overlap")],
-                         ids=["t-fused", "y-overlap"])
-def test_run_invert_sweep_on_two_gloo_ranks(mesh, policy, tmp_path):
-    """The user's path: torchrun of run_invert with examples/invert_musweep_mesh.yaml's
-    sweep; rank 0 alone prints the RESULT line, every mass certified by the
-    unsharded float64 operator on the gathered x."""
-    import yaml
-    raw = yaml.safe_load((ROOT / "examples/invert_musweep_mesh.yaml").read_text())
-    raw["mesh"] = mesh
-    path = tmp_path / "sweep_mesh.yaml"
-    path.write_text(yaml.safe_dump(raw))
-    r = torchrun(2, "-m", "tpuqcd_torch.cli.run_invert", "--config", str(path), "--device",
-                 "cpu")
-    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
-    assert len(lines) == 1, r.stdout[-2000:]
-    f = dict(kv.split("=", 1) for kv in re.findall(r"\w+=\S+", lines[0]))
-    rel = [float(v) for v in f["relres"].split(",")]
-    assert len(rel) == len(raw["action"]["mu_list"]) and max(rel) <= raw["solver"]["tol"]
-    assert f["comm_policy"] == policy and int(f["multishift_iters"]) > 0

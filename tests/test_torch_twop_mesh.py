@@ -1,178 +1,108 @@
 """run_twop on a mesh of gloo ranks (torchrun, tests/_torch_physics_mesh_worker.py):
-2 ranks over t (fused faces), 4 over (t, z) (fused) and 4 over (t, y) (the
-overlap engine), at 4x4x4x8 with the source off the origin on a rank
-other than 0.
+2 ranks over t (fused faces) here; 4 over (t, z) (fused) in
+test_torch_twop_mesh_tz.py and 4 over (t, y) (the overlap engine) in
+test_torch_twop_mesh_ty.py, at 4x4x4x8 with the source off the origin on a
+rank other than 0.  The pieces and whole runs of every mesh are checked
+by the tests of tests/_torch_twop_mesh.py; the (t) run is also held to
+tpuqcd's run_twop.main on one device, on a gauge file tpuqcd wrote,
+within test_torch_twop.py's limits (rtol 1e-4, atol 1e-6 of the largest
+value).
 
-Piece by piece, each gathered on rank 0 for the test only and held to the
-port's one-card function on the same inputs: the Gaussian smearing and
-one spatial hop (float64 inputs to 1e-13, float32 to 1e-6 of the largest
-value), the point sources (exactly), the momentum projection by the phase
-sum and, on the t-only mesh, by the FFT (1e-13; a mesh with z or y split
-refuses fft=True).  Whole runs through run_twop.main with every gather of
-a field made to raise: every dataset equal to the port's one-rank run
-within 1e-5 of the dataset's largest value (the one-rank run solves the
-columns in lockstep batches, the mesh one at a time with sums over the
-ranks: float32 x differs near 1e-7), every column certified to 1e-10,
-rank 0 alone writing tpuqcd's dataset names; the (t) run held to tpuqcd's
-run_twop.main on one device, on a gauge file tpuqcd wrote, within
-test_torch_twop.py's limits (rtol 1e-4, atol 1e-6 of the largest value).
-Cost: about 115 s serial (three torchrun launches, 20-26 s each, and
+The same launch runs a heatbath chain under torchrun (gauge.heatbath_n_cfg
+2, cli/common._heatbath_chain_members: every rank generates the chain,
+rank 0 writes each member, one all-reduce after each write): its member
+files byte for byte the one-process chain's, each member's correlators
+equal to run_twop.main's in one process within the mesh runs' limit
+(1e-5 of each dataset's largest value), every column of both members
+certified; and the chain made to fail on rank 0 (its directory) and on
+rank 1 (a member's plaquette), each raising on both ranks.
+Cost: about 70 s serial (one torchrun launch, the one-process chain run,
 tpuqcd's run_twop once, 45 s)."""
 import os
 import sys
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-import yaml
 
 from tpuqcd_torch.cli import run_twop
-from tpuqcd_torch.phys.propagator import packed_sources, point_sources
-from tpuqcd_torch.phys.smear import cov_laplace_3d_pk, gaussian_smear_pk
-from tpuqcd_torch.phys.threep_dev import project_momenta_pk
-from tpuqcd_torch.utils.config import load_config
 
-from _torch_inputs import gauge_full, jax_gauge_pk, lattices, spinor_pk, t
-from _torch_mesh import MESHES, torchrun
-from _torch_physics_mesh_worker import ALPHA, N_GAUSS, SRC, momenta
+from _torch_twop_mesh import (LAT, TWOP_RAW, _yaml, assert_runs_agree, gauge_file, h5_all,  # noqa: F401
+                              mesh_run_of, pieces_inputs, reference,
+                              test_every_column_is_certified_and_rank_0_alone_writes,
+                              test_pieces_match_one_card,
+                              test_run_twop_on_the_mesh_matches_one_rank)
 
-LAT, JLAT = lattices((4, 4, 4, 8))
-CPU = torch.device("cpu")
-#: the whole runs' limit, relative to each dataset's largest value
-RUN_ATOL = 1e-5
-#: the runs' gauge: an ILDG file tpuqcd writes (gauge_file), so that tpuqcd
-#: reads the same links
-TWOP_RAW = {
-    "gauge": {"dims": list(LAT.dims)},
-    "action": {"kappa": 0.115, "mu": 0.08},
-    "solver": {"tol": 1.0e-10, "backend": "xla"},
-    "physics": {"source_positions": [list(SRC)], "momenta": [[0, 0, 0], [1, 0, 0], [0, 1, 1]],
-                "smear_alpha_ape": 0.5, "smear_n_ape": 2, "smear_alpha_gauss": 1.0,
-                "smear_n_gauss": 4, "projectors": ["P+"],
-                "meson_channels": ["pion", "rho_x"]},
-}
+#: a two-member heatbath chain at 4x4x4x8 (the mesh runs' action and
+#: physics), its files under gauge.heatbath_dir
+CHAIN_GAUGE = {"dims": list(LAT.dims), "heatbath_beta": 6.0, "heatbath_sweeps": 2,
+               "heatbath_n_cfg": 2, "heatbath_skip": 1, "random_seed": 4}
+MEMBERS = ("c0000", "c0001")
+FILES = ("hb_b6_0000.lime", "hb_b6_0001.lime")
 
 
-def _yaml(path, raw, output, mesh=None, gauge_file=None) -> str:
-    raw = {**raw, "physics": {**raw["physics"], "output": str(output)}}
-    if gauge_file is not None:
-        raw["gauge"] = {**raw["gauge"], "config_file": str(gauge_file)}
-    if mesh is not None:
-        raw["mesh"] = dict(zip(("nt", "nz", "ny"), mesh))
-    path.write_text(yaml.safe_dump(raw))
-    return str(path)
+def chain_raw(ens_dir) -> dict:
+    return {**TWOP_RAW, "gauge": {**CHAIN_GAUGE, "heatbath_dir": str(ens_dir)}}
 
 
-def h5_all(path) -> dict:
-    import h5py
-    vals = {}
-    with h5py.File(path, "r") as f:
-        f.visititems(lambda name, obj: vals.__setitem__(name, np.asarray(obj))
-                     if isinstance(obj, h5py.Dataset) else None)
-    return vals
-
-
-def run_mesh(tmp, mesh, main, raw, pieces=None, gauge_file=None) -> dict:
-    """The worker on the ranks of ``mesh``: the pieces of ``pieces`` (a dict
-    of inputs), then ``main`` on ``raw`` with the mesh; returns the pieces,
-    each rank's record and the output file's datasets."""
-    args = ["--mesh", *map(str, mesh), "--out", str(tmp / "out.npz"), "--main", main,
-            "--config", _yaml(tmp / "cfg.yaml", raw, tmp / "mesh.h5", mesh, gauge_file)]
-    if pieces is not None:
-        np.savez(tmp / "in.npz", **pieces)
-        args += ["--pieces", str(tmp / "in.npz")]
-    torchrun(int(np.prod(mesh)), "tests/_torch_physics_mesh_worker.py", *args)
-    ranks = [dict(np.load(tmp / f"out.{r}.npz")) for r in range(int(np.prod(mesh)))]
-    return {"pieces": dict(np.load(tmp / "out.npz")) if pieces is not None else {},
-            "ranks": ranks, "h5": h5_all(tmp / "mesh.h5")}
-
-
-def one_rank(tmp, raw, gauge_file=None) -> dict:
-    """The port's run on one card (no mesh): its output file's datasets."""
-    cfg = load_config(_yaml(tmp / "one.yaml", raw, tmp / "one.h5", gauge_file=gauge_file))
-    run_twop.write(cfg, run_twop.measure(cfg, CPU))
-    return h5_all(tmp / "one.h5")
-
-
-def assert_runs_agree(got: dict, want: dict) -> None:
-    assert sorted(got) == sorted(want) and want
-    for k, w in want.items():
-        np.testing.assert_allclose(got[k], w, rtol=0, atol=RUN_ATOL * np.abs(w).max(), err_msg=k)
-
-
-@pytest.fixture(scope="module")
-def pieces_inputs():
-    rng = np.random.default_rng(5)
-    u_sm = jax_gauge_pk(gauge_full(LAT, 31), JLAT, False, jnp.float64)
-    cols = np.stack([spinor_pk(LAT, 32 + i, parities=2) for i in range(2)])
-    return dict(kind="twop", dims=np.array(LAT.dims), u_sm=np.asarray(u_sm), cols=cols,
-                dens=rng.standard_normal((2, 2, *LAT.site_shape)))
-
-
-@pytest.fixture(scope="module")
-def gauge_file(tmp_path_factory):
-    from tpuqcd.io.lime import write_ildg_gauge as j_write_ildg_gauge
-    path = tmp_path_factory.mktemp("gauge") / "conf.lime"
-    j_write_ildg_gauge(str(path), gauge_full(LAT, 2), JLAT)
-    return path
-
-
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory, gauge_file):
-    return one_rank(tmp_path_factory.mktemp("one"), TWOP_RAW, gauge_file)
-
-
-@pytest.fixture(scope="module", params=list(MESHES))
+@pytest.fixture(scope="module", params=["t"])
 def mesh_run(request, tmp_path_factory, pieces_inputs, gauge_file):
-    mesh = MESHES[request.param]
-    out = run_mesh(tmp_path_factory.mktemp(f"twop_{request.param}"), mesh, "run_twop",
-                   TWOP_RAW, pieces_inputs, gauge_file)
-    return request.param, mesh, out
+    tmp = tmp_path_factory.mktemp("chain_mesh")
+    (tmp / "a_file").write_text("")
+    failing = _yaml(tmp / "failing.yaml", chain_raw(tmp / "a_file" / "ensemble"),
+                    tmp / "failing.h5")
+    name, mesh, out = mesh_run_of(request.param, tmp_path_factory, pieces_inputs, gauge_file,
+                                  chain=chain_raw(tmp / "ensemble"), chain_failures=failing)
+    out["ensemble"] = tmp / "ensemble"
+    return name, mesh, out
 
 
-def _close(got, want, rel):
-    np.testing.assert_allclose(got, want, rtol=0, atol=rel * np.abs(want).max())
+@pytest.fixture(scope="module")
+def one_process_chain(tmp_path_factory):
+    """run_twop.main over the chain in one process: its directory (the
+    member files under ensemble/, the outputs chain.<ctag>.h5)."""
+    tmp = tmp_path_factory.mktemp("chain_one")
+    run_twop.main(["--config", _yaml(tmp / "one.yaml", chain_raw(tmp / "ensemble"),
+                                     tmp / "chain.h5"), "--device", "cpu"])
+    return tmp
 
 
-def test_pieces_match_one_card(mesh_run, pieces_inputs):
-    name, mesh, out = mesh_run
-    p, inp = out["pieces"], pieces_inputs
-    u_sm, cols = t(inp["u_sm"]), t(inp["cols"])
-    _close(p["smear_f64"], gaussian_smear_pk(u_sm, cols, LAT, ALPHA, N_GAUSS).numpy(), 1e-13)
-    _close(p["smear_f32"], gaussian_smear_pk(u_sm.float(), cols.float(), LAT, ALPHA,
-                                             N_GAUSS).numpy(), 1e-6)
-    _close(p["laplace"], cov_laplace_3d_pk(u_sm, cols, LAT).numpy(), 1e-13)
-    want = packed_sources(point_sources(LAT, SRC), LAT).numpy()
-    np.testing.assert_array_equal(p["sources"], want)
-    assert np.count_nonzero(want) == 12
-    xyz, dens = (SRC[3], SRC[2], SRC[1]), t(inp["dens"])
-    phase = project_momenta_pk(dens, LAT, momenta(), xyz, fft=False).numpy()
-    _close(p["proj"], phase, 1e-13)
-    if mesh[1] == mesh[2] == 1:
-        fft = project_momenta_pk(dens, LAT, momenta(), xyz, fft=True).numpy()
-        _close(p["proj_fft"], fft, 1e-13)
-        _close(fft, phase, 1e-13)
-    else:
-        assert str(p["proj_fft"]) == "refused"
-
-
-def test_run_twop_on_the_mesh_matches_one_rank(mesh_run, reference):
+def test_a_heatbath_chain_under_torchrun_writes_the_one_process_files(mesh_run,
+                                                                     one_process_chain):
     _, _, out = mesh_run
-    assert_runs_agree(out["h5"], reference)
+    assert sorted(os.listdir(out["ensemble"])) == list(FILES)
+    for name in FILES:
+        assert (out["ensemble"] / name).read_bytes() == \
+            (one_process_chain / "ensemble" / name).read_bytes(), name
 
 
-def test_every_column_is_certified_and_rank_0_alone_writes(mesh_run, reference):
+def test_a_heatbath_chain_under_torchrun_matches_the_one_process_run(mesh_run,
+                                                                    one_process_chain):
     _, mesh, out = mesh_run
-    ranks = out["ranks"]
+    runs = {ctag: (h5_all(out["tmp"] / f"chain.{ctag}.h5"),
+                   h5_all(one_process_chain / f"chain.{ctag}.h5")) for ctag in MEMBERS}
+    for got, want in runs.values():
+        assert_runs_agree(got, want)
+    a, b = (runs[ctag][1] for ctag in MEMBERS)
+    assert any(not np.allclose(a[k], b[k]) for k in a)       # two gauges, two results
+    ranks = out["chain"]
     assert len(ranks) == int(np.prod(mesh))
     for r in ranks:
-        assert r["relres"].max() <= 1e-10 and r["columns"].sum() == 24
-        assert set(r["stages"]) == {"gauge", "smearing", "sources", "solves_u", "solves_d",
-                                    "sink_smearing", "contractions", "projection"}
-    # one dataset group per correlator, three momenta each, all from rank 0
-    assert int(ranks[0]["written"]) * 3 == len(reference)
+        assert int(r["members"]) == 2
+        assert r["relres"].max() <= 1e-10 and r["columns"].sum() == 2 * 24
+    assert int(ranks[0]["written"]) == 2 * len(runs["c0000"][1]) // 3
     assert all(int(r["written"]) == 0 for r in ranks[1:])
+
+
+def test_a_chain_failure_on_any_rank_raises_on_every_rank(mesh_run):
+    """Rank 0 cannot create the chain's directory: it raises its OSError,
+    rank 1 a RuntimeError naming the step; rank 1's plaquette raises: it
+    raises its own error, rank 0 a RuntimeError.  Neither waits for a file
+    that is never written (the launch would time out)."""
+    _, _, out = mesh_run
+    raised = [{k: str(v) for k, v in r.items()} for r in out["failures"]]
+    assert raised[0]["dir"] in ("FileExistsError", "NotADirectoryError")
+    assert raised[1]["dir"] == "RuntimeError"
+    assert raised[0]["member"] == "RuntimeError" and raised[1]["member"] == "ValueError"
 
 
 @pytest.mark.parametrize("mesh_run", ["t"], indirect=True)
@@ -193,14 +123,3 @@ def test_the_t_mesh_run_matches_tpuqcd(mesh_run, tmp_path, monkeypatch, gauge_fi
     for k, w in want.items():
         np.testing.assert_allclose(out["h5"][k], w, rtol=1e-4, atol=1e-6 * np.abs(w).max(),
                                    err_msg=k)
-
-
-def test_the_mesh_examples_load_as_in_tpuqcd():
-    from tpuqcd.utils.config import load_config as j_load_config
-    for name in ("twop_mesh.yaml", "threep_mesh.yaml"):
-        path = os.path.join(os.path.dirname(__file__), "..", "examples", name)
-        cfg, jcfg = load_config(path), j_load_config(path)
-        mesh = (cfg.mesh.nt, cfg.mesh.nz, cfg.mesh.ny)
-        assert mesh == (jcfg.mesh.nt, jcfg.mesh.nz, jcfg.mesh.ny) and np.prod(mesh) > 1, name
-        for key in ("source_positions", "momenta", "projectors", "smear_n_gauss", "t_sinks"):
-            assert getattr(cfg.physics, key) == getattr(jcfg.physics, key), (name, key)

@@ -15,7 +15,7 @@ from tpuqcd_torch.parallel.mesh import LatticeMesh
 from tpuqcd_torch.solve import full_system_relres
 from tpuqcd_torch.utils.config import load_config
 
-from test_torch_twop_mesh import CPU, TWOP_RAW, _yaml, assert_runs_agree, h5_all, one_rank, \
+from _torch_twop_mesh import CPU, TWOP_RAW, _yaml, assert_runs_agree, h5_all, one_rank, \
     run_mesh
 
 #: tpuqcd's test_twop_mesh_mg_tiny: its lattice, action, tolerance, physics

@@ -136,32 +136,64 @@ def _heatbath_chain_members(cfg: RunConfig, device: torch.device, keep: list | N
     (tpuqcd/cli/common.py:124-178).  ``keep``, a list, receives per member
     a dict: its in-memory device-layout links "links", "path",
     "plaquette", "sweeps_seconds" (its sweeps, host clock, device
-    synchronised) and "write" (write_ildg_gauge's seconds by stage)."""
+    synchronised) and "write" (write_ildg_gauge's seconds by stage; empty
+    on a rank that does not write).
+
+    Under torchrun (tpuqcd is single-controller) every rank runs the same
+    chain on its own device from the same seed, and rank 0 alone writes
+    each member.  After each write one all-reduce (parallel/dist.
+    rank0_outcome) hands every rank the plaquette rank 0 computed, and
+    raises on every rank if the member failed on any of them.  The ranks
+    reach that collective after the same sweeps, so none waits in it
+    longer than rank 0's write of one member; every rank then reads the
+    members' files as it reads gauge.config_files."""
     from ..io.lime import write_ildg_gauge
     from ..ops.heatbath import generate_ensemble
     from ..parallel import dist as tdist
-    if tdist.world_size() > 1:
-        raise NotImplementedError("a heatbath chain (gauge.heatbath_n_cfg > 1) is generated and "
-                                  "written by one process: run it alone, then hand its files "
-                                  "to the ranks as gauge.config_files")
     g = cfg.gauge
     lat = Lattice(tuple(g.dims))
     out_dir = g.heatbath_dir or os.path.join(os.path.dirname(cfg.physics.output) or ".",
                                              "ensemble")
-    os.makedirs(out_dir, exist_ok=True)
+    writer = tdist.rank() == 0
+
+    def settled(failure, value, what):
+        """rank 0's value, once every rank knows whether ``what`` failed on any."""
+        failed, value = tdist.rank0_outcome(value, failure is not None, device)
+        if failure is not None:
+            raise failure
+        if failed:
+            raise RuntimeError(f"{what} failed on {failed} of {tdist.world_size()} ranks")
+        return value
+
+    failure = None
+    if writer:
+        try:
+            os.makedirs(out_dir, exist_ok=True)
+        except OSError as e:
+            failure = e
+    settled(failure, 0.0, f"the heatbath chain's directory {out_dir}")
     gen = torch.Generator(device=device).manual_seed(int(g.random_seed))
     chain = generate_ensemble(gen, lat, g.heatbath_beta, g.heatbath_n_cfg,
                               n_therm=g.heatbath_sweeps, n_skip=g.heatbath_skip)
     members = []
     t0 = time.perf_counter()
-    for i, u_dev in enumerate(chain):
-        sync(device)
-        sweeps_s = time.perf_counter() - t0
-        plaq = plaquette(u_dev, lat)
+    for i in range(g.heatbath_n_cfg):
         path = os.path.join(out_dir, f"hb_b{g.heatbath_beta:g}_{i:04d}.lime")
-        wr = write_ildg_gauge(path, gauge_eo_to_full(gauge_from_device(u_dev, lat), lat), lat)
-        log.info("heatbath chain member %d -> %s (plaquette %.8f; sweeps %.3f s, write %.3f s)",
-                 i, path, plaq, sweeps_s, sum(wr.values()))
+        failure, plaq, wr = None, float("nan"), {}
+        try:
+            u_dev = next(chain)
+            sync(device)
+            sweeps_s = time.perf_counter() - t0
+            plaq = plaquette(u_dev, lat)
+            if writer:
+                wr = write_ildg_gauge(path, gauge_eo_to_full(gauge_from_device(u_dev, lat), lat),
+                                      lat)
+        except Exception as e:      # raised by settled, once every rank knows of it
+            failure = e
+        plaq = settled(failure, plaq, f"heatbath chain member {i} ({path})")
+        log.info("heatbath chain member %d -> %s (plaquette %.8f; sweeps %.3f s, %s)", i, path,
+                 plaq, sweeps_s,
+                 f"write {sum(wr.values()):.3f} s" if writer else "written by rank 0")
         if keep is not None:
             keep.append({"links": u_dev, "path": path, "plaquette": plaq,
                          "sweeps_seconds": sweeps_s, "write": wr})

@@ -276,18 +276,66 @@ class DeviceMG:
             raise NotImplementedError(f"{what}: a sharded hierarchy solves its columns one "
                                       "at a time, as tpuqcd's (cli/common.py:452-456)")
 
+    def batch_buffers(self, n_rhs: int) -> dict:
+        """The buffers solve_certified_batch allocates on the card for n_rhs
+        columns and holds together at its peak, by name -> bytes; their sum
+        is batch_bytes.  F is one float32 fine field (_fine_field_bytes),
+        m the GCR restart.  The peak falls in a V-cycle's smoothing inside a
+        fine GCR iteration (Gram-Schmidt and the transfers add less a
+        column), the same in every cycle.  Each column holds there:
+
+        * the float64 source and iterate, 4 F (solve_certified_batch's
+          b64 and x);
+        * the float32 residual handed to solve_batch, 1 F (r32);
+        * solve_batch's iterate and residual between cycles, 2 F (the x
+          and r it passes to _gcr_cycle);
+        * the GCR basis, Z and V, 2 m fields in gcr_dtype
+          (solvers/krylov_pk._gcr_cycle: Z, V);
+        * the cycle's own iterate and residual, 2 F (its x and r);
+        * the V-cycle's fine iterate and residual, 2 F (_vcycle_level's
+          x and r);
+        * the MR smoother's work, 5 F (mr_smoother_pk: with a bfloat16
+          smoother the bfloat16 right-hand side, x, r and A r, 2 F, and
+          pkalg.cdot's float32 copies of A r and r and the product under
+          torch.linalg.vecdot, 3 F; with a float32 smoother x, r, A r and
+          the new x and r);
+        * on each coarse level, 2 restart + 23 of its float32 fields: its
+          GCR basis (gcr_fixed_pk, float32 at every depth as in tpuqcd),
+          its GCR and V-cycle iterates and residuals and z, v (6), its
+          smoother's work (5), and DeviceCoarseLevel.apply's complex copy,
+          nine gathered neighbours, product and stacked result (12).
+
+        Paid once: the float64 operator, as_hp's copy of the fine level's
+        links (and clover blocks), while solve_certified_batch has not
+        built it; and each transfer's bank in restrict's V^dag product
+        (mg/device._Transfer._wdag): a float32 bank's conjugate, n_vec
+        fields of the finer level, or a bfloat16 bank's widened chunk and
+        its conjugate, 2 (BANK_CHUNK_FIELDS)."""
+        p, fine = self.params, self.levels[0]
+        fields = [self._fine_field_bytes()] + [4 * 2 * lv.n * lv.Vc for lv in self.levels[1:]]
+        f, coarse = fields[0], sum(fields[1:])
+        out = {
+            "float64 source and iterate": n_rhs * 4 * f,
+            "float32 residual of the refinement": n_rhs * f,
+            "solve_batch iterate and residual": n_rhs * 2 * f,
+            f"GCR basis ({p.gcr_dtype})": n_rhs * 2 * p.restart * f
+                                           * torch.finfo(self._basis_dtype()).bits // 32,
+            "GCR cycle iterate and residual": n_rhs * 2 * f,
+            "V-cycle iterate and residual": n_rhs * 2 * f,
+            "MR smoother work": n_rhs * 5 * f,
+            "coarse levels": n_rhs * (2 * p.restart + 23) * coarse,
+            "restrict's bank": sum((2 if self._vec_dtype() == torch.bfloat16 else tr.n_vec)
+                                   * field for tr, field in zip(self.transfers, fields)),
+        }
+        if self._hp is None:
+            promoted = [fine.u_pk, getattr(fine, "clover_pk", None)]
+            out["float64 operator"] = sum(2 * t.nbytes for t in promoted if t is not None)
+        return out
+
     def batch_bytes(self, n_rhs: int) -> int:
-        """Device memory solve_certified_batch holds at its peak for n_rhs
-        columns: on the fine level the GCR basis (Z and V, 2 restart fields
-        a column, in gcr_dtype), and about 10 more float32 fields a column
-        for the iterate, residual, V-cycle temporaries and the float64
-        iterate, source and residual; on every coarse level as many of its
-        float32 fields (its GCR basis, float32 at every depth as in tpuqcd,
-        and V-cycle temporaries)."""
-        basis = 2 * self.params.restart
-        fine_basis = basis * torch.finfo(self._basis_dtype()).bits // 32
-        coarse = self._column_field_bytes() - self._fine_field_bytes()
-        return n_rhs * ((fine_basis + 10) * self._fine_field_bytes() + (basis + 10) * coarse)
+        """Device memory solve_certified_batch allocates for n_rhs columns at
+        its peak: the sum of batch_buffers."""
+        return sum(self.batch_buffers(n_rhs).values())
 
     def _fine_field_bytes(self) -> int:
         """One float32 field of the fine level."""
@@ -306,14 +354,18 @@ class DeviceMG:
         free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
         need = self.batch_bytes(n_rhs)
         if need > free:
-            gcr = self.params.gcr_dtype
+            p, f = self.params, self._fine_field_bytes()
+            per_column = (self.batch_bytes(n_rhs) - self.batch_bytes(0)) / n_rhs
             raise MemoryError(
                 f"a batched MG solve of {n_rhs} right-hand sides needs about "
-                f"{need / 2**30:.1f} GiB ({n_rhs} x (2 x restart {self.params.restart} + 10) "
-                f"fields of every level, {self._column_field_bytes() / 2**20:.0f} MiB a set "
-                f"in float32, the fine GCR basis in {gcr}) and {free / 2**30:.1f} GiB are "
-                f"free on {dev}: lower solver.rhs_batch"
-                + ("" if gcr == "bfloat16" else " or set mg.gcr_dtype: bfloat16"))
+                f"{need / 2**30:.1f} GiB ({per_column / f:.1f} fine fields of "
+                f"{f / 2**20:.0f} MiB a column: the GCR basis, 2 x restart {p.restart} fields "
+                f"in {p.gcr_dtype}, and 16 float32 fields of the solve's float64 source, "
+                f"iterate and residual, its GCR and V-cycle work and smoother, with the "
+                f"coarse levels' share; {(need - n_rhs * per_column) / 2**30:.1f} GiB once; "
+                f"DeviceMG.batch_buffers) and {free / 2**30:.1f} GiB are free on {dev}: "
+                f"lower solver.rhs_batch"
+                + ("" if p.gcr_dtype == "bfloat16" else " or set mg.gcr_dtype: bfloat16"))
 
     def solve_batch(self, b: torch.Tensor, tol: float = 1e-6,
                     maxiter: int = 200) -> GCRResultPk:
@@ -332,6 +384,7 @@ class DeviceMG:
             return self._vcycle(0, r, cols=True)
 
         x, r = torch.zeros_like(b), b
+        del b                       # r is the source until the first cycle replaces it
         tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))
         rsq, it = pk.norm2(r, cols=True), 0
         while rsq.max().item() > tol2 and it < maxiter:
@@ -351,8 +404,8 @@ class DeviceMG:
         2(par), 4, 3, T, Z, S]: per-column normalization and float64
         certification (tpuqcd/mg/dsolve.py:377).  x is float64 in b's
         layout, relres a list, iters the inner iterations (common to the
-        columns).  Raises MemoryError before allocating when the GCR basis
-        of N columns does not fit the card (batch_bytes)."""
+        columns).  Raises MemoryError before allocating when what the solve
+        allocates for N columns does not fit the card (batch_buffers)."""
         self._single_card("solve_certified_batch")
         self._check_batch_fits(b.shape[0])
         if inner_tol is None:
@@ -380,10 +433,13 @@ class DeviceMG:
                 print(f"[mg] refine {it}: true relres max {max(rel):.3e} ({total} inner iters)")
             if max(rel) <= tol or it == max_refine:
                 break
-            res = self.solve_batch(r64.to(torch.float32), tol=inner_tol, maxiter=maxiter)
+            r32 = r64.to(torch.float32)
+            del r64                 # neither is held while the next inner solve runs
+            res = self.solve_batch(r32, tol=inner_tol, maxiter=maxiter)
             total += res.iters
             nref += 1
             x += res.x.to(torch.float64)
+            del res, r32
         return CertifiedResult(x * bnorm, rel, total, nref)
 
     def solve(self, b: torch.Tensor, tol: float = 1e-6, maxiter: int = 200) -> GCRResultPk:

@@ -23,9 +23,15 @@ import torch.distributed as dist
 log = logging.getLogger("tpuqcd_torch")
 
 
+#: the variables of torchrun's env:// rendezvous
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
 def is_enabled() -> bool:
-    """True when the process was launched as one rank of several (torchrun)."""
-    return int(os.environ.get("WORLD_SIZE", "1")) > 1
+    """True when the process was launched by torchrun, as one rank of
+    several or alone (--nproc_per_node 1: a group of one, whose collectives
+    run over the same backend)."""
+    return all(k in os.environ for k in _TORCHRUN_ENV)
 
 
 def init_distributed(device_type: str) -> torch.device | None:
@@ -97,6 +103,21 @@ def all_processes_agree(value: float, tag: str = "") -> bool:
     if not ok:
         log.error("process disagreement on %s: %r vs %r", tag, value, total)
     return ok
+
+
+def rank0_outcome(value: float, failed: bool, device: torch.device) -> tuple[int, float]:
+    """(how many ranks report ``failed``, rank 0's ``value``) on every rank,
+    in one all-reduce of two float64s on ``device`` ((int(failed), value)
+    without a group).  It closes a step that rank 0 alone finishes, such as
+    the write of a heatbath chain's member (cli/common._heatbath_chain_members):
+    every rank learns rank 0's result, and a failure on any rank is seen by
+    all, so that no rank is left waiting in a later collective."""
+    if not dist.is_initialized():
+        return int(failed), value
+    x = torch.tensor([float(failed), value if rank() == 0 and not failed else 0.0],
+                     dtype=torch.float64, device=device)
+    dist.all_reduce(x)
+    return int(x[0].item()), x[1].item()
 
 
 def broadcast_float(value: float, device: torch.device, src: int = 0) -> float:

@@ -61,7 +61,9 @@ def _gcr_cycle(matvec: Callable, precond: Callable, x: torch.Tensor, r: torch.Te
     largest workspace, 2 m fields (tpuqcd's gcr_dtype).  The arithmetic
     stays in x's dtype: Gram-Schmidt widens one stored direction at a
     time, and the iteration's own update takes the normalised z and v
-    before they are rounded for storage (tpuqcd/solvers/krylov_pk.py:84-101)."""
+    before they are rounded for storage (tpuqcd/solvers/krylov_pk.py:84-101).
+    No direction is held past its use: the preconditioner of the next
+    iteration runs beside Z, V, x and r only (mg/dsolve.DeviceMG.batch_buffers)."""
     bdt = x.dtype if basis_dtype is None else basis_dtype
     Z = torch.empty((m, *x.shape), dtype=bdt, device=x.device)
     V = torch.empty_like(Z)
@@ -73,12 +75,14 @@ def _gcr_cycle(matvec: Callable, precond: Callable, x: torch.Tensor, r: torch.Te
             br, bi = pk.cdot(vj, v, cols=cols)
             z = pk.csub(br, bi, Z[j].to(z.dtype), z, cols)
             v = pk.csub(br, bi, vj, v, cols)
+            del vj
         inv = torch.rsqrt(torch.clamp(pk.norm2(v, cols=cols), min=1e-30))
         z, v = inv * z, inv * v
         Z[i], V[i] = z, v
         ar, ai = pk.cdot(v, r, cols=cols)
         x = pk.caxpy(ar, ai, z, x, cols)
         r = pk.csub(ar, ai, v, r, cols)
+        del z, v                    # stored: not held through the next preconditioning
     return x, r
 
 
