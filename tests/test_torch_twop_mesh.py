@@ -32,6 +32,8 @@ from _torch_twop_mesh import (LAT, TWOP_RAW, _yaml, assert_runs_agree, gauge_fil
                               test_pieces_match_one_card,
                               test_run_twop_on_the_mesh_matches_one_rank)
 
+pytestmark = pytest.mark.minutes
+
 #: a two-member heatbath chain at 4x4x4x8 (the mesh runs' action and
 #: physics), its files under gauge.heatbath_dir
 CHAIN_GAUGE = {"dims": list(LAT.dims), "heatbath_beta": 6.0, "heatbath_sweeps": 2,
